@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's device S2 block encode on one GPU.
+"""Drive the PyTorch/CUDA port's device paths on one GPU.
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with one CUDA card and ``nvcc``.  It builds the kernels from
-``compress_tpu_torch/csrc`` and then, on a 16 MiB seeded corpus (256
-blocks of 64 KiB mixing every class of ``compress_tpu_torch.corpus``):
+``compress_tpu_torch/csrc`` and then drives two paths.
+
+Device S2 block encode, on a 16 MiB seeded corpus (256 blocks of 64 KiB
+mixing every class of ``compress_tpu_torch.corpus``):
 
 1. prints the device (name, count, ``nvidia-smi`` name and power limit);
 2. builds the kernels and prints the seconds it took;
@@ -17,9 +19,28 @@ blocks of 64 KiB mixing every class of ``compress_tpu_torch.corpus``):
    to 0 just before and read just after; every body must decode with the
    port's S2 decoder to its input block; prints the ratio;
 7. times each kernel and its plain version with CUDA events (median after
-   a warm-up) and the whole path on the host clock, and prints one
-   ``{"kernels": [...]}`` line.
+   a warm-up) and the whole path on the host clock;
+8. traces one call with ``torch.profiler``.
 
+zstd v2 device encode, on 32 MiB: 8 jobs of 4 MiB (one launch of 512
+blocks at the default geometry: 64 KiB blocks, 512 KiB overlap prefix,
+long-range channel on), each 2 MiB of corpus blocks followed by a copy of
+them that starts an odd number of bytes in (``corpus.replica_jobs``):
+
+9.  holds the finder, parse, repeat-offset, FSE-chain and literal-lookup
+    kernels against their plain versions on the path's own intermediate
+    tensors (``zenc2._merged_matches`` feeds the parse, as in the
+    encoder): bit-identical;
+10. runs ``zstd.device.compress_device`` with the launch counters set to 0
+    just before and read just after, prints the frame size and ratio and
+    walks the frame (magic, header, every block header, the last-block
+    bit, regenerated sizes summing to the input).  This machine has no
+    zstd decoder: the frames decode with ``zstandard`` in the CPU tests;
+11. times each kernel, its plain version and the plain-PyTorch stages
+    (long-range channel, codes, literal, pack) with CUDA events, the whole
+    call on the host clock, and traces one call.
+
+Then it prints one ``{"kernels": [...]}`` line with all six kernels.
 Every comparison is exact (tolerance 0: all outputs are integers or
 bytes).  Any failure raises and the exit code is not 0.  The last line
 of standard output is ``{"ok": true, "device": {...}}``.
@@ -37,6 +58,8 @@ import torch
 
 N_BLOCKS = 256      # 16 MiB: one launch of MAX_LAUNCH_BLOCKS
 SEED = 0
+ZSTD_JOB = 4 << 20  # the v2 encoder's default job
+ZSTD_JOBS = 8       # one launch of the default max_launch_jobs
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 # CUDA-core rate (non-tensor) from the published H100 table; the integer
 # work of these kernels is counted against it for the operations bound
@@ -109,6 +132,244 @@ def max_abs_err(got, want) -> int:
     """Largest |kernel - plain| over a tuple of integer tensors."""
     return max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
                for a, b in zip(got, want))
+
+
+def _lit_section_len(body: bytes, block: int) -> int:
+    """Bytes of a compressed block's literal section (RFC 8878 §3.1.1.3.1),
+    checking that its regenerated size fits the block."""
+    typ, fmt = body[0] & 3, (body[0] >> 2) & 3
+    if typ < 2:                                          # raw or RLE
+        hdr = {0: 1, 2: 1, 1: 2, 3: 3}[fmt]
+        regen = int.from_bytes(body[:hdr], "little") >> (3 if hdr == 1 else 4)
+        size = hdr + (regen if typ == 0 else 1)
+    else:                                                # Huffman
+        hdr, bits = {0: (3, 10), 1: (3, 10), 2: (4, 14), 3: (5, 18)}[fmt]
+        v = int.from_bytes(body[:hdr], "little") >> 4
+        regen, comp = v & ((1 << bits) - 1), v >> bits
+        size = hdr + comp
+    if regen > block or size >= len(body):
+        raise AssertionError(f"literal section ({regen} bytes, {size} "
+                             f"encoded) does not fit its block")
+    return size
+
+
+def walk_frame(fr: bytes, n: int, job: int, block: int) -> dict:
+    """Walk a zstd frame's structure: magic, frame header (no checksum,
+    content size n, window >= job + job / 8), then every block header up
+    to the one with the last-block bit, which must end the frame.  Raw and
+    RLE blocks carry their regenerated size; a compressed block's literal
+    section must fit inside it and it regenerates one encoder block.
+    Returns the count of each block type and the regenerated total."""
+    if int.from_bytes(fr[:4], "little") != 0xFD2FB528:
+        raise AssertionError("bad magic")
+    fhd = fr[4]
+    if fhd & 0x3F:
+        raise AssertionError(f"unexpected frame header descriptor {fhd:#x}")
+    wd = fr[5]
+    window = (1 << ((wd >> 3) + 10)) * (8 + (wd & 7)) // 8
+    if window < job + job // 8:
+        raise AssertionError(f"window {window} below the job span")
+    fcs_len = {0: 0, 1: 2, 2: 4, 3: 8}[fhd >> 6]
+    fcs = int.from_bytes(fr[6:6 + fcs_len], "little") + (256 if fcs_len == 2
+                                                         else 0)
+    if fcs != n:
+        raise AssertionError(f"content size {fcs} != {n}")
+    pos = 6 + fcs_len
+    counts = {"raw": 0, "rle": 0, "compressed": 0}
+    total = 0
+    while True:
+        if pos + 3 > len(fr):
+            raise AssertionError("frame ends inside a block header")
+        bh = int.from_bytes(fr[pos:pos + 3], "little")
+        last, typ, size = bh & 1, (bh >> 1) & 3, bh >> 3
+        pos += 3
+        if typ == 3 or size > 1 << 17:
+            raise AssertionError(f"bad block header {bh:#x}")
+        if typ == 0:
+            counts["raw"] += 1
+            total += size
+            pos += size
+        elif typ == 1:
+            counts["rle"] += 1
+            total += size
+            pos += 1
+        else:
+            counts["compressed"] += 1
+            _lit_section_len(fr[pos:pos + size], block)
+            total += block
+            pos += size
+        if pos > len(fr):
+            raise AssertionError("block runs past the frame")
+        if last:
+            break
+    if pos != len(fr) or total != n:
+        raise AssertionError(f"frame walk ends at {pos} of {len(fr)} bytes, "
+                             f"regenerated {total} of {n}")
+    return {**counts, "regenerated": total}
+
+
+def zstd_path(dev) -> list:
+    """Phases 9-11: the zstd v2 path.  Returns its kernels' JSON entries
+    and the finder's numbers on this path (launches, times, error)."""
+    from compress_tpu_torch import corpus
+    from compress_tpu_torch.ops import lzkern, zenc2, zparse, zseqenc
+    from compress_tpu_torch.zstd import device as zdevice
+
+    job, blk = ZSTD_JOB, zenc2.BLOCK
+    pre = job // 8
+    t0 = time.perf_counter()
+    data_np = corpus.replica_jobs(ZSTD_JOBS, job, SEED)
+    data = data_np.tobytes()
+    n = len(data)
+    _say(f"zstd corpus: {ZSTD_JOBS} jobs x {job} bytes = {n} bytes, each "
+         f"{job // 2} bytes of corpus blocks + an odd-shifted copy (seed {SEED}, "
+         f"{time.perf_counter() - t0:.1f} s)")
+
+    # ---- 9. the path's intermediate tensors; kernels vs plain versions ---
+    src = torch.from_numpy(data_np)
+    jobs, prefixes, has_prefix = zdevice.launch_inputs(src, 0, ZSTD_JOBS, job)
+    jobs, prefixes = jobs.to(dev), prefixes.to(dev)
+    has_prefix = has_prefix.to(dev)
+    blocks, off, L, use = zenc2._merged_matches(jobs, prefixes, has_prefix)
+    R = blocks.shape[0]
+
+    errs = {}
+
+    def hold(name, got, want):
+        torch.cuda.synchronize()
+        errs[name] = max_abs_err(got, want)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        _say(f"{name} vs plain: bit-identical={same} "
+             f"max_abs_err={errs[name]}")
+        if not same:
+            raise AssertionError(f"{name} kernel differs from its plain "
+                                 "version")
+
+    hold("find_matches", lzkern.find_matches_blocks(blocks),
+         lzkern.find_matches_blocks_ref(blocks))
+    parsed = zparse.parse_blocks(blocks, off, L)
+    hold("parse_blocks", parsed, zparse.parse_blocks_ref(blocks, off, L))
+    ll, ml, of, lits, n_seqs, lit_cnt = parsed
+    rep = zseqenc.rep_scan(of, ll, n_seqs)
+    hold("rep_scan", [rep], [zseqenc.rep_scan_ref(of, ll, n_seqs)])
+    (pk_ll, pk_of, pk_ml, tables, extras, _, rle3,
+     _) = zenc2._codes_stage(ll, ml, rep, n_seqs)
+    chain_in = (pk_ll, pk_of, pk_ml, n_seqs, tables)
+    chain = zseqenc.fse_chain(*chain_in)
+    hold("fse_chain", chain, zseqenc.fse_chain_ref(*chain_in))
+    packed = zenc2._literal_tables(lits, lit_cnt, blk)[4]
+    hold("litlut", zenc2._litlut(lits, packed),
+         zenc2._litlut_ref(lits, packed))
+    ns = n_seqs.to(torch.int64)
+    sum_seqs, max_seqs = int(ns.sum()), int(ns.max())
+    _say(f"zstd intermediates: {R} blocks, sequences {sum_seqs} (longest "
+         f"chain {max_seqs}), literals {int(lit_cnt.sum())}; the long-range "
+         f"channel won over the finder at {int(use.sum())} positions")
+
+    # ---- 10. main path ------------------------------------------------------
+    counted = {"find": lzkern.find_matches_blocks,
+               "parse": zparse.parse_blocks, "rep": zseqenc.rep_scan,
+               "fse": zseqenc.fse_chain, "litlut": zenc2._litlut}
+    for f in counted.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    frame = zdevice.compress_device(data, job=job)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counted.items()}
+    _say(f"zstd main path launches: {launches} (first call {first_s:.2f} s)")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the zstd path did not run: "
+                             f"{launches}")
+    walk = walk_frame(frame, n, job, blk)
+    _say(f"zstd frame: {len(frame)} bytes, ratio {len(frame) / n:.6f}; "
+         f"walk {walk}. Decoding is checked on the CPU by the tests "
+         "(zstandard): this machine has no zstd decoder")
+
+    # ---- 11. times ----------------------------------------------------------
+    t = {
+        "find": cuda_ms(lambda: lzkern.find_matches_blocks(blocks), 10),
+        "parse": cuda_ms(lambda: zparse.parse_blocks(blocks, off, L), 10),
+        "rep": cuda_ms(lambda: zseqenc.rep_scan(of, ll, n_seqs), 10),
+        "fse": cuda_ms(lambda: zseqenc.fse_chain(*chain_in), 10),
+        "litlut": cuda_ms(lambda: zenc2._litlut(lits, packed), 20),
+    }
+    plain = {
+        "find": cuda_ms(lambda: lzkern.find_matches_blocks_ref(blocks), 2),
+        "parse": cuda_ms(lambda: zparse.parse_blocks_ref(blocks, off, L), 2),
+        "rep": cuda_ms(lambda: zseqenc.rep_scan_ref(of, ll, n_seqs), 1),
+        "fse": cuda_ms(lambda: zseqenc.fse_chain_ref(*chain_in), 1),
+        "litlut": cuda_ms(lambda: zenc2._litlut_ref(lits, packed), 20),
+    }
+    idx = lits.to(torch.int64)
+    tab256 = packed.view(R, 256)
+    lib_litlut = cuda_ms(lambda: torch.gather(tab256, 1, idx), 20)
+    full = torch.cat([prefixes, jobs], dim=1)
+    stages = {
+        "ldm": cuda_ms(lambda: zenc2._ldm_channel(full, has_prefix, pre,
+                                                  job), 3),
+        "codes": cuda_ms(lambda: zenc2._codes_stage(ll, ml, rep, n_seqs), 3),
+        "literal": cuda_ms(lambda: zenc2._literal_stage(lits, lit_cnt, blk),
+                           3),
+        "pack": cuda_ms(lambda: zenc2._pack_stage(*chain, extras, rle3,
+                                                  n_seqs), 3),
+        "encode_jobs": cuda_ms(lambda: zenc2.zstd_encode_jobs_v2(
+            jobs, job=job, prefixes=prefixes, has_prefix=has_prefix), 3),
+    }
+    t_call = host_ms(lambda: zdevice.compress_device(data, job=job), 3)
+    _say(f"zstd kernel times (ms, {R} blocks): " + ", ".join(
+        f"{k} {v:.4f} (plain {plain[k]:.4f})" for k, v in t.items())
+        + f"; torch.gather for litlut {lib_litlut:.4f}")
+    _say("zstd stage times (ms, CUDA events): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stages.items()))
+    _say(f"zstd whole call (host clock, ms): {t_call:.4f} "
+         f"({n / (t_call * 1e-3) / 1e9:.4f} GB/s)")
+    busy, wall, by_name = trace_path(lambda: zdevice.compress_device(data, job=job))
+    if busy > 0:
+        _say(f"zstd trace: device busy {busy:.4f} ms of {wall:.4f} ms wall, "
+             f"idle share {1 - busy / wall:.4f}; by name (ms): " + ", ".join(
+                 f"{k[:60]} {v:.4f}" for k, v in by_name[:10]))
+    else:
+        _say("zstd trace: the profiler recorded no device time "
+             "(not measured)")
+
+    # bounds: each input read once, each output written once.  The chains
+    # read only each block's own n_seqs entries; the operations are
+    # generous per-position (64, parse) and per-sequence (24 repeat, 60
+    # FSE) integer counts.  The chains are serial: their rows also give the
+    # longest chain, which bounds them harder than either count.
+    blk_b, seq_b = R * blk, R * zparse.MAXSEQ * 4
+    b_find = bound(blk_b + 8 * blk_b, blk_b * 16)       # as in phase 7
+    b_parse = bound(blk_b + 8 * blk_b + 3 * seq_b + blk_b + 8 * R, blk_b * 64)
+    b_rep = bound(8 * sum_seqs + 4 * R + seq_b, 24 * sum_seqs)
+    b_fse = bound(12 * sum_seqs + 3 * 128 * 4 + 4 * R + 2 * seq_b + 12 * R,
+                  60 * sum_seqs)
+    b_lut = bound(blk_b + R * 1024 + 8 * blk_b, 4 * blk_b)
+    rows = [
+        ("parse_blocks", "parse", "compress_tpu_torch/csrc/zparse.cu",
+         "compress_tpu/ops/zparse.py:90", b_parse, None),
+        ("rep_scan", "rep", "compress_tpu_torch/csrc/zseqenc.cu",
+         "compress_tpu/ops/zseqenc.py:41", b_rep, None),
+        ("fse_chain", "fse", "compress_tpu_torch/csrc/zseqenc.cu",
+         "compress_tpu/ops/zseqenc.py:115", b_fse, None),
+        ("litlut", "litlut", "compress_tpu_torch/csrc/litlut.cu",
+         "compress_tpu/ops/zenc2.py:207", b_lut, lib_litlut),
+    ]
+    out = []
+    for name, key, source, replaces, bnd, lib in rows:
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches[key],
+                 "max_abs_err": errs[name], "equal_to_plain": True,
+                 "ms": t[key], "plain_ms": plain[key], "bound_ms": bnd[0],
+                 "bound_by": bnd[1], "library_ms": lib}
+        if key in ("rep", "fse"):
+            entry["longest_chain"] = max_seqs
+        out.append(entry)
+    # the finder's row (phase 7, 256 blocks) gains this path's numbers
+    find = {"zstd_launches": launches["find"], "zstd_ms": t["find"],
+            "zstd_plain_ms": plain["find"], "zstd_bound_ms": b_find[0],
+            "zstd_max_abs_err": errs["find_matches"]}
+    return out, find
 
 
 def main() -> int:
@@ -266,6 +527,10 @@ def main() -> int:
          "bound_ms": emit_bound[0], "bound_by": emit_bound[1],
          "library_ms": None},
     ]
+
+    zstd_kernels, zstd_find = zstd_path(dev)
+    kernels[0].update(zstd_find)
+    kernels += zstd_kernels
 
     _say(smi)
     _say(json.dumps({"kernels": kernels}))

@@ -23,7 +23,7 @@ import torch
 _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("lzkern.cu", "lzemit.cu")
+SOURCES = ("lzkern.cu", "lzemit.cu", "zparse.cu", "zseqenc.cu", "litlut.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -32,6 +32,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "ct_find_matches": [_P, _P, _P, _P, _I, _I, _P],
     "ct_emit_blocks": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "ct_parse_blocks": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "ct_rep_scan": [_P, _P, _P, _P, _I, _I, _P],
+    "ct_fse_chain": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "ct_litlut": [_P, _P, _P, _P, _I, _I, _P],
 }
 
 _lib = None

@@ -1,4 +1,4 @@
-"""Seeded 64 KiB test blocks for the S2 block encoder.
+"""Seeded 64 KiB test blocks for the device encoders.
 
 Every block is generated from a numpy seed, so the tests and
 ``chip_smoke.py`` need no external files.  The classes cover what the
@@ -139,3 +139,19 @@ def corpus_blocks(n_blocks: int, seed: int = 0) -> np.ndarray:
         rng = np.random.default_rng([seed, i])
         out[i] = make_block(CLASSES[i % len(CLASSES)], rng)
     return out
+
+
+def replica_jobs(n_jobs: int, job: int, seed: int = 0) -> np.ndarray:
+    """(n_jobs * job,) uint8 for the zstd encoder's long-range channel:
+    each job is job / 2 bytes of corpus blocks (the classes in turn)
+    followed by a copy of them that starts an odd number of bytes in, so
+    the copy lies at offsets near job / 2 that are not a multiple of 16."""
+    half = job // 2
+    if half % BS:
+        raise ValueError(f"job / 2 must be a multiple of {BS}, got {half}")
+    out = np.empty((n_jobs, 2, half), np.uint8)
+    for j in range(n_jobs):
+        out[j, 0] = corpus_blocks(half // BS, seed * 1009 + j).reshape(-1)
+        shift = 2 * int(np.random.default_rng([seed, j]).integers(0, BS)) + 1
+        out[j, 1] = np.roll(out[j, 0], -shift)
+    return out.reshape(-1)

@@ -4,15 +4,8 @@
 // and with it the v1 kernel compress_tpu/ops/lzemit.py `_emit_kernel`, whose
 // outputs are identical.
 //
-// Function, per block (each stage as in the TPU kernel):
-//   A0. chain extension at the finder's suffix cap: L' = cap * links + 4
-//       where L == cap and off repeats every cap positions;
-//   A.  run probes at offsets 1, 2, 3, 4, 8 (in that order; a probe wins
-//       with a strictly longer run of >= 4 bytes), runs cut at the tile;
-//   B.  greedy parse of each 512-position tile with L_t = min(L, 512 - r_t);
-//   C.  cross-tile chain merge: a tile whose first op continues the
-//       previous tile's final op (same offset) is absorbed into it, with
-//       the terminal tile's length added only when its offset matches;
+// Function, per block: stages A0-C of the TPU kernel (chain extension, run
+// probes, greedy tile parse, cross-tile merge; lzparse.cuh), then
 //   D.  S2 tag bytes (literal runs cut at tiles, copy1/copy2 + repeat tag
 //       past 64 bytes) into 256 slots per 128-position row, 0 past rowlen.
 //
@@ -22,50 +15,22 @@
 // Design: one CTA per block and integer arithmetic only.  The TPU kernel
 // needed pointer doubling, shift-and-roll run lengths and an output-driven
 // binary-search route because a TPU core has no cheap scalar loop or
-// scatter; here the block's bytes, L_t (with the winning probe in its top
-// bits) and the take/literal bit masks stay in shared memory (216 KiB), so:
-//   A  a warp per tile: chain links are walked over a per-tile bit mask of
-//      chain continuations (a walk never leaves the tile, since the tile
-//      caps L), run lengths come from find-first-zero on 16-position masks
-//      plus a warp suffix-min;
-//   B  one thread per tile walks the greedy parse (at most 512 steps);
-//   C  one thread merges the 128 tile summaries;
+// scatter; here the parse lives in shared memory (lzparse.cuh describes
+// stages A-C), and
 //   D  a warp per row: an exclusive warp scan of the per-position byte
 //      counts places each op's bytes, which are written position-driven
 //      into a 256-byte row buffer and stored coalesced.
 // The serial tile walk (B) and the low occupancy of one 216 KiB CTA per SM
 // are what keep it above its bound.
-#include "ct_common.cuh"
+#include "lzparse.cuh"
 
 namespace {
 
 using namespace ct;
 
-constexpr int EMIT_THREADS = 512;
-constexpr int EMIT_WARPS = EMIT_THREADS / 32;
-constexpr unsigned FULL = 0xFFFFFFFFu;
-
-// shared-memory layout (bytes)
-constexpr int SM_LT = BS;                      // u16 L_t | probe << 12
-constexpr int SM_TAKE = SM_LT + 2 * BS;        // u32 take bits
-constexpr int SM_LIT = SM_TAKE + BS / 8;       // u32 literal bits
-constexpr int SM_TILE = SM_LIT + BS / 8;       // 8 int arrays of NT
-constexpr int SM_WARP = SM_TILE + 8 * NT * 4;  // 256 B per warp
-constexpr size_t EMIT_SMEM = SM_WARP + EMIT_WARPS * 256;
-
-__device__ __forceinline__ int probe_off(int id) {
-  return id == 1 ? 1 : id == 2 ? 2 : id == 3 ? 3 : id == 4 ? 4 : 8;
-}
-
-// offset of the op at a position: its winning probe's, else the finder's
-__device__ __forceinline__ int resolve_off(int ltv, int finder_off) {
-  int id = ltv >> 12;
-  return id ? probe_off(id) : finder_off;
-}
-
-__device__ __forceinline__ bool bit(const uint32_t* m, int g) {
-  return (m[g >> 5] >> (g & 31)) & 1u;
-}
+constexpr int EMIT_THREADS = PARSE_THREADS;
+constexpr int EMIT_WARPS = PARSE_WARPS;
+constexpr size_t EMIT_SMEM = PARSE_SMEM;
 
 // consecutive literal positions from g, cut at g's tile end
 __device__ __forceinline__ int lit_run(const uint32_t* litb, int g) {
@@ -85,149 +50,20 @@ __global__ void __launch_bounds__(EMIT_THREADS, 1)
                 uint8_t* __restrict__ out1, int32_t* __restrict__ rowlens,
                 int cap) {
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* blk = smem;
-  uint16_t* lt = reinterpret_cast<uint16_t*>(smem + SM_LT);
-  uint32_t* takeb = reinterpret_cast<uint32_t*>(smem + SM_TAKE);
-  uint32_t* litb = reinterpret_cast<uint32_t*>(smem + SM_LIT);
-  int* t_op0 = reinterpret_cast<int*>(smem + SM_TILE);
-  int* t_off0 = t_op0 + NT;
-  int* t_L0 = t_off0 + NT;
-  int* t_eoff = t_L0 + NT;
-  int* t_epos = t_eoff + NT;
-  int* t_abs = t_epos + NT;
-  int* t_recv = t_abs + NT;
-  int* t_W = t_recv + NT;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  uint8_t* wbuf = smem + SM_WARP + warp * 256;
+  const ParseSmem s = parse_smem(smem, warp);
+  const uint8_t* blk = s.blk;
+  const uint16_t* lt = s.lt;
+  const uint32_t* takeb = s.takeb;
+  const uint32_t* litb = s.litb;
+  const int* t_abs = s.t_abs;
+  const int* t_recv = s.t_recv;
+  const int* t_W = s.t_W;
+  uint8_t* wbuf = s.wbuf;
   const size_t b = blockIdx.x;
   const int32_t* offb = offs + b * BS;
-  const int32_t* lenb = lens + b * BS;
 
-  for (int i = tid; i < BS / 16; i += EMIT_THREADS)
-    reinterpret_cast<uint4*>(blk)[i] =
-        reinterpret_cast<const uint4*>(blocks + b * BS)[i];
-  for (int i = tid; i < BS / 32; i += EMIT_THREADS) {
-    takeb[i] = 0;
-    litb[i] = 0;
-  }
-  __syncthreads();
-
-  // ---- A0 + A: a warp per tile, 16 consecutive positions per lane -------
-  uint16_t* contm = reinterpret_cast<uint16_t*>(wbuf);
-  for (int t = warp; t < NT; t += EMIT_WARPS) {
-    const int T0 = t * TILE;
-    const int rt0 = lane * 16;
-    uint32_t cm = 0;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int g = T0 + rt0 + j;
-      const int og = offb[g];
-      if (lenb[g] == cap && og > 0 && g + cap < BS && offb[g + cap] == og &&
-          lenb[g + cap] >= 4)
-        cm |= 1u << j;
-    }
-    contm[lane] = (uint16_t)cm;
-    __syncwarp();
-
-    int Lc[16], pr[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int r_t = rt0 + j;
-      int Lg = lenb[T0 + r_t];
-      if (Lg == cap) {
-        // links: the walk stops once the tile cap is reached, which is
-        // all that min(L, TILE - r_t) below can see
-        int r = 0, q = r_t;
-        while (cap * r + 4 < TILE - r_t && ((contm[q >> 4] >> (q & 15)) & 1)) {
-          ++r;
-          q += cap;
-        }
-        if (r > 0) Lg = cap * r + 4;
-      }
-      Lc[j] = min(Lg, TILE - r_t);
-      pr[j] = 0;
-    }
-
-#pragma unroll
-    for (int id = 1; id <= 5; ++id) {
-      const int o = probe_off(id);
-      uint32_t m = 0;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int g = T0 + rt0 + j;
-        if (g >= o && blk[g] == blk[g - o]) m |= 1u << j;
-      }
-      const uint32_t inv = ~m & 0xFFFFu;
-      int sm = inv ? rt0 + __ffs(inv) - 1 : TILE;  // first mismatch
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        int v = __shfl_down_sync(FULL, sm, d);
-        if (lane + d < 32) sm = min(sm, v);
-      }
-      int after = __shfl_down_sync(FULL, sm, 1);
-      if (lane == 31) after = TILE;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const uint32_t sh = inv >> j;
-        const int Lr = sh ? __ffs(sh) - 1 : after - (rt0 + j);
-        if (Lr > Lc[j] && Lr >= 4) {
-          Lc[j] = Lr;
-          pr[j] = id;
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-      lt[T0 + rt0 + j] = Lc[j] >= 4 ? (uint16_t)(Lc[j] | (pr[j] << 12)) : 0;
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // ---- B: greedy parse, one thread per tile ------------------------------
-  if (tid < NT) {
-    const int t = tid, T0 = t * TILE;
-    int p = 0, epos = -1;
-    while (p < TILE) {
-      const int g = T0 + p;
-      const int Lt = lt[g] & 0x3FF;
-      if (Lt >= 4) {
-        takeb[g >> 5] |= 1u << (g & 31);
-        if (p + Lt == TILE) epos = p;
-        p += Lt;
-      } else {
-        litb[g >> 5] |= 1u << (g & 31);
-        p += 1;
-      }
-    }
-    const int v0 = lt[T0];
-    const int op0 = (v0 & 0x3FF) >= 4;  // the walk starts at position 0
-    t_op0[t] = op0;
-    t_L0[t] = v0 & 0x3FF;
-    t_off0[t] = op0 ? resolve_off(v0, offb[T0]) : 0;
-    t_epos[t] = epos;
-    t_eoff[t] = epos >= 0 ? resolve_off(lt[T0 + epos], offb[T0 + epos]) : -1;
-  }
-  __syncthreads();
-
-  // ---- C: cross-tile chain merge over the tile summaries ----------------
-  if (tid == 0) {
-    int kn = NT, Ln = 0;  // terminal tile and its length, seen from t + 1
-    int an = 0;           // tile t + 1 absorbed
-    for (int t = NT - 1; t >= 0; --t) {
-      const int a = t_op0[t] && t >= 1 && t_eoff[t - 1] > 0 &&
-                    t_off0[t] == t_eoff[t - 1];
-      const int c = a && t_L0[t] == TILE;
-      t_W[t] = (kn - (t + 1)) * TILE + Ln;
-      t_recv[t] = (an && !c) ? t_epos[t] : -1;
-      t_abs[t] = a;
-      if (!c) {
-        kn = t;
-        Ln = a ? min(t_L0[t], 1023) : 0;  // the terminal gate on a_t
-      }
-      an = a;
-    }
-  }
-  __syncthreads();
+  parse_block<false>(s, blocks + b * BS, offb, lens + b * BS, cap);
 
   // ---- D: emission, a warp per 128-position row, 4 positions per lane ---
   for (int row = warp; row < ROWS; row += EMIT_WARPS) {

@@ -1,0 +1,98 @@
+"""huff0 table serialization (RFC 8878 §4.2.1): a pure-Python copy of the
+JAX package's ``huff0.write_table`` and the helpers it needs.
+
+weight(s) = max_bits + 1 - nbits(s), 0 for an unused symbol; the last
+present symbol's weight is implied.  The weights are written FSE-compressed
+(header byte < 128, that many bytes follow) when that is smaller and
+decodes back unambiguously, else as raw nibbles (header byte >= 128)."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from compress_tpu_torch.fse import core as fse_core
+
+
+class IncompressibleError(ValueError):
+    pass
+
+
+def nbits_to_weights(nbits: np.ndarray, max_bits: int) -> np.ndarray:
+    w = np.where(nbits > 0, max_bits + 1 - nbits, 0)
+    return w.astype(np.int32)
+
+
+def write_table(nbits: np.ndarray, max_bits: int) -> bytes:
+    """Serialize weights: FSE-compressed if smaller, else raw nibbles."""
+    weights = nbits_to_weights(nbits, max_bits)
+    last = int(np.nonzero(nbits)[0][-1])
+    w_explicit = weights[:last]  # last present symbol's weight implied
+    n = len(w_explicit)
+
+    # raw nibble encoding: headerByte = 127 + number_of_weights, where the
+    # weight count EXCLUDES the implied last symbol (RFC 8878 §4.2.1.1);
+    # only representable for <= 128 explicit weights
+    raw = None
+    if n <= 128:
+        raw = bytearray([127 + n])
+        for i in range(0, n, 2):
+            hi = int(w_explicit[i])
+            lo = int(w_explicit[i + 1]) if i + 1 < n else 0
+            raw.append((hi << 4) | lo)
+
+    # FSE-compressed weights (accuracy <= 6, no explicit length)
+    fse_blob = None
+    if n >= 2:
+        try:
+            hist = np.bincount(w_explicit, minlength=256).astype(np.int64)
+            max_sym = int(np.nonzero(hist)[0][-1])
+            tl = fse_core.optimal_table_log(6, n, max_sym, max_table_log=6)
+            norm = fse_core.normalize_count(hist, tl, n, max_sym)
+            hdr = fse_core.write_ncount(norm, tl)
+            stream = fse_core.encode_interleaved2(
+                w_explicit.astype(np.uint8), norm, tl)
+            blob = hdr + stream
+            if len(blob) < 128 and (raw is None or len(blob) + 1 < len(raw)):
+                # verify unambiguous exhaustion-decode before committing
+                back = decode_weights_fse(bytes(blob))
+                if (back is not None and len(back) == n
+                        and (back == w_explicit).all()):
+                    fse_blob = bytes([len(blob)]) + blob
+        except (ValueError, IncompressibleError):
+            fse_blob = None
+    if fse_blob is not None:
+        return fse_blob
+    if raw is None:
+        raise IncompressibleError(
+            "table not serializable (>128 symbols, FSE failed)")
+    return bytes(raw)
+
+
+def decode_weights_fse(blob: bytes):
+    """Decode FSE-compressed weights (termination by stream exhaustion)."""
+    try:
+        norm, tl, pos = fse_core.read_ncount(blob, 0, max_symbol=255,
+                                             max_table_log=6)
+    except ValueError:
+        return None
+    spread, nb, new_state = fse_core.build_dtable(norm, tl)
+    try:
+        br = fse_core.BitReaderReverse(blob[pos:])
+    except ValueError:
+        return None
+    s1 = br.read(tl)
+    s2 = br.read(tl)
+    out = []
+    # zstd semantics: emit, reload; overflow on reload => other state emits
+    for _ in range(255):
+        out.append(int(spread[s1]))
+        s1 = int(new_state[s1]) + br.read(int(nb[s1]))
+        if br.bitpos < 0:
+            out.append(int(spread[s2]))
+            return np.array(out, dtype=np.int32)
+        out.append(int(spread[s2]))
+        s2 = int(new_state[s2]) + br.read(int(nb[s2]))
+        if br.bitpos < 0:
+            out.append(int(spread[s1]))
+            return np.array(out, dtype=np.int32)
+    return None  # did not terminate — treat as corrupt/ambiguous

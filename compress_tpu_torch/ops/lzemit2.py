@@ -63,15 +63,16 @@ def _shift_tiles(x: torch.Tensor, fill) -> torch.Tensor:
     return torch.cat([x[:, 1:], torch.full_like(x[:, :1], fill)], dim=1)
 
 
-def emit_blocks_ref(blocks_u8: torch.Tensor, off: torch.Tensor,
-                    L: torch.Tensor, cap: int = 10):
-    """Plain PyTorch parse+emit: the stages in order, on (NB, BS) tensors."""
-    nb = blocks_u8.shape[0]
-    dev = blocks_u8.device
+def parse_stages(blk: torch.Tensor, off: torch.Tensor, L: torch.Tensor,
+                 cap: int, zstd_gate: bool = False):
+    """Stages A0-C on (NB, BS) int32 bytes and (off, L): returns (take,
+    lit, L2, off), the ops after the merge (absorbed tile heads dropped),
+    the literal positions, each op's merged length and its offset.
+    ``zstd_gate`` applies the zstd cost gate between A and B: L = 0 where
+    L < 6 + (off >= 1024) + (off >= 65536)."""
+    nb = blk.shape[0]
+    dev = blk.device
     i32 = torch.int32
-    blk = blocks_u8.to(i32)
-    off = off.to(i32)
-    L = L.to(i32)
     g = torch.arange(BS, device=dev, dtype=i32)
     r_t = g & (TILE - 1)
 
@@ -92,6 +93,10 @@ def emit_blocks_ref(blocks_u8: torch.Tensor, off: torch.Tensor,
         better = (Lr > L) & (Lr >= 4)
         L = torch.where(better, Lr, L)
         off = torch.where(better, o, off)
+
+    if zstd_gate:
+        min_l = 6 + (off >= 1024).to(i32) + (off >= 65536).to(i32)
+        L = torch.where(L >= min_l, L, 0)
 
     # ---- B. greedy tile parse ---------------------------------------------
     L_t = torch.minimum(L, TILE - r_t)
@@ -137,7 +142,19 @@ def emit_blocks_ref(blocks_u8: torch.Tensor, off: torch.Tensor,
     absorbed = a_t[:, :, None] & (rt3 == 0)
     take = (take & ~absorbed).view(nb, BS)
     L2 = (LT + torch.where(receiver, W[:, :, None], 0)).view(nb, BS)
-    lit = lit.view(nb, BS)
+    return take, lit.view(nb, BS), L2, off
+
+
+def emit_blocks_ref(blocks_u8: torch.Tensor, off: torch.Tensor,
+                    L: torch.Tensor, cap: int = 10):
+    """Plain PyTorch parse+emit: the stages in order, on (NB, BS) tensors."""
+    nb = blocks_u8.shape[0]
+    dev = blocks_u8.device
+    i32 = torch.int32
+    blk = blocks_u8.to(i32)
+    g = torch.arange(BS, device=dev, dtype=i32)
+    r_t = g & (TILE - 1)
+    take, lit, L2, off = parse_stages(blk, off.to(i32), L.to(i32), cap)
 
     # ---- D. emission ------------------------------------------------------
     prev_lit = torch.zeros_like(lit)

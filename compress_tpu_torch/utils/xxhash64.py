@@ -1,0 +1,73 @@
+"""xxHash64 (the zstd frame content checksum keeps its low 32 bits): a
+pure-Python copy of the JAX package's ``utils/xxhash64.py`` one-shot
+digest."""
+
+from __future__ import annotations
+
+_P1 = 0x9E3779B185EBCA87
+_P2 = 0xC2B2AE3D27D4EB4F
+_P3 = 0x165667B19E3779F9
+_P4 = 0x85EBCA77C2B2AE63
+_P5 = 0x27D4EB2F165667C5
+_M64 = (1 << 64) - 1
+
+
+def _rotl(x: int, r: int) -> int:
+    return ((x << r) | (x >> (64 - r))) & _M64
+
+
+def _round(acc: int, inp: int) -> int:
+    acc = (acc + inp * _P2) & _M64
+    return (_rotl(acc, 31) * _P1) & _M64
+
+
+def _merge_round(acc: int, val: int) -> int:
+    acc ^= _round(0, val)
+    return (acc * _P1 + _P4) & _M64
+
+
+def xxh64(data, seed: int = 0) -> int:
+    """xxHash64 digest of data (bytes-like)."""
+    data = bytes(data)
+    n = len(data)
+    if n >= 32:
+        v1 = (seed + _P1 + _P2) & _M64
+        v2 = (seed + _P2) & _M64
+        v3 = seed & _M64
+        v4 = (seed - _P1) & _M64
+        i = 0
+        limit = n - 32
+        while i <= limit:
+            v1 = _round(v1, int.from_bytes(data[i : i + 8], "little"))
+            v2 = _round(v2, int.from_bytes(data[i + 8 : i + 16], "little"))
+            v3 = _round(v3, int.from_bytes(data[i + 16 : i + 24], "little"))
+            v4 = _round(v4, int.from_bytes(data[i + 24 : i + 32], "little"))
+            i += 32
+        h = (_rotl(v1, 1) + _rotl(v2, 7) + _rotl(v3, 12) + _rotl(v4, 18)) & _M64
+        h = _merge_round(h, v1)
+        h = _merge_round(h, v2)
+        h = _merge_round(h, v3)
+        h = _merge_round(h, v4)
+    else:
+        h = (seed + _P5) & _M64
+        i = 0
+    h = (h + n) & _M64
+    while i + 8 <= n:
+        k1 = _round(0, int.from_bytes(data[i : i + 8], "little"))
+        h ^= k1
+        h = (_rotl(h, 27) * _P1 + _P4) & _M64
+        i += 8
+    if i + 4 <= n:
+        h ^= (int.from_bytes(data[i : i + 4], "little") * _P1) & _M64
+        h = (_rotl(h, 23) * _P2 + _P3) & _M64
+        i += 4
+    while i < n:
+        h ^= (data[i] * _P5) & _M64
+        h = (_rotl(h, 11) * _P1) & _M64
+        i += 1
+    h ^= h >> 33
+    h = (h * _P2) & _M64
+    h ^= h >> 29
+    h = (h * _P3) & _M64
+    h ^= h >> 32
+    return h

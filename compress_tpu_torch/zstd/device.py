@@ -1,0 +1,277 @@
+"""zstd frames from the device v2 encoder (counterpart of the JAX package's
+``zstd/device.py`` with ``engine="v2"``).
+
+The device (``ops/zenc2.py``) produces, per 64 KiB block, the sequences,
+the literal count, the huff0 4-stream literal halves and the FSE
+sequence-stream halves.  This module is the host's byte plumbing: it picks
+raw, RLE or compressed per section, writes the headers, splices the device
+streams and sets the end-of-stream bit of each.
+
+Repeat codes are emitted, but the first 3 sequences of every block are
+plain off + 3 (``zseqenc.rep_scan``), so a block never needs another's
+repeat state.  The FSE tables are shared by one launch's blocks: a job's
+first compressed block with sequences carries them, later ones repeat.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from compress_tpu_torch._cuda import resolve_device
+from compress_tpu_torch.fse import core as fse_core
+from compress_tpu_torch.huff0.table import write_table
+from compress_tpu_torch.ops import zenc2
+from compress_tpu_torch.utils.xxhash64 import xxh64
+from compress_tpu_torch.zstd import frame as F
+
+DEFAULT_JOB = 4 << 20
+
+
+def _lit_header_raw(regen: int) -> bytes:
+    if regen < 32:
+        return bytes([0 | (regen << 3)])
+    if regen < 4096:
+        return (0 | (1 << 2) | (regen << 4)).to_bytes(2, "little")
+    return (0 | (3 << 2) | (regen << 4)).to_bytes(3, "little")
+
+
+def _lit_header_rle(regen: int) -> bytes:
+    if regen < 32:
+        return bytes([1 | (regen << 3)])
+    if regen < 4096:
+        return (1 | (1 << 2) | (regen << 4)).to_bytes(2, "little")
+    return (1 | (3 << 2) | (regen << 4)).to_bytes(3, "little")
+
+
+def _lit_header_comp(lit_type: int, regen: int, comp: int) -> bytes:
+    # 4-stream sizes; pick the smallest size_format that fits
+    if regen < 1 << 10 and comp < 1 << 10:
+        v = lit_type | (1 << 2) | (regen << 4) | (comp << 14)
+        return v.to_bytes(3, "little")
+    if regen < 1 << 14 and comp < 1 << 14:
+        v = lit_type | (2 << 2) | (regen << 4) | (comp << 18)
+        return v.to_bytes(4, "little")
+    v = lit_type | (3 << 2) | (regen << 4) | (comp << 22)
+    return v.to_bytes(5, "little")
+
+
+def _seq_count_header(n: int) -> bytes:
+    if n == 0:
+        return b"\x00"
+    if n < 128:
+        return bytes([n])
+    if n < 0x7F00:
+        return bytes([128 + (n >> 8), n & 0xFF])
+    return b"\xff" + (n - 0x7F00).to_bytes(2, "little")
+
+
+def _extract_literals(block: bytes, lls, mls, ns: int) -> bytes:
+    """The per-sequence literal runs and the tail, gathered at once."""
+    if ns == 0:
+        return block
+    lls = np.asarray(lls[:ns], np.int64)
+    mls = np.asarray(mls[:ns], np.int64)
+    starts = np.zeros(ns, np.int64)
+    adv = lls + mls
+    starts[1:] = np.cumsum(adv[:-1])
+    tail_at = int(starts[-1] + adv[-1])
+    total = int(lls.sum())
+    if total == 0:
+        return block[tail_at:]
+    nz = lls > 0
+    st = starts[nz]
+    ln = lls[nz]
+    base = np.repeat(st - (np.cumsum(ln) - ln), ln)
+    idx = base + np.arange(total, dtype=np.int64)
+    buf = np.frombuffer(block, np.uint8)
+    return buf[idx].tobytes() + block[tail_at:]
+
+
+_TABLE_CACHE: dict = {}  # nbits bytes -> serialized table (or None)
+
+
+def _first_seq_hdr(t, j) -> bytes:
+    """Modes byte + per-table extras for the job's first sequence block."""
+    modes = []
+    extras = []
+    for k in range(3):
+        norm = np.asarray(t["fse_norm"][j][k]).astype(np.int64)
+        nz = np.nonzero(norm)[0]
+        if bool(t["fse_rle"][j][k]) or nz.size == 0:
+            # an all-zero norm only happens when no block of the launch has
+            # sequences: the header is never read, but must not fail
+            modes.append(1)
+            extras.append(bytes([int(t["fse_rle_sym"][j][k])]))
+        else:
+            modes.append(2)
+            extras.append(fse_core.write_ncount(norm[: nz[-1] + 1],
+                                                int(t["fse_log"][j][k])))
+    m = (modes[0] << 6) | (modes[1] << 4) | (modes[2] << 2)
+    return bytes([m]) + b"".join(extras)
+
+
+def _huff_table_blob(nbits, max_bits: int):
+    key = nbits.tobytes()
+    if key not in _TABLE_CACHE:
+        try:
+            _TABLE_CACHE[key] = write_table(nbits.astype(np.int64), max_bits)
+        except Exception:  # noqa: BLE001 - any unwritable table: raw literals
+            _TABLE_CACHE[key] = None
+    return _TABLE_CACHE[key]
+
+
+def _assemble_job_py(job_bytes: bytes, t, j: int, block: int):
+    """Per-block bodies for job j: bytes (compressed), ("rle", byte) or
+    None (raw)."""
+    nblk = len(job_bytes) // block
+    first_hdr = _first_seq_hdr(t, j)
+    tables_written = False
+
+    out = []
+    for b in range(nblk):
+        blk = job_bytes[b * block : (b + 1) * block]
+        if blk.count(blk[0]) == len(blk):
+            out.append(("rle", blk[:1]))
+            continue
+        ns = int(t["n_seqs"][j][b])
+        lc = int(t["lit_cnt"][j][b])
+        lits = _extract_literals(blk, t["ll"][j][b], t["ml"][j][b], ns)
+        assert len(lits) == lc, (len(lits), lc)
+
+        # ---- literal section candidates -------------------------------
+        lit_sec = _lit_header_raw(lc) + lits
+        if lc > 0 and lits.count(lits[0]) == lc:
+            rle = _lit_header_rle(lc) + lits[:1]
+            if len(rle) < len(lit_sec):
+                lit_sec = rle
+        table_blob = None
+        if bool(t["huff_ok"][j][b]):
+            table_blob = _huff_table_blob(t["nbits"][j][b],
+                                          int(t["max_bits"][j][b]))
+        if table_blob is not None and lc >= 256:
+            bq = t["stream_bits"][j][b]
+            sb = [(int(x) + 1 + 7) // 8 for x in bq]          # incl. EOS bit
+            sh = [(int(x) + 16) >> 4 for x in bq]
+            sbase = [sh[1] + sh[2] + sh[3], sh[2] + sh[3], sh[3], 0]
+            hb = t["lit_halves"][j][b].astype(np.uint16).tobytes()
+            streams = []
+            for q in range(4):
+                sbytes = bytearray(hb[2 * sbase[q] : 2 * sbase[q] + sb[q]])
+                eos = int(bq[q])
+                sbytes[eos >> 3] |= 1 << (eos & 7)
+                streams.append(bytes(sbytes))
+            if max(len(s) for s in streams[:3]) <= 0xFFFF:
+                body = table_blob
+                body += b"".join(len(s).to_bytes(2, "little")
+                                 for s in streams[:3])
+                body += b"".join(streams)
+                try:
+                    comp = _lit_header_comp(2, lc, len(body)) + body
+                except OverflowError:
+                    comp = None
+                if comp is not None and len(comp) < len(lit_sec):
+                    lit_sec = comp
+
+        # ---- sequence section ------------------------------------------
+        seq_sec = _seq_count_header(ns)
+        if ns > 0:
+            tb = int(t["seq_total_bits"][j][b])
+            sb = (tb + 1 + 7) // 8
+            sbytes = bytearray(
+                t["seq_halves"][j][b].astype(np.uint16).tobytes()[:sb])
+            sbytes[tb >> 3] |= 1 << (tb & 7)
+            if not tables_written:
+                seq_sec += first_hdr
+            else:
+                seq_sec += bytes([(3 << 6) | (3 << 4) | (3 << 2)])
+            seq_sec += bytes(sbytes)
+
+        body = lit_sec + seq_sec
+        if len(body) < len(blk):
+            out.append(body)
+            # the decoder's FSE tables only change when a compressed block
+            # with sequences is emitted
+            tables_written = tables_written or ns > 0
+        else:
+            out.append(None)
+    return out
+
+
+def emit_blocks(out: bytearray, data: bytes, bodies, regens):
+    """Write block headers + bodies; None = raw, ("rle", b) = RLE block."""
+    off = 0
+    for i, (body, regen) in enumerate(zip(bodies, regens)):
+        last = i == len(bodies) - 1
+        if body is None:
+            bh = (1 if last else 0) | (0 << 1) | (regen << 3)
+            out += bh.to_bytes(3, "little")
+            out += data[off : off + regen]
+        elif isinstance(body, tuple):  # ("rle", byte)
+            bh = (1 if last else 0) | (1 << 1) | (regen << 3)
+            out += bh.to_bytes(3, "little")
+            out += body[1]
+        else:
+            bh = (1 if last else 0) | (2 << 1) | (len(body) << 3)
+            out += bh.to_bytes(3, "little")
+            out += body
+        off += regen
+    return out
+
+
+def launch_inputs(src: torch.Tensor, c: int, hi: int, job: int):
+    """(jobs (hi-c, job), prefixes (hi-c, job // 8), has_prefix (hi-c,)) of
+    jobs c..hi-1 of the uint8 tensor ``src``: each job's overlap history
+    is the previous job's tail (zeros, not real, for job 0)."""
+    pre = job // 8
+    jobs = src[c * job : hi * job].view(hi - c, job)
+    prefixes = torch.zeros((hi - c, pre), dtype=torch.uint8)
+    has_prefix = torch.zeros(hi - c, dtype=torch.bool)
+    for j in range(max(c, 1), hi):
+        prefixes[j - c] = src[j * job - pre : j * job]
+        has_prefix[j - c] = True
+    return jobs, prefixes, has_prefix
+
+
+def compress_device(data, *, checksum: bool = False, job: int | None = None,
+                    block: int | None = None, max_launch_jobs: int = 8,
+                    level: int = 2, device=None) -> bytes:
+    """Encode ``data``, a positive whole number of ``job``-byte jobs
+    (default 4 MiB), as one zstd frame with the device v2 encoder.
+
+    Blocks are 64 KiB; each job matches into an overlap prefix of the
+    previous job's last job // 8 bytes; up to ``max_launch_jobs`` jobs go
+    in one launch and share its FSE tables.  ``block`` and ``level`` are
+    kept for the reference's signature: the only block is 64 KiB and the
+    finder has one depth, so ``level`` is ignored.  Runs on CUDA unless
+    ``device`` names another device ("cpu" runs the plain PyTorch
+    versions); raises when no card is present and no device was given."""
+    dev = resolve_device(device)
+    data = bytes(data)
+    job = job or DEFAULT_JOB
+    n = len(data)
+    if block not in (None, zenc2.BLOCK) or job % zenc2.BLOCK:
+        raise ValueError(f"job ({job}) must be a multiple of the "
+                         f"{zenc2.BLOCK}-byte block (block={block})")
+    block = zenc2.BLOCK
+    if n == 0 or n % job:
+        raise ValueError(f"input length {n} is not a positive whole number "
+                         f"of {job}-byte jobs")
+    n_jobs = n // job
+    out = bytearray(F.write_frame_header(n, job + job // 8, False, checksum))
+    src = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    bodies = []
+    for c in range(0, n_jobs, max_launch_jobs):
+        hi = min(c + max_launch_jobs, n_jobs)
+        jobs, prefixes, has_prefix = launch_inputs(src, c, hi, job)
+        t = zenc2.zstd_encode_jobs_v2(
+            jobs.to(dev), job=job, prefixes=prefixes.to(dev),
+            has_prefix=has_prefix.to(dev))
+        t = {k: v.cpu().numpy() for k, v in t.items()}
+        for j in range(hi - c):
+            jb = data[(c + j) * job : (c + j + 1) * job]
+            bodies += _assemble_job_py(jb, t, j, block)
+    emit_blocks(out, data, bodies, [block] * len(bodies))
+    if checksum:
+        out += (xxh64(data) & 0xFFFFFFFF).to_bytes(4, "little")
+    return bytes(out)
