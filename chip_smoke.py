@@ -3,7 +3,7 @@
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with one CUDA card and ``nvcc``.  It builds the kernels from
-``compress_tpu_torch/csrc`` and then drives two paths.
+``compress_tpu_torch/csrc`` and then drives four paths.
 
 Device S2 block encode, on a 16 MiB seeded corpus (256 blocks of 64 KiB
 mixing every class of ``compress_tpu_torch.corpus``):
@@ -40,7 +40,25 @@ them that starts an odd number of bytes in (``corpus.replica_jobs``):
     (long-range channel, codes, literal, pack) with CUDA events, the whole
     call on the host clock, and traces one call.
 
-Then it prints one ``{"kernels": [...]}`` line with all six kernels.
+Device batch decode of what the port encodes:
+
+12. S2: plans the phase-6 bodies on the host (timed; every block must be
+    plannable) and holds the LZ execute kernel against its plain version
+    on the packed plan tensors;
+13. runs ``s2.decode_blocks_device`` with the launch counter set to 0
+    just before and read just after (one launch per arena class, no
+    host-decoded block, every block equal to its input), times the kernel,
+    its plain version and the whole call, and traces one call;
+14. huff0 4X, shared engine: 16 MiB of seeded text as 1024 rows of
+    16 KiB, ``compress_4x_batch(shared_table=True, max_log=8)``; holds the
+    chunk kernel against its plain version on the prepared windows, runs
+    ``decompress_4x_batch`` with the launch counter (one launch, every row
+    equal to its input) and times encode, prep, kernel and call;
+15. huff0 4X, table engine (one table per container): the phase-3 corpus
+    as 1024 rows of 16 KiB at ``max_log=11``, the same checks and times.
+
+Then it prints one ``{"kernels": [...]}`` line with all the kernels (the
+huff0 kernel once per engine).
 Every comparison is exact (tolerance 0: all outputs are integers or
 bytes).  Any failure raises and the exit code is not 0.  The last line
 of standard output is ``{"ok": true, "device": {...}}``.
@@ -54,6 +72,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 N_BLOCKS = 256      # 16 MiB: one launch of MAX_LAUNCH_BLOCKS
@@ -208,6 +227,29 @@ def walk_frame(fr: bytes, n: int, job: int, block: int) -> dict:
     return {**counts, "regenerated": total}
 
 
+def _hold(name, got, want) -> int:
+    """Require a kernel's outputs to equal its plain version's; return the
+    max_abs_err (0)."""
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    _say(f"{name} vs plain: bit-identical={same} max_abs_err={err}")
+    if not same:
+        raise AssertionError(f"{name} kernel differs from its plain version")
+    return err
+
+
+def _say_trace(what: str, fn) -> None:
+    busy, wall, by_name = trace_path(fn)
+    if busy > 0:
+        _say(f"{what} trace: device busy {busy:.4f} ms of {wall:.4f} ms wall, "
+             f"idle share {1 - busy / wall:.4f}; by name (ms): " + ", ".join(
+                 f"{k[:60]} {v:.4f}" for k, v in by_name[:8]))
+    else:
+        _say(f"{what} trace: the profiler recorded no device time "
+             "(not measured)")
+
+
 def zstd_path(dev) -> list:
     """Phases 9-11: the zstd v2 path.  Returns its kernels' JSON entries
     and the finder's numbers on this path (launches, times, error)."""
@@ -236,14 +278,7 @@ def zstd_path(dev) -> list:
     errs = {}
 
     def hold(name, got, want):
-        torch.cuda.synchronize()
-        errs[name] = max_abs_err(got, want)
-        same = all(torch.equal(a, b) for a, b in zip(got, want))
-        _say(f"{name} vs plain: bit-identical={same} "
-             f"max_abs_err={errs[name]}")
-        if not same:
-            raise AssertionError(f"{name} kernel differs from its plain "
-                                 "version")
+        errs[name] = _hold(name, got, want)
 
     hold("find_matches", lzkern.find_matches_blocks(blocks),
          lzkern.find_matches_blocks_ref(blocks))
@@ -324,14 +359,7 @@ def zstd_path(dev) -> list:
         f"{k} {v:.4f}" for k, v in stages.items()))
     _say(f"zstd whole call (host clock, ms): {t_call:.4f} "
          f"({n / (t_call * 1e-3) / 1e9:.4f} GB/s)")
-    busy, wall, by_name = trace_path(lambda: zdevice.compress_device(data, job=job))
-    if busy > 0:
-        _say(f"zstd trace: device busy {busy:.4f} ms of {wall:.4f} ms wall, "
-             f"idle share {1 - busy / wall:.4f}; by name (ms): " + ", ".join(
-                 f"{k[:60]} {v:.4f}" for k, v in by_name[:10]))
-    else:
-        _say("zstd trace: the profiler recorded no device time "
-             "(not measured)")
+    _say_trace("zstd", lambda: zdevice.compress_device(data, job=job))
 
     # bounds: each input read once, each output written once.  The chains
     # read only each block's own n_seqs entries; the operations are
@@ -370,6 +398,191 @@ def zstd_path(dev) -> list:
             "zstd_plain_ms": plain["find"], "zstd_bound_ms": b_find[0],
             "zstd_max_abs_err": errs["find_matches"]}
     return out, find
+
+
+def s2_decode_path(dev, data: bytes, bodies) -> dict:
+    """Phases 12-13: device decode of the phase-6 S2 bodies.  Returns the
+    exec kernel's JSON entry."""
+    from compress_tpu_torch.ops import execute as X
+    from compress_tpu_torch.ops import lz2
+    from compress_tpu_torch.s2 import device_dec
+    from compress_tpu_torch.utils.varint import put_uvarint
+
+    hdr = bytearray()
+    put_uvarint(hdr, lz2.B)
+    blocks = [bytes(hdr) + b for b in bodies]
+    want = [data[i * lz2.B:(i + 1) * lz2.B] for i in range(len(bodies))]
+
+    # ---- 12. host plan; the exec kernel vs its plain version ---------------
+    t0 = time.perf_counter()
+    results, classes = device_dec.plan_blocks(blocks)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    n_host = sum(r is not None for r in results)
+    _say(f"S2 decode plan (host): {len(blocks)} blocks in {plan_ms:.1f} ms; "
+         f"{n_host} blocks refused by the planner")
+    if n_host:
+        raise AssertionError(f"{n_host} of the port's own blocks would take "
+                             "the host route")
+    args = {}
+    err = 0
+    for c in classes:
+        a = [torch.from_numpy(c[k]).to(dev)
+             for k in ("lit_rows", "src", "dst", "length")]
+        args[c["M"]] = (a, c["caps"])
+        err = max(err, _hold(f"exec (M={c['M']})", X.execute_rounds(
+            *a, c["caps"]), X.execute_rounds_ref(*a, c["caps"])))
+
+    # ---- 13. main path, times, trace ---------------------------------------
+    X.execute_rounds.launches = 0
+    stats = {}
+    t0 = time.perf_counter()
+    got = device_dec.decode_blocks_device(blocks, stats=stats)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = X.execute_rounds.launches
+    _say(f"S2 decode main path: exec launches {launches}, blocks on the "
+         f"device {stats['device']}, on the host {stats['host']}; classes "
+         f"{stats['classes']} (first call {first_s:.2f} s)")
+    if launches != len(classes) or launches < 1 or stats["host"]:
+        raise AssertionError(f"S2 decode: {launches} exec launches for "
+                             f"{len(classes)} arena classes, {stats['host']} "
+                             "host-decoded blocks")
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    if bad:
+        raise AssertionError(f"S2 decode: blocks {bad[:8]} differ from their "
+                             "input")
+    _say(f"S2 decode: all {len(blocks)} blocks equal their input")
+
+    a, caps = args[classes[0]["M"]]
+    t_kern = cuda_ms(lambda: X.execute_rounds(*a, caps), 10)
+    t_plain = cuda_ms(lambda: X.execute_rounds_ref(*a, caps), 2)
+    t_call = host_ms(lambda: device_dec.decode_blocks_device(blocks), 2)
+    _say(f"S2 decode times (ms): exec kernel {t_kern:.4f} (plain "
+         f"{t_plain:.4f}, CUDA events); whole call {t_call:.4f} on the host "
+         f"clock ({len(data) / (t_call * 1e-3) / 1e9:.4f} GB/s), of which the "
+         f"host plan {plan_ms:.4f}")
+    _say_trace("S2 decode", lambda: device_dec.decode_blocks_device(blocks))
+
+    # bound: literal rows read, output rows written, the length of every
+    # slot read, src and dst read for the live slots only (the kernel skips
+    # the pad slots' src and dst); a few integer operations per copied byte
+    n_blk = a[0].shape[0]
+    rows_b = a[0].numel()
+    slots = sum(caps)
+    live = int((a[3] > 0).sum())
+    bnd = bound(2 * rows_b + 4 * slots * n_blk + 8 * live, 8 * len(data))
+    _say(f"exec bound: {rows_b} literal bytes, {slots} slots per block, "
+         f"{live} live slots -> {bnd[0]:.4f} ms ({bnd[1]})")
+    return {"name": "execute_rounds", "route": "cuda",
+            "source": "compress_tpu_torch/csrc/exec.cu",
+            "replaces": "compress_tpu/ops/exec_pallas.py:39",
+            "launches": launches, "max_abs_err": err, "equal_to_plain": True,
+            "ms": t_kern, "plain_ms": t_plain, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": None,
+            "slots_per_block": slots, "live_slots": live, "pieces": sum(
+                v["pieces"] for v in stats["classes"].values()),
+            "plan_ms": plan_ms, "call_ms": t_call}
+
+
+def huff0_path(dev, blocks_np) -> list:
+    """Phases 14-15: huff0 4X batch encode and device decode, the shared
+    engine on 16 MiB of text and the per-container engine on the phase-3
+    corpus, each as 1024 rows of 16 KiB.  Returns the huff0 kernel's JSON
+    entries, one per engine."""
+    from compress_tpu_torch import corpus, huff0
+    from compress_tpu_torch.huff0 import batch as hb
+    from compress_tpu_torch.ops import entropy_dec as ED
+    from compress_tpu_torch.ops import entropy_kern as EK
+
+    row = 16 << 10
+    rng = np.random.default_rng(SEED)
+    text = np.concatenate([corpus.make_block("text", rng)
+                           for _ in range(N_BLOCKS)]).reshape(-1, row)
+    engines = {"shared": (text, True, 8), "table": (
+        blocks_np.reshape(-1, row), False, 11)}
+    out = []
+    for engine, (rows, shared, max_log) in engines.items():
+        n_in = rows.size
+        t0 = time.perf_counter()
+        conts, accel = huff0.compress_4x_batch(
+            rows, return_accel=True, shared_table=shared, max_log=max_log)
+        torch.cuda.synchronize()
+        t_enc = (time.perf_counter() - t0) * 1e3
+        kept = [i for i, c in enumerate(conts) if c is not None]
+        ratio = sum(len(conts[i]) for i in kept) / (len(kept) * row)
+        _say(f"huff0 {engine}: {len(rows)} rows of {row} bytes ({n_in} "
+             f"bytes, max_log {max_log}); {len(rows) - len(kept)} rows None; "
+             f"ratio of the others {ratio:.6f}; encode {t_enc:.1f} ms "
+             "(host clock, first call)")
+        t0 = time.perf_counter()
+        cpu_args, metas, _ = hb._prep_decode_batch(conts, accel)
+        t_prep = (time.perf_counter() - t0) * 1e3
+        windows, lbit, nsym, tables = (x.to(dev) for x in cpu_args)
+        N, C, W = windows.shape
+        if shared:
+            packed, mb = hb.shared_packed_table(metas)
+            table = torch.from_numpy(packed).to(dev)
+            kargs = (windows.reshape(N * C, W), lbit.reshape(-1),
+                     nsym.reshape(-1), table)
+
+            def kern(kargs=kargs, mb=mb):
+                return EK.huff0_decode_chunks_shared(*kargs, max_bits=mb)
+
+            def plain(kargs=kargs, mb=mb):
+                return EK.huff0_decode_chunks_shared_ref(*kargs, max_bits=mb)
+            counter = EK.huff0_decode_chunks_shared
+        else:
+            mb = 11
+
+            def kern():
+                return ED.huff0_decode_chunks(windows, lbit, nsym, tables)
+
+            def plain():
+                return ED.huff0_decode_chunks_ref(windows, lbit, nsym, tables)
+            counter = ED.huff0_decode_chunks
+        err = _hold(f"huff0 {engine} (peek {mb} bits)", kern(), plain())
+
+        counter.launches = 0
+        t0 = time.perf_counter()
+        got = huff0.decompress_4x_batch(conts, accel=accel, engine=engine)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launches = counter.launches
+        if launches != 1:
+            raise AssertionError(f"huff0 {engine}: {launches} kernel launches")
+        bad = [i for i in kept if got[i] != rows[i].tobytes()]
+        if bad or any(got[i] is not None for i in range(len(rows))
+                      if conts[i] is None):
+            raise AssertionError(f"huff0 {engine}: rows {bad[:8]} differ from "
+                                 "their input")
+        t_kern = cuda_ms(kern, 20)
+        t_plain = cuda_ms(plain, 3)
+        t_call = host_ms(lambda: huff0.decompress_4x_batch(
+            conts, accel=accel, engine=engine), 2)
+        nc = N * C
+        live = int(nsym.sum())
+        bnd = bound(nc * (W + 12) + int(table.numel() if shared
+                                        else tables.numel()) * 4 + nc * 32,
+                    8 * live)
+        _say(f"huff0 {engine} decode: launches {launches}; all {len(kept)} "
+             f"containers equal their input; {nc} chunks ({live} symbols); "
+             f"kernel {t_kern:.4f} ms (plain {t_plain:.4f}, CUDA events), "
+             f"bound {bnd[0]:.4f} ({bnd[1]}); host prep {t_prep:.1f} ms; "
+             f"whole call {t_call:.4f} ms on the host clock "
+             f"({len(kept) * row / (t_call * 1e-3) / 1e9:.4f} GB/s; first "
+             f"{first_ms:.1f})")
+        out.append({
+            "name": ("huff0_decode_chunks_shared" if shared
+                     else "huff0_decode_chunks"), "engine": engine,
+            "route": "cuda", "source": "compress_tpu_torch/csrc/huff0dec.cu",
+            "replaces": "compress_tpu/ops/entropy_pallas.py:36",
+            "launches": launches, "max_abs_err": err, "equal_to_plain": True,
+            "ms": t_kern, "plain_ms": t_plain, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": None, "peek_bits": mb,
+            "chunks": nc, "encode_ms": t_enc, "prep_ms": t_prep,
+            "call_ms": t_call, "none_rows": len(rows) - len(kept),
+            "ratio": ratio})
+    return out
 
 
 def main() -> int:
@@ -493,13 +706,7 @@ def main() -> int:
          f"{gbps_path:.4f} GB/s")
 
     # ---- 8. trace of one main-path call ----------------------------------
-    busy, wall, by_name = trace_path(lambda: lz2.encode_blocks_np(data))
-    if busy > 0:
-        _say(f"trace: device busy {busy:.4f} ms of {wall:.4f} ms wall, idle "
-             f"share {1 - busy / wall:.4f}; by name (ms): " + ", ".join(
-                 f"{k[:60]} {v:.4f}" for k, v in by_name[:6]))
-    else:
-        _say("trace: the profiler recorded no device time (not measured)")
+    _say_trace("S2 encode", lambda: lz2.encode_blocks_np(data))
 
     # bounds: each input read once, each output written once; operations:
     # a comparison sort's n log2 n compares (finder), and a generous 64
@@ -531,6 +738,8 @@ def main() -> int:
     zstd_kernels, zstd_find = zstd_path(dev)
     kernels[0].update(zstd_find)
     kernels += zstd_kernels
+    kernels.append(s2_decode_path(dev, data, bodies))
+    kernels += huff0_path(dev, blocks_np)
 
     _say(smi)
     _say(json.dumps({"kernels": kernels}))

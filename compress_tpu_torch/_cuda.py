@@ -23,7 +23,8 @@ import torch
 _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("lzkern.cu", "lzemit.cu", "zparse.cu", "zseqenc.cu", "litlut.cu")
+SOURCES = ("lzkern.cu", "lzemit.cu", "zparse.cu", "zseqenc.cu", "litlut.cu",
+           "exec.cu", "huff0dec.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,6 +37,8 @@ _SIGNATURES = {
     "ct_rep_scan": [_P, _P, _P, _P, _I, _I, _P],
     "ct_fse_chain": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "ct_litlut": [_P, _P, _P, _P, _I, _I, _P],
+    "ct_exec_rounds": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "ct_huff0_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 _lib = None

@@ -1,5 +1,6 @@
-"""huff0 table serialization (RFC 8878 §4.2.1): a pure-Python copy of the
-JAX package's ``huff0.write_table`` and the helpers it needs.
+"""huff0 table serialization (RFC 8878 §4.2.1): pure-Python copies of the
+JAX package's ``huff0.write_table`` and ``read_table`` and the helpers
+they need (``weights_to_nbits``, ``build_dtable``).
 
 weight(s) = max_bits + 1 - nbits(s), 0 for an unused symbol; the last
 present symbol's weight is implied.  The weights are written FSE-compressed
@@ -13,7 +14,14 @@ import numpy as np
 from compress_tpu_torch.fse import core as fse_core
 
 
+MAX_TABLELOG = 11
+
+
 class IncompressibleError(ValueError):
+    pass
+
+
+class CorruptError(ValueError):
     pass
 
 
@@ -96,3 +104,75 @@ def decode_weights_fse(blob: bytes):
             out.append(int(spread[s1]))
             return np.array(out, dtype=np.int32)
     return None  # did not terminate — treat as corrupt/ambiguous
+
+
+def weights_to_nbits(weights: np.ndarray) -> tuple[np.ndarray, int]:
+    """Infer nb_bits from explicit weights + the implied last weight.
+
+    weights: the serialized weights (last symbol's weight NOT included).
+    Returns (nbits including the implied symbol, max_bits)."""
+    w = weights.astype(np.int64)
+    if (w < 0).any():
+        raise CorruptError("negative weight")
+    ksum = int((np.where(w > 0, 1 << (w - 1), 0)).sum())
+    if ksum < 1:
+        raise CorruptError("no weights")
+    # total must reach the next power of two
+    max_bits = max(ksum.bit_length(), 1)
+    rest = (1 << max_bits) - ksum
+    # rest must itself be a power of two (the implied symbol's 2^(w-1))
+    if rest <= 0 or (rest & (rest - 1)) != 0:
+        raise CorruptError("invalid weight sum")
+    full = np.concatenate([w, [rest.bit_length()]])
+    if max_bits > MAX_TABLELOG:
+        raise CorruptError("tableLog too large")
+    nbits = np.where(full > 0, max_bits + 1 - full, 0).astype(np.int32)
+    return nbits, max_bits
+
+
+def build_dtable(weights_full: np.ndarray, max_bits: int):
+    """(symbol, nb_bits) per max_bits-bit window index (RFC layout:
+    weight-ascending, natural symbol order within a weight)."""
+    size = 1 << max_bits
+    sym_t = np.zeros(size, dtype=np.uint8)
+    nb_t = np.zeros(size, dtype=np.int32)
+    start = 0
+    for w in range(1, max_bits + 1):
+        nb = max_bits + 1 - w
+        span = 1 << (w - 1)
+        for s in np.nonzero(weights_full == w)[0]:
+            sym_t[start:start + span] = s
+            nb_t[start:start + span] = nb
+            start += span
+    if start != size:
+        raise CorruptError("weights do not fill the table")
+    return sym_t, nb_t
+
+
+def read_table(buf: bytes, pos: int = 0):
+    """Parse a serialized table. Returns (sym_t, nb_t, max_bits, new_pos)."""
+    if pos >= len(buf):
+        raise CorruptError("table truncated")
+    hdr = buf[pos]
+    pos += 1
+    if hdr >= 128:
+        n = hdr - 127  # number of explicit weights (implied last excluded)
+        nbytes = (n + 1) // 2
+        if pos + nbytes > len(buf):
+            raise CorruptError("table truncated")
+        w = np.zeros(n, dtype=np.int32)
+        for i in range(n):
+            b = buf[pos + i // 2]
+            w[i] = (b >> 4) if i % 2 == 0 else (b & 0xF)
+        pos += nbytes
+    else:
+        if pos + hdr > len(buf):
+            raise CorruptError("table truncated")
+        w = decode_weights_fse(buf[pos:pos + hdr])
+        if w is None:
+            raise CorruptError("bad FSE weight stream")
+        pos += hdr
+    nbits, max_bits = weights_to_nbits(np.asarray(w))
+    weights_full = np.where(nbits > 0, max_bits + 1 - nbits, 0)
+    sym_t, nb_t = build_dtable(weights_full, max_bits)
+    return sym_t, nb_t, max_bits, pos

@@ -1,0 +1,205 @@
+"""Device LZ execute, the decode-side core (counterpart of the JAX
+package's ``ops/execute.py``: ``plan_block_ops``, ``pack_plans``,
+``execute_rounds``).
+
+Each block decodes inside an arena of bytes: rows 0..LR-1 (LR = 512 * M,
+128 bytes a row) hold the block's literal bytes, rows LR..2*LR-1 receive
+the output.  M is the arena class (1, 2 or 4 for blocks of up to 64, 128
+and 256 KiB); a plan's addresses embed the output base M * OUT_BASE.
+
+The host planner (``plan_ops``; ``plan_block_ops`` is its M = 1 form)
+turns decode-order LZ ops into dst-row-aligned **pieces** of at most 128
+bytes, each with an execution **round**: a round-r piece reads only bytes written in rounds
+before r, and every output byte is covered by exactly one piece.
+``pack_plans`` stacks per-block plans round-major into (total, B) slot
+tensors with per-round capacities (pad slots have length 0).
+``execute_rounds`` runs them: the CUDA kernel ``csrc/exec.cu`` on CUDA
+tensors (``ops/exec_kern.py``), its plain PyTorch version on CPU tensors.
+
+The multi-block history executor of the reference (``pack_plans_mb``,
+``execute_blocks_hist``, the pieces that read ``HIST_BASE`` addresses)
+belongs to multi-block zstd decode and is not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from compress_tpu_torch.ops.exec_kern import execute_rounds, execute_rounds_ref
+
+ARENA_ROWS = 1024      # 512 literal rows + 512 output rows (M = 1)
+OUT_BASE = 512 * 128   # arena byte where output begins (M = 1)
+HIST_BASE = ARENA_ROWS * 128  # history address space (multi-block frames)
+BLOCK = 1 << 16
+
+__all__ = ["ARENA_ROWS", "OUT_BASE", "HIST_BASE", "BLOCK", "plan_ops",
+           "plan_block_ops", "pack_plans", "execute_rounds",
+           "execute_rounds_ref"]
+
+
+def _pieces(runs: np.ndarray):
+    """(n, 4) runs (output position, source, length, round), each
+    source-contiguous, in emission order -> piece (output position, src,
+    len, round) arrays: every run cut at 128-byte output rows."""
+    d, s, ln, r = (runs[:, c] for c in range(4))
+    first = d >> 7
+    n_rows = ((d + ln - 1) >> 7) - first + 1
+    run = np.repeat(np.arange(len(d)), n_rows)
+    k = np.arange(len(run)) - np.repeat(np.cumsum(n_rows) - n_rows, n_rows)
+    row = first[run] + k
+    lo = np.maximum(d[run], row << 7)
+    hi = np.minimum(d[run] + ln[run], (row + 1) << 7)
+    return lo, s[run] + (lo - d[run]), hi - lo, r[run]
+
+
+def plan_ops(kinds, lens, offs, max_rounds: int = 4,
+             out_base: int = OUT_BASE):
+    """The planner, over Python sequences of ints (``plan_block_ops`` and
+    the S2 planner ``s2/plan.py`` both run it).
+
+    kinds: 0 = literal run (the next ``len`` literal bytes), 1 = copy at
+    offset ``off`` into the output written so far.  A copy reads its
+    transitive sources while they form one run of one round; otherwise it
+    reads the output bytes themselves one round later; past ``max_rounds``
+    it is flattened through its transitive sources (more pieces instead of
+    more depth).  Returns (dst, src, len, round) int64 arrays in emission
+    order, every piece inside one 128-byte output row (dst = out_base +
+    output position), or None on an offset of 0 or past the output."""
+    total = sum(lens)
+    esrc = [0] * total      # per output byte: arena byte holding its value
+    ernd = [0] * total      # ... and the round that writes it
+    chunks = []             # (n, 4) run arrays, in emission order
+    pend = []               # runs not yet in a chunk
+
+    def flush():
+        if pend:
+            chunks.append(np.array(pend, np.int64).reshape(-1, 4))
+            pend.clear()
+
+    def runs(d0, sl, rl):
+        # cut at non-contiguous sources and round changes
+        n = len(sl)
+        if n <= 64:
+            a = 0
+            for b in range(1, n + 1):
+                if b == n or sl[b] != sl[b - 1] + 1 or rl[b] != rl[a]:
+                    pend.append((d0 + a, sl[a], b - a, rl[a]))
+                    a = b
+            return
+        sa = np.asarray(sl, np.int64)
+        ra = np.asarray(rl, np.int64)
+        starts = np.concatenate([[0], np.flatnonzero(
+            (np.diff(sa) != 1) | (np.diff(ra) != 0)) + 1])
+        ends = np.append(starts[1:], n)
+        flush()
+        chunks.append(np.stack([d0 + starts, sa[starts], ends - starts,
+                                ra[starts]], axis=1))
+
+    pos = 0
+    lit_pos = 0
+    for kind, L, off in zip(kinds, lens, offs):
+        if kind == 0:
+            if L > 0:
+                pend.append((pos, lit_pos, L, 0))
+                esrc[pos:pos + L] = range(lit_pos, lit_pos + L)
+                ernd[pos:pos + L] = [0] * L
+                lit_pos += L
+                pos += L
+            continue
+        if off <= 0 or off > pos:
+            return None
+        if off >= L:
+            sl = esrc[pos - off:pos - off + L]
+            rl = ernd[pos - off:pos - off + L]
+        else:
+            reps = -(-L // off)
+            sl = (esrc[pos - off:pos] * reps)[:L]
+            rl = (ernd[pos - off:pos] * reps)[:L]
+        rnd_direct = max(rl) + 1
+        if rnd_direct > max_rounds:
+            # too deep: flatten through the transitive sources
+            runs(pos, sl, rl)
+            esrc[pos:pos + L] = sl
+            ernd[pos:pos + L] = rl
+        elif (off >= L and rl.count(rl[0]) == L
+              and sl == list(range(sl[0], sl[0] + L))):
+            # the transitive read keeps the round low without fragmenting
+            pend.append((pos, sl[0], L, rl[0]))
+            esrc[pos:pos + L] = sl
+            ernd[pos:pos + L] = rl
+        else:
+            # read the output bytes themselves, one round later: one run,
+            # or one per period of an overlapping copy
+            base = out_base + pos - off
+            if off >= L:
+                pend.append((pos, base, L, rnd_direct))
+                esrc[pos:pos + L] = range(base, base + L)
+            else:
+                q = np.arange(0, L, off, dtype=np.int64)
+                flush()
+                chunks.append(np.stack([pos + q, np.full_like(q, base),
+                                        np.minimum(off, L - q),
+                                        np.full_like(q, rnd_direct)], axis=1))
+                esrc[pos:pos + L] = (list(range(base, base + off))
+                                     * reps)[:L]
+            ernd[pos:pos + L] = [rnd_direct] * L
+        pos += L
+    flush()
+    if not chunks:
+        return (np.zeros(0, np.int64),) * 4
+    d, s, ln, r = _pieces(np.concatenate(chunks))
+    return out_base + d, s, ln, r
+
+
+def plan_block_ops(kinds, lens, offs, max_rounds=4):
+    """Plan the decode-order ops of one block of at most 64 KiB (arena
+    class M = 1) with ``plan_ops``.  Returns dict of np int32 arrays: src
+    (arena byte), dst (arena byte), len, round; plus n_rounds.  Raises
+    ValueError on a block too large or a bad offset."""
+    kinds, lens, offs = (np.asarray(a).astype(np.int64).tolist()
+                         for a in (kinds, lens, offs))
+    if sum(lens) > BLOCK:
+        raise ValueError("block too large")
+    planned = plan_ops(kinds, lens, offs, max_rounds, OUT_BASE)
+    if planned is None:
+        raise ValueError("bad offset")
+    dst, src, ln, rnd = (a.astype(np.int32) for a in planned)
+    return {"src": src, "dst": dst, "len": ln, "round": rnd,
+            "n_rounds": int(rnd.max()) + 1 if len(rnd) else 1}
+
+
+def pack_plans(plans, round_caps=None):
+    """Stack per-block plans into per-round padded tensors.
+
+    Returns (src, dst, length) numpy int32 arrays of shape (total, B),
+    round-major with per-round capacities, plus the caps tuple.  Without
+    ``round_caps`` each round's cap is its largest per-block piece count,
+    rounded up to a power of two and at least 64.  Pad slots have
+    length 0 (dst OUT_BASE, src 0)."""
+    B = len(plans)
+    n_rounds = max(p["n_rounds"] for p in plans)
+    if round_caps is None:
+        round_caps = []
+        for r in range(n_rounds):
+            cap = max(int((p["round"] == r).sum()) for p in plans)
+            round_caps.append(max(64, 1 << int(np.ceil(np.log2(max(cap, 1))))))
+    total = sum(round_caps)
+    src = np.zeros((total, B), np.int32)
+    dst = np.full((total, B), OUT_BASE, np.int32)
+    length = np.zeros((total, B), np.int32)
+    caps_arr = np.asarray(round_caps, np.int64)
+    bases = np.concatenate([[0], np.cumsum(caps_arr)])[:-1]
+    for b, p in enumerate(plans):
+        rnd = p["round"]
+        order = np.argsort(rnd, kind="stable")
+        rs = rnd[order]
+        counts = np.bincount(rs, minlength=len(round_caps))
+        if (counts > caps_arr).any():
+            raise ValueError("round capacity overflow")
+        starts = np.concatenate([[0], np.cumsum(counts)])[:-1]
+        # slot of sorted piece i: bases[r] + (i - starts[r])
+        idx = bases[rs] + np.arange(len(rs)) - starts[rs]
+        src[idx, b] = p["src"][order]
+        dst[idx, b] = p["dst"][order]
+        length[idx, b] = p["len"][order]
+    return src, dst, length, tuple(round_caps)

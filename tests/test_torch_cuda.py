@@ -14,12 +14,18 @@ import numpy as np
 import pytest
 import torch
 
-from compress_tpu_torch import corpus
-from compress_tpu_torch.ops import lz2, lzemit2, lzkern, zenc2, zparse, zseqenc
+from compress_tpu_torch import corpus, huff0
+from compress_tpu_torch.ops import (entropy_dec, entropy_kern, execute, lz2,
+                                    lzemit2, lzkern, zenc2, zparse, zseqenc)
+from compress_tpu_torch.s2 import block as s2_block
+from compress_tpu_torch.s2.device_dec import decode_blocks_device as \
+    s2_decode_blocks_device
+from compress_tpu_torch.s2.device_dec import plan_blocks
+from compress_tpu_torch.utils.varint import put_uvarint
 from compress_tpu_torch.zstd import device as zdevice
 
 
-@pytest.fixture
+@pytest.fixture(scope="module")
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -36,7 +42,7 @@ def blocks_np():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("slim", [False, True], ids=["cap10", "slim"])
-def test_finder_kernel_matches_plain(slim, blocks_np, cuda_device):
+def test_finder_kernel_matches_plain(cuda_device, slim, blocks_np):
     t = torch.from_numpy(blocks_np).to(cuda_device)
     before = lzkern.find_matches_blocks.launches
     got = lzkern.find_matches_blocks(t, slim=slim)
@@ -49,7 +55,7 @@ def test_finder_kernel_matches_plain(slim, blocks_np, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("slim", [False, True], ids=["cap10", "slim"])
-def test_emit_kernel_matches_plain(slim, blocks_np, cuda_device):
+def test_emit_kernel_matches_plain(cuda_device, slim, blocks_np):
     t = torch.from_numpy(blocks_np).to(cuda_device)
     off, L = lzkern.find_matches_blocks_ref(t, slim=slim)
     cap = lzkern.L_CAP_SLIM if slim else lzkern.L_CAP
@@ -63,14 +69,14 @@ def test_emit_kernel_matches_plain(slim, blocks_np, cuda_device):
 
 
 @pytest.mark.cuda
-def test_encode_on_cuda_matches_cpu(blocks_np, cuda_device):
+def test_encode_on_cuda_matches_cpu(cuda_device, blocks_np):
     data = blocks_np.tobytes()
     assert lz2.encode_blocks_np(data) == lz2.encode_blocks_np(
         data, device="cpu")
 
 
 @pytest.mark.cuda
-def test_kernels_reject_bad_inputs(blocks_np, cuda_device):
+def test_kernels_reject_bad_inputs(cuda_device, blocks_np):
     t = torch.from_numpy(blocks_np).to(cuda_device)
     with pytest.raises(ValueError):
         lzkern.find_matches_blocks(t.to(torch.int32))
@@ -97,7 +103,7 @@ def _zstd_stages(data, dev):
 
 
 @pytest.mark.cuda
-def test_zstd_kernels_match_plain(zstd_data, blocks_np, cuda_device):
+def test_zstd_kernels_match_plain(cuda_device, zstd_data, blocks_np):
     blocks, off, L = _zstd_stages(zstd_data, cuda_device)
     for a, b in zip(lzkern.find_matches_blocks(blocks),
                     lzkern.find_matches_blocks_ref(blocks)):
@@ -130,13 +136,13 @@ def test_zstd_kernels_match_plain(zstd_data, blocks_np, cuda_device):
 
 
 @pytest.mark.cuda
-def test_compress_device_on_cuda_matches_cpu(zstd_data, cuda_device):
+def test_compress_device_on_cuda_matches_cpu(cuda_device, zstd_data):
     assert zdevice.compress_device(zstd_data, job=ZJOB) == \
         zdevice.compress_device(zstd_data, job=ZJOB, device="cpu")
 
 
 @pytest.mark.cuda
-def test_zstd_kernels_reject_bad_inputs(zstd_data, cuda_device):
+def test_zstd_kernels_reject_bad_inputs(cuda_device, zstd_data):
     blocks, off, L = _zstd_stages(zstd_data, cuda_device)
     with pytest.raises(ValueError):
         zparse.parse_blocks(blocks, off.to(torch.int64), L)
@@ -151,3 +157,222 @@ def test_zstd_kernels_reject_bad_inputs(zstd_data, cuda_device):
     with pytest.raises(ValueError):
         zenc2._litlut(lits.to(torch.int32), torch.zeros(
             (lits.shape[0], 2, 128), dtype=torch.int32, device=cuda_device))
+
+
+# ---- decode: the LZ execute kernel and the huff0 chunk kernel -------------
+
+def _s2_block(ops, n: int) -> bytes:
+    """An S2 block of n bytes from (literal bytes, copy length, offset)
+    ops: literal tags and 4-byte-offset copy tags (lengths 1-64), which
+    reach any offset a block of up to 256 KiB can hold."""
+    out = bytearray()
+    put_uvarint(out, n)
+    for lit, ml, off in ops:
+        if lit:
+            x = len(lit) - 1
+            if x < 60:
+                out.append(x << 2)
+            else:
+                nb = (x.bit_length() + 7) // 8
+                out.append((59 + nb) << 2)
+                out += x.to_bytes(nb, "little")
+            out += lit
+        while ml > 0:
+            take = min(ml, 64)
+            out.append(3 | ((take - 1) << 2))
+            out += off.to_bytes(4, "little")
+            ml -= take
+    return bytes(out)
+
+
+def _seeded_s2(n: int, seed: int) -> bytes:
+    """A seeded S2 block of n bytes: literal runs, overlapping short-offset
+    copies (pieces that read the previous round's output) and far copies."""
+    rng = np.random.default_rng(seed)
+    ops, pos = [], 0
+    while pos < n:
+        lit = rng.integers(0, 256, int(rng.integers(1, 200)),
+                           np.uint8).tobytes()[:n - pos]
+        pos += len(lit)
+        ml = min(int(rng.integers(1, 2000)), n - pos)
+        off = int(rng.choice([1, 2, 3, 7, int(rng.integers(1, pos + 1))]))
+        ops.append((lit, ml, min(off, pos)))
+        pos += ml
+    return _s2_block(ops, n)
+
+
+@pytest.fixture(scope="module")
+def s2_dec_blocks(blocks_np):
+    """The port's own encode of every corpus class (64 KiB, M = 1) and
+    seeded blocks of every arena class (M = 1, 2 and 4)."""
+    hdr = bytearray()
+    put_uvarint(hdr, lz2.B)
+    bodies = lz2.encode_blocks_np(blocks_np.tobytes(), device="cpu")
+    return ([bytes(hdr) + b for b in bodies]
+            + [_seeded_s2(n, n) for n in (5000, 65536, 65537, 131072,
+                                          200000, 262144)])
+
+
+@pytest.mark.cuda
+def test_exec_kernel_matches_plain(cuda_device, s2_dec_blocks):
+    _, classes = plan_blocks(s2_dec_blocks)
+    assert sorted(c["M"] for c in classes) == [1, 2, 4]
+    for c in classes:
+        args = [torch.from_numpy(c[k]).to(cuda_device)
+                for k in ("lit_rows", "src", "dst", "length")]
+        before = execute.execute_rounds.launches
+        got = execute.execute_rounds(*args, c["caps"])
+        want = execute.execute_rounds_ref(*args, c["caps"])
+        torch.cuda.synchronize()
+        assert execute.execute_rounds.launches == before + 1
+        assert torch.equal(got, want), c["M"]
+
+
+@pytest.mark.cuda
+def test_exec_kernel_hostile_plans(cuda_device):
+    """Pad slots, a round of pads only, a cap of 0, caps past the plan's
+    rows, unaligned row-crossing sources and chained rounds."""
+    out = execute.OUT_BASE
+    plans = [
+        dict(src=np.array([5, 200, out + 3, 6], np.int32),
+             dst=np.array([out, out + 10, out + 40, out + 56], np.int32),
+             len=np.array([10, 20, 7, 6], np.int32),
+             round=np.array([0, 0, 1, 0], np.int32), n_rounds=2),
+        dict(src=np.array([0, out, out + 64, out + 100], np.int32),
+             dst=np.array([out, out + 64, out + 128, out + 250], np.int32),
+             len=np.array([64, 64, 64, 100], np.int32),
+             round=np.array([0, 1, 2, 3], np.int32), n_rounds=4),
+        dict(src=np.zeros(0, np.int32), dst=np.zeros(0, np.int32),
+             len=np.zeros(0, np.int32), round=np.zeros(0, np.int32),
+             n_rounds=1),
+    ]
+    src, dst, length, caps = execute.pack_plans(plans)
+    pad = np.zeros((64, 3), np.int32)
+    src, dst, length = (np.concatenate([a[:64], pad + fill, a[64:]])
+                        for a, fill in ((src, 0), (dst, out), (length, 0)))
+    caps = (64, 64, 0) + caps[1:] + (100,)
+    lit = np.random.default_rng(5).integers(0, 256, (3, 512, 128), np.uint8)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in (lit, src, dst, length)]
+    got = execute.execute_rounds(*args, caps)
+    assert torch.equal(got, execute.execute_rounds_ref(*args, caps))
+    assert not got[2].any()
+    empty = [args[0][:0]] + [a[:, :0].contiguous() for a in args[1:]]
+    assert execute.execute_rounds(*empty, caps).shape == (0, 512, 128)
+
+
+@pytest.mark.cuda
+def test_s2_decode_on_cuda_matches_cpu(cuda_device, s2_dec_blocks, blocks_np):
+    stats = {}
+    got = s2_decode_blocks_device(s2_dec_blocks, stats=stats)
+    assert got == s2_decode_blocks_device(s2_dec_blocks, device="cpu")
+    assert got == [s2_block.decode(b) for b in s2_dec_blocks]
+    assert got[:len(corpus.CLASSES)] == [b.tobytes() for b in blocks_np]
+    assert stats["host"] == 0 and sorted(stats["classes"]) == [1, 2, 4]
+
+
+def _chunks(nc: int, win: int, k: int, seed: int):
+    """Random windows with cursors anywhere in the window (the top
+    included) and pad chunks (lbit 8 * win, nsym 0), nsym from 0 to k."""
+    rng = np.random.default_rng(seed)
+    windows = rng.integers(0, 256, (nc, win), np.uint8)
+    lbit = rng.integers(0, 8 * win + 1, nc).astype(np.int32)
+    nsym = rng.integers(0, k + 1, nc).astype(np.int32)
+    pad = rng.random(nc) < 0.1
+    lbit[pad], nsym[pad] = 8 * win, 0
+    return windows, lbit, nsym
+
+
+def _table(max_bits: int, seed: int) -> np.ndarray:
+    """A packed table (sym | nb << 8) of random symbols and lengths."""
+    rng = np.random.default_rng(seed)
+    size = 1 << max_bits
+    return (rng.integers(0, 256, size)
+            | (rng.integers(1, max_bits + 1, size) << 8)).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [32, 20])
+@pytest.mark.parametrize("max_bits", [1, 8, 11])
+def test_huff0_kernel_shared_matches_plain(cuda_device, k, max_bits):
+    chunks = _chunks(1000, entropy_dec.WIN, k, seed=max_bits + k)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in (*chunks, _table(max_bits, k))]
+    before = entropy_kern.huff0_decode_chunks_shared.launches
+    got = entropy_kern.huff0_decode_chunks_shared(*args, k=k,
+                                                  max_bits=max_bits)
+    want = entropy_kern.huff0_decode_chunks_shared_ref(*args, k=k,
+                                                       max_bits=max_bits)
+    torch.cuda.synchronize()
+    assert entropy_kern.huff0_decode_chunks_shared.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [512, 100, 3])
+def test_huff0_kernel_per_container_matches_plain(cuda_device, C):
+    """One 2048-entry table per container of C chunks; C = 100 and 3 put
+    several containers in one CTA of the kernel."""
+    N = 6
+    w, lb, ns = _chunks(N * C, entropy_dec.WIN, 32, seed=C)
+    rng = np.random.default_rng(C)
+    sym = rng.integers(0, 256, (N, 2048))
+    nb = rng.integers(1, 12, (N, 2048))
+    tables = (sym | nb << 8).astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (
+        w.reshape(N, C, -1), lb.reshape(N, C), ns.reshape(N, C), tables)]
+    before = entropy_dec.huff0_decode_chunks.launches
+    got = entropy_dec.huff0_decode_chunks(*args)
+    want = entropy_dec.huff0_decode_chunks_ref(*args)
+    torch.cuda.synchronize()
+    assert entropy_dec.huff0_decode_chunks.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "table"])
+def test_huff0_roundtrip_on_cuda_matches_cpu(cuda_device, shared, blocks_np):
+    if shared:       # one code for all rows: text rows, as the bench has
+        rng = np.random.default_rng(2)
+        rows = np.concatenate([corpus.make_block("text", rng)
+                               for _ in range(2)]).reshape(-1, 16384)
+    else:
+        rows = blocks_np.reshape(-1, 16384)
+    max_log = 8 if shared else 11
+    conts, accel = huff0.compress_4x_batch(rows, return_accel=True,
+                                           shared_table=shared,
+                                           max_log=max_log)
+    want = huff0.compress_4x_batch(rows, return_accel=True,
+                                   shared_table=shared, max_log=max_log,
+                                   device="cpu")
+    assert conts == want[0] and np.array_equal(accel["ckpt"], want[1]["ckpt"])
+    engine = "shared" if shared else "table"
+    got = huff0.decompress_4x_batch(conts, accel=accel, engine=engine)
+    assert got == huff0.decompress_4x_batch(conts, accel=accel, engine=engine,
+                                            device="cpu")
+    for row, c, g in zip(rows, conts, got):
+        assert g == (None if c is None else row.tobytes())
+    assert sum(c is not None for c in conts) >= len(rows) // 2
+
+
+@pytest.mark.cuda
+def test_decode_kernels_reject_bad_inputs(cuda_device):
+    lit = torch.zeros((2, 512, 128), dtype=torch.uint8, device=cuda_device)
+    z = torch.zeros((64, 2), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        execute.execute_rounds(lit, z.to(torch.int64), z, z, (64,))
+    with pytest.raises(ValueError):
+        execute.execute_rounds(lit, z.cpu(), z, z, (64,))
+    w, lb, ns = (torch.from_numpy(a).to(cuda_device)
+                 for a in _chunks(10, entropy_dec.WIN, 32, seed=0))
+    tab = torch.from_numpy(_table(8, 0)).to(cuda_device)
+    with pytest.raises(ValueError):
+        entropy_kern.huff0_decode_chunks_shared(w, lb, ns, tab, max_bits=9)
+    with pytest.raises(ValueError):
+        entropy_kern.huff0_decode_chunks_shared(w[:, :50].contiguous(), lb,
+                                                ns, tab)
+    with pytest.raises(ValueError):
+        entropy_kern.huff0_decode_chunks_shared(w, lb.to(torch.int64), ns,
+                                                tab)

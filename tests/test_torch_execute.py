@@ -1,0 +1,206 @@
+"""The port's LZ execute (``compress_tpu_torch/ops/execute.py``,
+``ops/exec_kern.py``) against the JAX package on the CPU, bit for bit
+(tolerance 0: plans are integers, outputs bytes).
+
+- ``plan_block_ops`` and ``pack_plans`` equal the JAX ones on seeded op
+  lists and on the ops of real S2 blocks, at max_rounds 1, 2 and 4.
+- ``execute_rounds`` on CPU tensors (its plain version) equals JAX
+  ``execute_rounds`` (the XLA round graph) at arena classes M = 1, 2 and
+  4, and JAX ``execute_rounds_pallas(interpret=True)`` at M = 1, on the
+  same packed plans, the hand plans of ``tests/test_exec_pallas.py``
+  included."""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from compress_tpu import s2 as jax_s2  # noqa: E402
+from compress_tpu.ops import exec_pallas as jax_xp  # noqa: E402
+from compress_tpu.ops import execute as jax_x  # noqa: E402
+from compress_tpu_torch import corpus  # noqa: E402
+from compress_tpu_torch.ops import execute as X  # noqa: E402
+from compress_tpu_torch.s2 import plan as S2P  # noqa: E402
+from compress_tpu_torch.s2.device_dec import plan_blocks  # noqa: E402
+from compress_tpu_torch.utils.varint import read_uvarint  # noqa: E402
+
+OUT = X.OUT_BASE
+
+
+def test_constants_match_jax():
+    assert (X.ARENA_ROWS, X.OUT_BASE, X.HIST_BASE, X.BLOCK) == (
+        jax_x.ARENA_ROWS, jax_x.OUT_BASE, jax_x.HIST_BASE, jax_x.BLOCK)
+
+
+def _seeded_ops(seed, n_ops=300):
+    """Decode-order ops with literal runs, short and overlapping copies,
+    offsets reaching far back, capped at 64 KiB of output."""
+    rng = np.random.default_rng(seed)
+    kinds, lens, offs = [0], [int(rng.integers(1, 40))], [0]
+    pos = lens[0]
+    for _ in range(n_ops):
+        if rng.random() < 0.3:
+            k, ln, off = 0, int(rng.integers(1, 300)), 0
+        else:
+            ln = int(rng.integers(1, 200))
+            off = int(rng.choice([1, 2, 3, int(rng.integers(1, pos + 1))]))
+            k = 1
+        if pos + ln > X.BLOCK:
+            break
+        kinds.append(k)
+        lens.append(ln)
+        offs.append(min(off, pos))
+        pos += ln
+    return kinds, lens, offs
+
+
+def _block_ops(block: bytes):
+    """(kinds, lens, offs) of an S2 block, from the port's tag parse."""
+    dlen, pos = read_uvarint(block)
+    kinds, lens, offs, _ = S2P._parse_tags(block[pos:], dlen, True)
+    return kinds, lens, offs
+
+
+@pytest.fixture(scope="module")
+def op_lists():
+    blocks = corpus.corpus_blocks(6, seed=41)
+    out = {f"seeded{s}": _seeded_ops(s) for s in (1, 2)}
+    for i in (0, 1, 5):   # text, rand4, period3
+        name = corpus.CLASSES[i]
+        out[name] = _block_ops(jax_s2.encode(blocks[i, :24000].tobytes()))
+    return out
+
+
+@pytest.mark.parametrize("max_rounds", [1, 2, 4])
+@pytest.mark.parametrize("ops", ["seeded1", "seeded2", "text", "rand4",
+                                 "period3"])
+def test_plan_and_pack_match_jax(ops, max_rounds, op_lists):
+    kinds, lens, offs = op_lists[ops]
+    want = jax_x.plan_block_ops(kinds, lens, offs, max_rounds=max_rounds)
+    got = X.plan_block_ops(kinds, lens, offs, max_rounds=max_rounds)
+    assert got["n_rounds"] == want["n_rounds"] <= max_rounds + 1
+    for key in ("src", "dst", "len", "round"):
+        assert got[key].dtype == want[key].dtype
+        assert np.array_equal(got[key], want[key]), key
+    other = X.plan_block_ops(*op_lists["seeded1"], max_rounds=max_rounds)
+    for plans in ([got], [got, other]):
+        for a, b in zip(X.pack_plans(plans), jax_x.pack_plans(plans)):
+            assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_pack_plans_capacity_overflow_raises():
+    p = X.plan_block_ops(*_seeded_ops(3))
+    with pytest.raises(ValueError, match="capacity"):
+        X.pack_plans([p], round_caps=(1,) * p["n_rounds"])
+
+
+def _hand_plans():
+    """The hand plans of tests/test_exec_pallas.py: row-crossing
+    unaligned sources, a copy whose aligned base is row -1, chained
+    rounds; and a block of pad slots only."""
+    return [
+        dict(src=np.array([5, 200, OUT + 3, 6], np.int32),
+             dst=np.array([OUT + 0, OUT + 10, OUT + 40, OUT + 56], np.int32),
+             len=np.array([10, 20, 7, 6], np.int32),
+             round=np.array([0, 0, 1, 0], np.int32), n_rounds=2),
+        dict(src=np.array([0, OUT, OUT + 64], np.int32),
+             dst=np.array([OUT, OUT + 64, OUT + 128], np.int32),
+             len=np.array([64, 64, 64], np.int32),
+             round=np.array([0, 1, 2], np.int32), n_rounds=3),
+        dict(src=np.zeros(0, np.int32), dst=np.zeros(0, np.int32),
+             len=np.zeros(0, np.int32), round=np.zeros(0, np.int32),
+             n_rounds=1),
+    ]
+
+
+def _run_port(lit, src, dst, length, caps):
+    return X.execute_rounds(*(torch.from_numpy(np.ascontiguousarray(a))
+                              for a in (lit, src, dst, length)), caps).numpy()
+
+
+def _run_xla(lit, src, dst, length, caps):
+    return np.asarray(jax_x.execute_rounds_jit(
+        *(jnp.asarray(a) for a in (lit, src, dst, length)), caps))
+
+
+def test_hand_plans_match_xla_and_pallas():
+    rng = np.random.default_rng(1)
+    lit = rng.integers(0, 256, (3, 512, 128)).astype(np.uint8)
+    src, dst, length, caps = X.pack_plans(_hand_plans())
+    got = _run_port(lit, src, dst, length, caps)
+    assert got.shape == (3, 512, 128) and got.dtype == np.uint8
+    assert np.array_equal(got, _run_xla(lit, src, dst, length, caps))
+    pallas = np.asarray(jax_xp.execute_rounds_pallas(
+        *(jnp.asarray(a) for a in (lit, src, dst, length)), caps,
+        interpret=True))
+    assert np.array_equal(got, pallas)
+    assert not got[2].any()
+
+
+def test_empty_rounds_and_clipped_caps_match_xla():
+    """A round with no live piece, a cap of 0, and caps that run past the
+    plan's rows (clipped, as the reference's slices are)."""
+    rng = np.random.default_rng(2)
+    lit = rng.integers(0, 256, (2, 512, 128)).astype(np.uint8)
+    plans = _hand_plans()[:2]
+    src, dst, length, caps = X.pack_plans(plans)
+    pad = np.zeros((64, 2), np.int32)
+    src = np.concatenate([src[:64], pad, src[64:]])
+    dst = np.concatenate([dst[:64], pad + OUT, dst[64:]])
+    length = np.concatenate([length[:64], pad, length[64:]])
+    caps = (64, 64, 0) + caps[1:] + (100,)
+    got = _run_port(lit, src, dst, length, caps)
+    assert np.array_equal(got, _run_xla(lit, src, dst, length, caps))
+
+
+@pytest.fixture(scope="module")
+def s2_classes():
+    """Planned S2 blocks of every arena class: two text blocks of 20 KiB
+    (M = 1) and blocks of 65,537 (M = 2) and 200,000 bytes (M = 4)."""
+    rng = np.random.default_rng(7)
+    text = b"".join(corpus.make_block("text", rng).tobytes()
+                    for _ in range(4))
+    srcs = [text[:20000], text[30000:50000], text[:65537],
+            (text[:3000] + rng.integers(0, 4, 7000, np.uint8).tobytes())
+            * 20]
+    results, classes = plan_blocks([jax_s2.encode(s) for s in srcs])
+    assert all(r is None for r in results)
+    return srcs, classes
+
+
+@pytest.mark.parametrize("M", [1, 2, 4])
+def test_execute_rounds_matches_xla_per_class(M, s2_classes):
+    srcs, classes = s2_classes
+    c = next(c for c in classes if c["M"] == M)
+    args = (c["lit_rows"], c["src"], c["dst"], c["length"], c["caps"])
+    got = _run_port(*args)
+    assert got.shape == (len(c["index"]), 512 * M, 128)
+    assert np.array_equal(got, _run_xla(*args))
+    for k, i in enumerate(c["index"]):
+        assert got[k].reshape(-1)[:len(srcs[i])].tobytes() == srcs[i]
+
+
+def test_execute_rounds_matches_pallas_on_real_plans():
+    rng = np.random.default_rng(9)
+    text = corpus.make_block("text", rng).tobytes()
+    srcs = [text[:3000], text[5000:7000], bytes(1500)]
+    _, (c,) = plan_blocks([jax_s2.encode(s) for s in srcs])
+    args = (c["lit_rows"], c["src"], c["dst"], c["length"], c["caps"])
+    got = _run_port(*args)
+    pallas = np.asarray(jax_xp.execute_rounds_pallas(
+        *(jnp.asarray(a) for a in args[:4]), args[4], interpret=True))
+    assert np.array_equal(got, pallas)
+    for k, s in enumerate(srcs):
+        assert got[k].reshape(-1)[:len(s)].tobytes() == s
+
+
+def test_execute_rounds_rejects_bad_shapes():
+    lit = torch.zeros((2, 500, 128), dtype=torch.uint8)
+    z = torch.zeros((64, 2), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        X.execute_rounds(lit, z, z, z, (64,))
+    lit = torch.zeros((2, 512, 128), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        X.execute_rounds(lit, z[:, :1], z, z, (64,))
