@@ -32,10 +32,11 @@ them that starts an odd number of bytes in (``corpus.replica_jobs``):
     tensors (``zenc2._merged_matches`` feeds the parse, as in the
     encoder): bit-identical;
 10. runs ``zstd.device.compress_device`` with the launch counters set to 0
-    just before and read just after, prints the frame size and ratio and
+    just before and read just after, prints the frame size and ratio,
     walks the frame (magic, header, every block header, the last-block
-    bit, regenerated sizes summing to the input).  This machine has no
-    zstd decoder: the frames decode with ``zstandard`` in the CPU tests;
+    bit, regenerated sizes summing to the input) and decodes it with the
+    port's host zstd decoder (``zstd.decompress``, timed), which must
+    give the input back;
 11. times each kernel, its plain version and the plain-PyTorch stages
     (long-range channel, codes, literal, pack) with CUDA events, the whole
     call on the host clock, and traces one call.
@@ -57,8 +58,29 @@ Device batch decode of what the port encodes:
 15. huff0 4X, table engine (one table per container): the phase-3 corpus
     as 1024 rows of 16 KiB at ``max_log=11``, the same checks and times.
 
+Batched zstd frame decode (``zstd.device_dec.decompress_frames_device``):
+
+16. frames: 128 seeded ``text`` blocks of 64 KiB, 64 encoded by the port's
+    host encoder (``zstd.encoder.compress``, level 1) with its own table
+    choice and 64 under ``predef_seq_tables()``, and 3 frames of shapes
+    that go to the host decoder (a ``rand256`` block: a raw block; a
+    ``zeros`` block: RLE literals; 192 KiB of text: two blocks); times the
+    encode; every frame must decode to its input with ``zstd.decompress``;
+17. holds the sequence kernel against its plain version in both modes:
+    one table set per frame, on the tensors ``seqdev.prep_sequences``
+    builds from the 128 text frames; the shared predefined table set, on
+    the predefined frames' chunks (``seq_accel(k=8)`` checkpoints, 80-byte
+    windows); bit-identical, and the decoded (ll, ml, offset) equal the
+    host sequence decode;
+18. runs ``decompress_frames_device`` on the 131 frames with the launch
+    counters set to 0 just before and read just after (one launch each of
+    the huff0 chunk, sequence and execute kernels; 3 host-decoded frames;
+    every frame equal to its input), times each kernel and its plain
+    version on the path's own inputs with CUDA events, the host stages
+    and the whole call on the host clock, and traces one call.
+
 Then it prints one ``{"kernels": [...]}`` line with all the kernels (the
-huff0 kernel once per engine).
+huff0 kernel once per engine, the sequence kernel once per mode).
 Every comparison is exact (tolerance 0: all outputs are integers or
 bytes).  Any failure raises and the exit code is not 0.  The last line
 of standard output is ``{"ok": true, "device": {...}}``.
@@ -76,6 +98,8 @@ import numpy as np
 import torch
 
 N_BLOCKS = 256      # 16 MiB: one launch of MAX_LAUNCH_BLOCKS
+TEXT_FRAMES = 128   # 64 KiB text frames for the zstd frame decode
+ENCODE_CUT_S = 90   # half the frames encoded slower than this: keep half
 SEED = 0
 ZSTD_JOB = 4 << 20  # the v2 encoder's default job
 ZSTD_JOBS = 8       # one launch of the default max_launch_jobs
@@ -118,13 +142,15 @@ def host_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def trace_path(fn):
+def trace_path(fn, warm: bool = True):
     """(device busy ms, wall ms, [(name, device ms)] largest first) of one
-    call of fn under torch.profiler, after a warm-up call."""
+    call of fn under torch.profiler, after a warm-up call unless warm is
+    False."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
+    if warm:
+        fn()
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -156,15 +182,14 @@ def max_abs_err(got, want) -> int:
 def _lit_section_len(body: bytes, block: int) -> int:
     """Bytes of a compressed block's literal section (RFC 8878 §3.1.1.3.1),
     checking that its regenerated size fits the block."""
+    from compress_tpu_torch.zstd import block as B
+
     typ, fmt = body[0] & 3, (body[0] >> 2) & 3
     if typ < 2:                                          # raw or RLE
-        hdr = {0: 1, 2: 1, 1: 2, 3: 3}[fmt]
-        regen = int.from_bytes(body[:hdr], "little") >> (3 if hdr == 1 else 4)
+        regen, hdr = B.raw_lit_size(body, 0, fmt)
         size = hdr + (regen if typ == 0 else 1)
     else:                                                # Huffman
-        hdr, bits = {0: (3, 10), 1: (3, 10), 2: (4, 14), 3: (5, 18)}[fmt]
-        v = int.from_bytes(body[:hdr], "little") >> 4
-        regen, comp = v & ((1 << bits) - 1), v >> bits
+        regen, comp, hdr = B.huff_lit_sizes(body, 0, fmt)
         size = hdr + comp
     if regen > block or size >= len(body):
         raise AssertionError(f"literal section ({regen} bytes, {size} "
@@ -239,8 +264,8 @@ def _hold(name, got, want) -> int:
     return err
 
 
-def _say_trace(what: str, fn) -> None:
-    busy, wall, by_name = trace_path(fn)
+def _say_trace(what: str, fn, warm: bool = True) -> None:
+    busy, wall, by_name = trace_path(fn, warm)
     if busy > 0:
         _say(f"{what} trace: device busy {busy:.4f} ms of {wall:.4f} ms wall, "
              f"idle share {1 - busy / wall:.4f}; by name (ms): " + ", ".join(
@@ -254,6 +279,7 @@ def zstd_path(dev) -> list:
     """Phases 9-11: the zstd v2 path.  Returns its kernels' JSON entries
     and the finder's numbers on this path (launches, times, error)."""
     from compress_tpu_torch import corpus
+    from compress_tpu_torch import zstd as Z
     from compress_tpu_torch.ops import lzkern, zenc2, zparse, zseqenc
     from compress_tpu_torch.zstd import device as zdevice
 
@@ -318,8 +344,15 @@ def zstd_path(dev) -> list:
                              f"{launches}")
     walk = walk_frame(frame, n, job, blk)
     _say(f"zstd frame: {len(frame)} bytes, ratio {len(frame) / n:.6f}; "
-         f"walk {walk}. Decoding is checked on the CPU by the tests "
-         "(zstandard): this machine has no zstd decoder")
+         f"walk {walk}")
+    t0 = time.perf_counter()
+    back = Z.decompress(frame)
+    dec_s = time.perf_counter() - t0
+    if back != data:
+        raise AssertionError("the v2 frame does not decode to its input "
+                             "with the port's host decoder")
+    _say(f"zstd frame decoded by the port's host decoder (zstd.decompress):"
+         f" equal to its {n}-byte input, {dec_s:.2f} s")
 
     # ---- 11. times ----------------------------------------------------------
     t = {
@@ -585,6 +618,247 @@ def huff0_path(dev, blocks_np) -> list:
     return out
 
 
+def _host_seqs(item):
+    """(ll, ml, resolved offset) of one sequence item, decoded on the
+    host."""
+    from compress_tpu_torch.zstd import seqs as S
+    from compress_tpu_torch.zstd.device_dec import _resolve_reps
+
+    lls, mls, ofv = S.decode_sequences(*item)
+    return lls, mls, _resolve_reps(lls, mls, ofv)
+
+
+def _zseq_bound(nc: int, win: int, tables: int, live: int):
+    """Each chunk reads its window and 9 int32 of checkpoint (cursor, 3
+    states, 3 repeat offsets, count, reload limit), the table sets are
+    read once, each chunk writes 4 x 8 int32 and its end cursor; a
+    generous 100 integer operations a decoded sequence."""
+    return bound(nc * (win + 36) + 4 * tables + nc * (4 * 8 * 4 + 4),
+                 100 * live)
+
+
+def zstd_decode_path(dev):
+    """Phases 16-18: the batched zstd frame decode.  Returns the sequence
+    kernel's JSON entries (per-item and shared table) and this path's
+    numbers for the huff0 and exec rows."""
+    from compress_tpu_torch import corpus
+    from compress_tpu_torch import zstd as Z
+    from compress_tpu_torch.ops import entropy_dec as ED
+    from compress_tpu_torch.ops import execute as X
+    from compress_tpu_torch.ops import zseq_kern as ZK
+    from compress_tpu_torch.zstd import device_dec as DD
+    from compress_tpu_torch.zstd import encoder as E
+    from compress_tpu_torch.zstd import seqdev
+    from compress_tpu_torch.zstd import seqs as S
+
+    # ---- 16. frames --------------------------------------------------------
+    rng = np.random.default_rng([SEED, 16])
+    texts = [corpus.make_block("text", rng).tobytes()
+             for _ in range(TEXT_FRAMES)]
+    own, pre = [], []
+    t0 = time.perf_counter()
+    for j in range(TEXT_FRAMES // 2):
+        own.append(E.compress(texts[2 * j], level=1))
+        with E.predef_seq_tables():
+            pre.append(E.compress(texts[2 * j + 1], level=1))
+        if 2 * (j + 1) == TEXT_FRAMES // 2 \
+                and time.perf_counter() - t0 > ENCODE_CUT_S:
+            _say(f"zstd decode: half the text frames took more than "
+                 f"{ENCODE_CUT_S} s to encode; the run keeps {2 * (j + 1)}")
+            break
+    n_own = len(own)
+    text_data = texts[0:2 * n_own:2] + texts[1:2 * n_own:2]
+    b = corpus.make_block
+    host_data = [b("rand256", rng).tobytes(), b("zeros", rng).tobytes(),
+                 b"".join(b("text", rng).tobytes() for _ in range(3))]
+    frames = own + pre + [E.compress(d, level=1) for d in host_data]
+    datas = text_data + host_data
+    enc_s = time.perf_counter() - t0
+    n_text = len(text_data)
+    t0 = time.perf_counter()
+    for f, d in zip(frames, datas):
+        if Z.decompress(f) != d:
+            raise AssertionError("a frame does not decode to its input with "
+                                 "the port's host decoder")
+    hdec_s = time.perf_counter() - t0
+    n_out = sum(len(d) for d in datas)
+    _say(f"zstd decode frames: {n_text} text frames of 64 KiB ({n_own} own "
+         f"tables, {n_own} predefined) + 3 host-route frames (rand256, zeros,"
+         f" 192 KiB text); {n_out} bytes -> {sum(len(f) for f in frames)} "
+         f"(ratio {sum(len(f) for f in frames) / n_out:.6f}); host encode "
+         f"{enc_s:.2f} s; every frame decodes to its input with "
+         f"zstd.decompress ({hdec_s:.2f} s)")
+
+    # ---- 17. sequence kernel vs plain, both modes ---------------------------
+    metas = [DD._route(f) for f in frames[:n_text]]
+    if any(kind != "dev" for kind, _m in metas):
+        raise AssertionError("a text frame does not take the device route")
+    items = [m[4] for _k, m in metas]
+    t0 = time.perf_counter()
+    smeta, a, walk_s = seqdev.prep_sequences(items)
+    prep_s = time.perf_counter() - t0
+    targs = [torch.from_numpy(a[k]).to(dev) for k in (
+        "windows", "lbit", "sll", "sof", "sml", "nseq", "nore", "r1", "r2",
+        "r3", "tables")]
+    got, got_e = ED.zseq_decode_chunks_rep(*targs)
+    want, want_e = ED.zseq_decode_chunks_rep_ref(*targs)
+    err_item = _hold("zseq per-item tables", [*got, got_e], [*want, want_e])
+    host = [_host_seqs(it) for it in items]
+    ll, ml, _ofv, off = (x.cpu().numpy() for x in got)
+    for i, (h, (_kind, (n, nc))) in enumerate(zip(host, smeta)):
+        dec = [x[i, :nc].reshape(-1)[:n] for x in (ll, ml, off)]
+        if not all(np.array_equal(x, y) for x, y in zip(dec, h)):
+            raise AssertionError(f"text frame {i}: the per-item decode "
+                                 "differs from the host sequence decode")
+    live_i = int(a["nseq"].sum())
+    nc_i = a["nseq"].size
+
+    # shared table: the predefined frames' chunks, checkpoints from the
+    # host walk (equal to a sidecar's, as the CPU tests show)
+    pre_items = items[n_own:]
+    predef = S.predef_tables()
+    parts = []
+    for st, n, *tabs in pre_items:
+        if any(t.mode != S.MODE_PREDEFINED for t in tabs):
+            raise AssertionError("a predefined-table frame has other tables")
+        ck = np.array(seqdev.seq_accel(st, n, *predef, k=ZK.K), np.int64)
+        w, lb = ED.build_windows(st, ck[:, 0], len(ck), win=ZK.WIN)
+        last = np.zeros(len(ck), np.int32)
+        last[-1] = 1
+        parts.append((w, lb, np.minimum(n - ZK.K * np.arange(len(ck)), ZK.K),
+                      ck[:, 1:4], ck[:, 4:7], last))
+    sargs = [torch.from_numpy(np.concatenate(c).astype(
+        np.uint8 if j == 0 else np.int32)).to(dev)
+        for j, c in enumerate(zip(*parts))]
+    sargs.append(torch.from_numpy(ZK.pack_tables()).to(dev))
+    ZK.zseq_decode_chunks_shared.launches = 0
+    got_s = ZK.zseq_decode_chunks_shared(*sargs)
+    torch.cuda.synchronize()
+    shared_launches = ZK.zseq_decode_chunks_shared.launches
+    err_sh = _hold("zseq shared table", got_s,
+                   ZK.zseq_decode_chunks_shared_ref(*sargs))
+    ll, ml, off = (x.cpu().numpy() for x in got_s[:3])
+    c0 = 0
+    for (w, *_r), (st, n, *_t), h in zip(parts, pre_items, host[n_own:]):
+        sl = slice(c0, c0 + len(w))
+        dec = [x[sl].reshape(-1)[:n] for x in (ll, ml, off)]
+        if not all(np.array_equal(x, y) for x, y in zip(dec, h)):
+            raise AssertionError("the shared-table decode differs from the "
+                                 "host sequence decode")
+        c0 += len(w)
+    nc_s = sargs[0].shape[0]
+    live_s = int(sargs[2].sum())
+    _say(f"zseq: per-item {tuple(a['windows'].shape[:2])} chunks ({live_i} "
+         f"sequences; host walk {walk_s:.2f} s, prep {prep_s:.2f} s), shared "
+         f"{nc_s} chunks ({live_s} sequences, launches {shared_launches}); "
+         "both equal the host sequence decode")
+
+    # ---- 18. the path ------------------------------------------------------
+    counted = {"huff0": ED.huff0_decode_chunks,
+               "zseq": ED.zseq_decode_chunks_rep, "exec": X.execute_rounds}
+    for f in (*counted.values(), ED.zseq_decode_chunks,
+              ZK.zseq_decode_chunks_shared):
+        f.launches = 0
+    DD.decompress_frames_device.host_frames = 0
+    stats = {}
+    t0 = time.perf_counter()
+    out = DD.decompress_frames_device(frames, stats=stats)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counted.items()}
+    other = (ED.zseq_decode_chunks.launches
+             + ZK.zseq_decode_chunks_shared.launches)
+    host_frames = DD.decompress_frames_device.host_frames
+    _say(f"zstd decode main path launches: {launches}, other sequence "
+         f"launches {other}, host frames {host_frames}; routes "
+         f"{stats['routes']} (first call {first_s:.2f} s)")
+    if any(v != 1 for v in launches.values()) or host_frames != 3:
+        raise AssertionError(f"zstd decode: launches {launches}, host frames "
+                             f"{host_frames}")
+    bad = [i for i, (g, d) in enumerate(zip(out, datas)) if g != d]
+    if bad:
+        raise AssertionError(f"zstd decode: frames {bad[:8]} differ from "
+                             "their input")
+    _say(f"zstd decode: all {len(frames)} frames equal their input")
+
+    # the path's own kernel inputs, rebuilt by its host halves
+    metas_all = [DD._route(f) for f in frames]
+    scratch = dict.fromkeys(("lit_walk", "lit_prep", "lit_kernel"), 0.0)
+    _dec, _it, _built, larr = DD._literal_batch(metas_all, scratch)
+    largs = [torch.from_numpy(x).to(dev) for x in larr]
+    err_h = _hold("huff0 (zstd literals)", ED.huff0_decode_chunks(*largs),
+                  ED.huff0_decode_chunks_ref(*largs))
+    lit_dec = DD._literals(metas_all, dev, scratch)
+    seq_out = seqdev.decode_sequences_device(items, resolve=True)
+    plans, rows, _order, _host = DD._exec_batch(metas_all, lit_dec, seq_out,
+                                                4)
+    src, dst, length, caps = X.pack_plans(plans)
+    xargs = [torch.from_numpy(x).to(dev) for x in (rows, src, dst, length)]
+    err_x = _hold("exec (zstd)", X.execute_rounds(*xargs, caps),
+                  X.execute_rounds_ref(*xargs, caps))
+
+    t = {"huff0": cuda_ms(lambda: ED.huff0_decode_chunks(*largs), 20),
+         "zseq": cuda_ms(lambda: ED.zseq_decode_chunks_rep(*targs), 20),
+         "shared": cuda_ms(lambda: ZK.zseq_decode_chunks_shared(*sargs), 20),
+         "exec": cuda_ms(lambda: X.execute_rounds(*xargs, caps), 20)}
+    plain = {"huff0": cuda_ms(lambda: ED.huff0_decode_chunks_ref(*largs), 2),
+             "zseq": cuda_ms(lambda: ED.zseq_decode_chunks_rep_ref(*targs),
+                             2),
+             "shared": cuda_ms(lambda: ZK.zseq_decode_chunks_shared_ref(
+                 *sargs), 2),
+             "exec": cuda_ms(lambda: X.execute_rounds_ref(*xargs, caps), 2)}
+    stats = {}
+    t0 = time.perf_counter()
+    DD.decompress_frames_device(frames, stats=stats)
+    torch.cuda.synchronize()
+    t_call = (time.perf_counter() - t0) * 1e3
+    _say("zstd decode kernel times (ms, CUDA events): " + ", ".join(
+        f"{k} {v:.4f} (plain {plain[k]:.4f})" for k, v in t.items()))
+    _say(f"zstd decode whole call (host clock): {t_call:.4f} ms, "
+         f"{n_out / (t_call * 1e-3) / 1e9:.4f} GB/s of output; stages (s): "
+         + ", ".join(f"{k} {v:.4f}" for k, v in stats["s"].items()))
+    _say_trace("zstd decode", lambda: DD.decompress_frames_device(frames),
+               warm=False)
+
+    b_item = _zseq_bound(nc_i, ED.ZWIN, a["tables"].size, live_i)
+    b_sh = _zseq_bound(nc_s, ZK.WIN, ZK.ZTAB, live_s)
+    nc_h = largs[0].shape[0] * largs[0].shape[1]
+    b_h = bound(nc_h * (ED.WIN + 8) + largs[3].numel() * 4 + nc_h * 36,
+                8 * int(largs[2].sum()))
+    live_x = int((xargs[3] > 0).sum())
+    b_x = bound(2 * xargs[0].numel() + 4 * sum(caps) * len(plans)
+                + 8 * live_x, 8 * n_out)
+    _say(f"zstd decode bounds (ms): huff0 {b_h[0]:.4f}, zseq per-item "
+         f"{b_item[0]:.4f} ({b_item[1]}), shared {b_sh[0]:.4f}, exec "
+         f"{b_x[0]:.4f}")
+    common = {"route": "cuda", "source": "compress_tpu_torch/csrc/zseqdec.cu",
+              "replaces": "compress_tpu/ops/zseq_pallas.py:68",
+              "library_ms": None, "equal_to_plain": True}
+    rows_out = [
+        {"name": "zseq_decode_chunks_rep", "mode": "per_item", **common,
+         "launches": launches["zseq"], "max_abs_err": err_item,
+         "ms": t["zseq"], "plain_ms": plain["zseq"], "bound_ms": b_item[0],
+         "bound_by": b_item[1], "chunks": nc_i, "sequences": live_i,
+         "also_serves": "compress_tpu/ops/entropy_dec.py:234"},
+        {"name": "zseq_decode_chunks_shared", "mode": "shared", **common,
+         "launches": shared_launches, "max_abs_err": err_sh,
+         "ms": t["shared"], "plain_ms": plain["shared"], "bound_ms": b_sh[0],
+         "bound_by": b_sh[1], "chunks": nc_s, "sequences": live_s,
+         "path": "phase 17: the predefined frames' chunks"},
+    ]
+    extra = {
+        "huff0": {"zdec_launches": launches["huff0"], "zdec_ms": t["huff0"],
+                  "zdec_plain_ms": plain["huff0"], "zdec_bound_ms": b_h[0],
+                  "zdec_max_abs_err": err_h},
+        "exec": {"zdec_launches": launches["exec"], "zdec_ms": t["exec"],
+                 "zdec_plain_ms": plain["exec"], "zdec_bound_ms": b_x[0],
+                 "zdec_max_abs_err": err_x},
+        "call": {"call_ms": t_call, "first_s": first_s, "encode_s": enc_s,
+                 "host_decode_s": hdec_s, "stages_s": stats["s"]},
+    }
+    return rows_out, extra
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -740,6 +1014,14 @@ def main() -> int:
     kernels += zstd_kernels
     kernels.append(s2_decode_path(dev, data, bodies))
     kernels += huff0_path(dev, blocks_np)
+    zseq_rows, zdec = zstd_decode_path(dev)
+    for row in kernels:
+        if row["name"] == "execute_rounds":
+            row.update(zdec["exec"])
+        elif row.get("engine") == "table":
+            row.update(zdec["huff0"])
+    zseq_rows[0].update(zdec["call"])
+    kernels += zseq_rows
 
     _say(smi)
     _say(json.dumps({"kernels": kernels}))

@@ -24,7 +24,7 @@ _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("lzkern.cu", "lzemit.cu", "zparse.cu", "zseqenc.cu", "litlut.cu",
-           "exec.cu", "huff0dec.cu")
+           "exec.cu", "huff0dec.cu", "zseqdec.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,6 +39,7 @@ _SIGNATURES = {
     "ct_litlut": [_P, _P, _P, _P, _I, _I, _P],
     "ct_exec_rounds": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "ct_huff0_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "ct_zseq_decode": [_P] * 7 + [_I] * 5 + [_P] * 6,
 }
 
 _lib = None

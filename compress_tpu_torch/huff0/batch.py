@@ -1,8 +1,9 @@
 """huff0 4X batch codec on the device (counterpart of the JAX package's
 ``huff0.compress_4x_batch``, ``make_accel``, ``_prep_decode_batch``,
 ``shared_packed_table`` and ``decompress_4x_batch``), with pure-Python
-copies of its host decoder (``_decode_stream``, ``decompress_4x``; the
-native branches are not copied).
+copies of its host stream codec (``_encode_stream``, ``_decode_stream``,
+``decompress_1x``, ``decompress_4x``; the native branches are not
+copied).
 
 Container: [uvarint n][table][jump6: the first three stream sizes]
 [stream 1..4]; the input splits into 4 segments of ceil(n / 4) bytes (the
@@ -27,7 +28,7 @@ from compress_tpu_torch.ops.entropy import HUFF_CKPT_K, huff0_encode_blocks
 from compress_tpu_torch.utils.varint import put_uvarint, read_uvarint
 
 __all__ = ["compress_4x_batch", "make_accel", "shared_packed_table",
-           "decompress_4x_batch", "decompress_4x"]
+           "decompress_4x_batch", "decompress_1x", "decompress_4x"]
 
 
 def _peek(data: bytes, bitpos: int, max_bits: int) -> int:
@@ -56,6 +57,30 @@ def _decode_stream(stream: bytes, sym_t, nb_t, max_bits: int,
     if bitpos != 0:
         raise CorruptError("stream not fully consumed")
     return out
+
+
+def _encode_stream(data: np.ndarray, codes: np.ndarray,
+                   nbits: np.ndarray) -> bytes:
+    """One stream: the symbols' codes written last symbol first (so that
+    the decoder emits forward), LSB-first, then the 1-bit end marker.
+    The reference's bit writer, vectorized: the same bytes."""
+    seq = np.asarray(data, np.uint8)[::-1].astype(np.int64)
+    c = np.asarray(codes, np.int64)[seq]
+    nb = np.asarray(nbits, np.int64)[seq]
+    j = np.arange(16)
+    bits = ((c[:, None] >> j) & 1).astype(np.uint8)[j[None, :] < nb[:, None]]
+    return np.packbits(np.append(bits, np.uint8(1)),
+                       bitorder="little").tobytes()
+
+
+def decompress_1x(blob, max_size: int = 64 << 20) -> bytes:
+    """Host decode of one 1X container ([uvarint n][table][stream])."""
+    blob = bytes(blob)
+    n, pos = read_uvarint(blob)
+    if n > max_size:
+        raise ValueError("decoded size exceeds limit")
+    sym_t, nb_t, max_bits, pos = read_table(blob, pos)
+    return _decode_stream(blob[pos:], sym_t, nb_t, max_bits, n).tobytes()
 
 
 def _split(blob: bytes, pos: int, n: int):

@@ -1,6 +1,8 @@
-"""huff0 table serialization (RFC 8878 §4.2.1): pure-Python copies of the
-JAX package's ``huff0.write_table`` and ``read_table`` and the helpers
-they need (``weights_to_nbits``, ``build_dtable``).
+"""huff0 code lengths and table serialization (RFC 8878 §4.2.1):
+pure-Python copies of the JAX package's ``huff0.build_nbits`` (its
+package-merge code lengths), ``canonical_codes``, ``write_table`` and
+``read_table`` and the helpers they need (``weights_to_nbits``,
+``build_dtable``).
 
 weight(s) = max_bits + 1 - nbits(s), 0 for an unused symbol; the last
 present symbol's weight is implied.  The weights are written FSE-compressed
@@ -23,6 +25,64 @@ class IncompressibleError(ValueError):
 
 class CorruptError(ValueError):
     pass
+
+
+class UseRLEError(ValueError):
+    pass
+
+
+def package_merge_lengths(freqs: np.ndarray, limit: int) -> np.ndarray:
+    """Optimal length-limited code lengths (<= limit) for nonzero freqs."""
+    sym = np.nonzero(freqs)[0]
+    n = len(sym)
+    if n == 0:
+        raise ValueError("empty histogram")
+    if n == 1:
+        out = np.zeros(len(freqs), dtype=np.int32)
+        out[sym[0]] = 1
+        return out
+    if (1 << limit) < n:
+        raise ValueError("limit too small for alphabet")
+    f = freqs[sym].astype(np.int64)
+    # package-merge: the coin lists of each level, (weight, symbols)
+    items = sorted((int(w), (int(s),)) for s, w in zip(sym, f))
+    packages = items
+    merged = items
+    for _ in range(limit - 1):
+        paired = [(packages[i][0] + packages[i + 1][0],
+                   packages[i][1] + packages[i + 1][1])
+                  for i in range(0, len(packages) - 1, 2)]
+        merged = sorted(items + paired)
+        packages = merged
+    lengths = np.zeros(len(freqs), dtype=np.int32)
+    for _w, syms in merged[:2 * n - 2]:
+        for s in syms:
+            lengths[s] += 1
+    return lengths
+
+
+def build_nbits(hist: np.ndarray, table_log: int = MAX_TABLELOG):
+    """(nb_bits per symbol, 0 = unused; the max bits used)."""
+    if int((hist > 0).sum()) <= 1:
+        raise UseRLEError("single symbol")
+    nbits = package_merge_lengths(hist, min(table_log, MAX_TABLELOG))
+    return nbits, int(nbits.max())
+
+
+def canonical_codes(nbits: np.ndarray, max_bits: int) -> np.ndarray:
+    """Code value per symbol matching the RFC decode-table layout: the
+    table is filled nb_bits descending, natural symbol order within a
+    length; code = table_start >> (max_bits - nb)."""
+    codes = np.zeros(len(nbits), dtype=np.int64)
+    start = 0
+    for nb in range(max_bits, 0, -1):
+        span = 1 << (max_bits - nb)
+        for s in np.nonzero(nbits == nb)[0]:
+            codes[s] = start >> (max_bits - nb)
+            start += span
+    if start != (1 << max_bits):
+        raise ValueError("kraft sum mismatch")
+    return codes
 
 
 def nbits_to_weights(nbits: np.ndarray, max_bits: int) -> np.ndarray:

@@ -1,6 +1,8 @@
-"""Batched huff0 decode with one table per container (counterpart of the
-JAX package's ``ops/entropy_dec.py``: ``WIN``, ``expand_table``,
-``build_windows``, ``huff0_decode_chunks``).
+"""Batched huff0 and zstd sequence decode with one table per container
+(counterpart of the JAX package's ``ops/entropy_dec.py``: ``WIN``,
+``expand_table``, ``build_windows``, ``huff0_decode_chunks``; ``ZWIN``,
+``ZSEQ_K``, ``zseq_decode_chunks`` and ``zseq_decode_chunks_rep``; the
+table packing of ``expand_zseq_table`` is ``zseq_kern.state_row``).
 
 The encoder's checkpoints (``ops/entropy.py`` ``ckpt``: the remaining-bit
 offset of a stream every HUFF_CKPT_K symbols) cut each stream into chunks
@@ -12,6 +14,15 @@ its lane gathers, which the kernel here does not need); the symbol loop
 runs on the device, through the chunk kernel of ``ops/entropy_kern.py``
 with a per-container table on CUDA tensors, and through
 ``huff0_decode_chunks_ref`` on CPU tensors.
+
+The sequence decode works the same way on sequence checkpoints (bit
+offset, 3 FSE states and 3 repeat offsets every ZSEQ_K sequences, from
+``zstd/seqdev.seq_accel``): 96-byte windows and one table set per item in
+the integer layout of ``ops/zseq_kern.py`` (the reference packs (16, 192)
+float32 planes for its one-hot lookups), decoded by the kernel of
+``csrc/zseqdec.cu`` with a table stride on CUDA tensors and by its plain
+version on CPU tensors.  ``zseq_decode_chunks_rep`` also resolves the
+repeat offsets in the carry.
 """
 
 from __future__ import annotations
@@ -20,12 +31,17 @@ import numpy as np
 import torch
 
 from compress_tpu_torch.ops.entropy import HUFF_CKPT_K
+from compress_tpu_torch.ops import zseq_kern as ZK
 from compress_tpu_torch.ops.entropy_kern import decode_chunks_plain, launch
 
 WIN = 52          # window bytes per chunk (>= ceil(K*11/8) + peek slack)
+ZWIN = 96         # sequence-chunk window bytes (8 seqs x <= 81 bits + slack)
+ZSEQ_K = 8        # sequences per checkpoint chunk
 
 __all__ = ["WIN", "expand_table", "build_windows", "huff0_decode_chunks",
-           "huff0_decode_chunks_ref"]
+           "huff0_decode_chunks_ref", "ZWIN", "ZSEQ_K", "zseq_decode_chunks",
+           "zseq_decode_chunks_ref",
+           "zseq_decode_chunks_rep", "zseq_decode_chunks_rep_ref"]
 
 
 def expand_table(sym_t, nb_t, max_bits: int):
@@ -95,3 +111,91 @@ def huff0_decode_chunks(windows: torch.Tensor, lbit: torch.Tensor,
 
 
 huff0_decode_chunks.launches = 0
+
+
+def _zseq_args(windows, lbit, sll, sof, sml, nseq, nore, reps, tables, k):
+    N, C = lbit.shape
+    if windows.dim() != 3 or windows.shape[:2] != (N, C) or any(
+            t.shape != (N, C) for t in (sll, sof, sml, nseq, nore, *reps)) \
+            or tables.shape != (N, ZK.ZTAB):
+        raise ValueError("expected (N, C, win) windows, (N, C) cursors, "
+                         f"states, counts and reps, (N, {ZK.ZTAB}) tables")
+    if any(t.device != windows.device
+           for t in (lbit, sll, sof, sml, nseq, nore, tables, *reps)):
+        raise ValueError("zseq decode: inputs on different devices")
+    states = torch.stack([sll, sof, sml], -1).reshape(N * C, 3)
+    reps = torch.stack(reps, -1).reshape(N * C, 3).to(torch.int32)
+    return (windows.reshape(N * C, -1), lbit.reshape(-1), nseq.reshape(-1),
+            nore.reshape(-1), states.to(torch.int32).contiguous(),
+            reps.contiguous(), tables, C, k, True)
+
+
+def _zseq_run(args, plain: bool, counter):
+    C = args[7]
+    out = ZK.decode_plain(*args) if plain else ZK.launch(*args)
+    if not plain:
+        counter.launches += 1
+    nc = args[0].shape[0]
+    return (tuple(o.view(nc // C, C, -1) for o in out[:4]),
+            out[4].view(nc // C, C))
+
+
+def _initial_reps(lbit):
+    return tuple(torch.full_like(lbit, v) for v in (1, 4, 8))
+
+
+def zseq_decode_chunks_ref(windows, lbit, sll, sof, sml, nseq, nore, tables,
+                           k: int = ZSEQ_K):
+    """Plain version of ``zseq_decode_chunks``."""
+    args = _zseq_args(windows, lbit, sll, sof, sml, nseq, nore,
+                      _initial_reps(lbit), tables, k)
+    (ll, ml, ofv, _off), endl = _zseq_run(args, True, None)
+    return (ll, ml, ofv), endl
+
+
+def zseq_decode_chunks(windows: torch.Tensor, lbit: torch.Tensor,
+                       sll: torch.Tensor, sof: torch.Tensor, sml: torch.Tensor,
+                       nseq: torch.Tensor, nore: torch.Tensor,
+                       tables: torch.Tensor, k: int = ZSEQ_K):
+    """Chunked zstd sequence decode, offsets left in of_value form.
+
+    windows (N, C, ZWIN) uint8; lbit, sll, sof, sml (N, C) int32 entry
+    cursor and states; nseq (N, C) sequences in the chunk (0 for pad
+    chunks); nore (N, C) the local index from which the states stop
+    reloading (the block's last sequence); tables (N, ZTAB) int32, one
+    table set per item (``zseq_kern.table_set``).  Returns ((ll, ml, ofv)
+    each (N, C, k) int32, end cursors (N, C) int32)."""
+    args = _zseq_args(windows, lbit, sll, sof, sml, nseq, nore,
+                      _initial_reps(lbit), tables, k)
+    (ll, ml, ofv, _off), endl = _zseq_run(
+        args, windows.device.type == "cpu", zseq_decode_chunks)
+    return (ll, ml, ofv), endl
+
+
+def zseq_decode_chunks_rep_ref(windows, lbit, sll, sof, sml, nseq, nore, r1,
+                               r2, r3, tables, k: int = ZSEQ_K):
+    """Plain version of ``zseq_decode_chunks_rep``."""
+    args = _zseq_args(windows, lbit, sll, sof, sml, nseq, nore, (r1, r2, r3),
+                      tables, k)
+    return _zseq_run(args, True, None)
+
+
+def zseq_decode_chunks_rep(windows: torch.Tensor, lbit: torch.Tensor,
+                           sll: torch.Tensor, sof: torch.Tensor,
+                           sml: torch.Tensor, nseq: torch.Tensor,
+                           nore: torch.Tensor, r1: torch.Tensor,
+                           r2: torch.Tensor, r3: torch.Tensor,
+                           tables: torch.Tensor, k: int = ZSEQ_K):
+    """``zseq_decode_chunks`` with the repeat offsets resolved in the
+    carry: r1, r2, r3 (N, C) int32 are the repeat offsets at each chunk's
+    entry.  Returns ((ll, ml, ofv, off) each (N, C, k) int32, end cursors
+    (N, C)), off the absolute offset (RFC 8878 §3.1.1.5; repeat code 3 at
+    r1 = 1 gives 1, as the reference's scan does)."""
+    args = _zseq_args(windows, lbit, sll, sof, sml, nseq, nore, (r1, r2, r3),
+                      tables, k)
+    return _zseq_run(args, windows.device.type == "cpu",
+                     zseq_decode_chunks_rep)
+
+
+zseq_decode_chunks.launches = 0
+zseq_decode_chunks_rep.launches = 0

@@ -1,1 +1,151 @@
-"""zstd frame encode of the port: the device v2 encoder's host side."""
+"""zstd of the port: the host frame codec (RFC 8878) that the device
+encoder and the batched device decoder need beside them.
+
+``decompress`` is a copy of the JAX package's pure-Python per-frame
+decoder (``zstd/__init__.py``; it has no native path here), ``compress``
+the pure-Python encoder (``zstd/encoder.py``).  Dictionaries are not
+supported: a frame that names a dictionary raises ``ZstdError``.
+"""
+
+from __future__ import annotations
+
+from compress_tpu_torch.utils.xxhash64 import xxh64
+from compress_tpu_torch.zstd import block as B
+from compress_tpu_torch.zstd.block import BlockError, History
+from compress_tpu_torch.zstd.frame import (FrameError, Header,
+                                           parse_frame_header)
+
+MAX_DECODED_SIZE = 64 << 30
+
+__all__ = ["compress", "decompress", "predef_seq_tables", "ZstdError",
+           "FrameError", "BlockError", "Header", "History",
+           "parse_frame_header", "MAX_DECODED_SIZE"]
+
+
+class ZstdError(ValueError):
+    pass
+
+
+def decompress(data, max_size: int = MAX_DECODED_SIZE,
+               max_window: int = 1 << 31,
+               ignore_checksum: bool = False) -> bytes:
+    """Decode all frames in data (skippable frames are skipped)."""
+    data = bytes(data)
+    pos = 0
+    out_all = bytearray()
+    # empty input decodes to empty output
+    while pos < len(data):
+        try:
+            h = parse_frame_header(data, pos)
+        except FrameError as e:
+            raise ZstdError(str(e)) from e
+        if h.skippable:
+            pos += h.header_size + h.skippable_size
+            if pos > len(data):
+                raise ZstdError("skippable frame overruns input")
+            continue
+        pos += h.header_size
+        if h.window_size > max_window:
+            raise ZstdError("window size exceeds limit")
+        if (h.frame_content_size is not None
+                and h.frame_content_size > max_size):
+            raise ZstdError("decoded size exceeds limit")
+        if h.dict_id:
+            raise ZstdError(f"frame needs dictionary id {h.dict_id}")
+        hist = History(window_size=max(h.window_size, 1024))
+        frame_out = bytearray()
+        while True:
+            if pos + 3 > len(data):
+                raise ZstdError("truncated block header")
+            bh = int.from_bytes(data[pos:pos + 3], "little")
+            pos += 3
+            last = bh & 1
+            btype = (bh >> 1) & 3
+            bsize = bh >> 3
+            max_out = min(B.MAX_BLOCK_SIZE, h.window_size or B.MAX_BLOCK_SIZE)
+            if h.frame_content_size is not None:
+                max_out = min(max(max_out, 1), B.MAX_BLOCK_SIZE)
+            if btype == B.BLOCK_RAW:
+                if pos + bsize > len(data):
+                    raise ZstdError("truncated raw block")
+                out = data[pos:pos + bsize]
+                pos += bsize
+            elif btype == B.BLOCK_RLE:
+                if pos >= len(data):
+                    raise ZstdError("truncated RLE block")
+                if bsize > B.MAX_BLOCK_SIZE:
+                    raise ZstdError("RLE block too large")
+                out = bytes([data[pos]]) * bsize
+                pos += 1
+            elif btype == B.BLOCK_COMPRESSED:
+                if bsize > B.MAX_BLOCK_SIZE:
+                    raise ZstdError("compressed block too large")
+                if pos + bsize > len(data):
+                    raise ZstdError("truncated compressed block")
+                try:
+                    out = B.decode_block(data[pos:pos + bsize], hist,
+                                         B.MAX_BLOCK_SIZE)
+                except (ValueError, IndexError) as e:
+                    raise ZstdError(f"block decode failed: {e}") from e
+                pos += bsize
+            else:
+                raise ZstdError("reserved block type")
+            # Block_Maximum_Size = min(Window_Size, 128 KiB)
+            if len(out) > max_out:
+                raise ZstdError("block exceeds window maximum")
+            hist.append(out)
+            frame_out += out
+            if len(out_all) + len(frame_out) > max_size:
+                raise ZstdError("decoded size exceeds limit")
+            if last:
+                break
+        if (h.frame_content_size is not None
+                and len(frame_out) != h.frame_content_size):
+            raise ZstdError("frame content size mismatch")
+        if h.has_checksum:
+            if pos + 4 > len(data):
+                raise ZstdError("truncated checksum")
+            if not ignore_checksum:
+                want = int.from_bytes(data[pos:pos + 4], "little")
+                if want != xxh64(bytes(frame_out)) & 0xFFFFFFFF:
+                    raise ZstdError("checksum mismatch")
+            pos += 4
+        out_all += frame_out
+    return bytes(out_all)
+
+
+def _frame_extent(data: bytes, pos: int):
+    """(end offset past the checksum of the frame at pos, skippable?): a
+    structural walk over the block headers, no decoding."""
+    try:
+        h = parse_frame_header(data, pos)
+    except FrameError as e:
+        raise ZstdError(str(e)) from e
+    if h.skippable:
+        end = pos + h.header_size + h.skippable_size
+        if end > len(data):
+            raise ZstdError("skippable frame overruns input")
+        return end, True
+    p = pos + h.header_size
+    while True:
+        if p + 3 > len(data):
+            raise ZstdError("truncated block header")
+        bh = int.from_bytes(data[p:p + 3], "little")
+        p += 3
+        btype = (bh >> 1) & 3
+        if btype == 3:
+            raise ZstdError("reserved block type")
+        p += 1 if btype == B.BLOCK_RLE else bh >> 3
+        if p > len(data):
+            raise ZstdError("truncated block")
+        if bh & 1:
+            break
+    if h.has_checksum:
+        p += 4
+        if p > len(data):
+            raise ZstdError("truncated checksum")
+    return p, False
+
+
+from compress_tpu_torch.zstd.encoder import (compress,  # noqa: E402
+                                             predef_seq_tables)

@@ -24,46 +24,10 @@ from compress_tpu_torch.huff0.table import write_table
 from compress_tpu_torch.ops import zenc2
 from compress_tpu_torch.utils.xxhash64 import xxh64
 from compress_tpu_torch.zstd import frame as F
+from compress_tpu_torch.zstd.encoder import (_lit_header, _lit_header_comp,
+                                             _seq_count_header)
 
 DEFAULT_JOB = 4 << 20
-
-
-def _lit_header_raw(regen: int) -> bytes:
-    if regen < 32:
-        return bytes([0 | (regen << 3)])
-    if regen < 4096:
-        return (0 | (1 << 2) | (regen << 4)).to_bytes(2, "little")
-    return (0 | (3 << 2) | (regen << 4)).to_bytes(3, "little")
-
-
-def _lit_header_rle(regen: int) -> bytes:
-    if regen < 32:
-        return bytes([1 | (regen << 3)])
-    if regen < 4096:
-        return (1 | (1 << 2) | (regen << 4)).to_bytes(2, "little")
-    return (1 | (3 << 2) | (regen << 4)).to_bytes(3, "little")
-
-
-def _lit_header_comp(lit_type: int, regen: int, comp: int) -> bytes:
-    # 4-stream sizes; pick the smallest size_format that fits
-    if regen < 1 << 10 and comp < 1 << 10:
-        v = lit_type | (1 << 2) | (regen << 4) | (comp << 14)
-        return v.to_bytes(3, "little")
-    if regen < 1 << 14 and comp < 1 << 14:
-        v = lit_type | (2 << 2) | (regen << 4) | (comp << 18)
-        return v.to_bytes(4, "little")
-    v = lit_type | (3 << 2) | (regen << 4) | (comp << 22)
-    return v.to_bytes(5, "little")
-
-
-def _seq_count_header(n: int) -> bytes:
-    if n == 0:
-        return b"\x00"
-    if n < 128:
-        return bytes([n])
-    if n < 0x7F00:
-        return bytes([128 + (n >> 8), n & 0xFF])
-    return b"\xff" + (n - 0x7F00).to_bytes(2, "little")
 
 
 def _extract_literals(block: bytes, lls, mls, ns: int) -> bytes:
@@ -140,9 +104,9 @@ def _assemble_job_py(job_bytes: bytes, t, j: int, block: int):
         assert len(lits) == lc, (len(lits), lc)
 
         # ---- literal section candidates -------------------------------
-        lit_sec = _lit_header_raw(lc) + lits
+        lit_sec = _lit_header(0, lc) + lits
         if lc > 0 and lits.count(lits[0]) == lc:
-            rle = _lit_header_rle(lc) + lits[:1]
+            rle = _lit_header(1, lc) + lits[:1]
             if len(rle) < len(lit_sec):
                 lit_sec = rle
         table_blob = None
@@ -167,7 +131,7 @@ def _assemble_job_py(job_bytes: bytes, t, j: int, block: int):
                                  for s in streams[:3])
                 body += b"".join(streams)
                 try:
-                    comp = _lit_header_comp(2, lc, len(body)) + body
+                    comp = _lit_header_comp(2, 4, lc, len(body)) + body
                 except OverflowError:
                     comp = None
                 if comp is not None and len(comp) < len(lit_sec):

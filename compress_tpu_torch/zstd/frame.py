@@ -1,7 +1,9 @@
 """zstd frame header (RFC 8878 §3.1.1): a copy of the JAX package's
-``zstd/frame.py`` writer."""
+``zstd/frame.py`` writer and parser (skippable frames included)."""
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 MAGIC = 0xFD2FB528
 
@@ -74,3 +76,96 @@ def write_frame_header(content_size: int | None, window_size: int,
         v = content_size - 256 if fcs_code == 1 else content_size
         out += v.to_bytes(fcs_bytes, "little")
     return bytes(out)
+
+
+SKIPPABLE_MAGIC_BASE = 0x184D2A50  # low nibble 0..F
+
+
+def descriptor_window(wd: int) -> int:
+    exp = (wd >> 3) + MIN_WINDOW_LOG
+    base = 1 << exp
+    return base + (base // 8) * (wd & 7)
+
+
+@dataclass
+class Header:
+    """A decoded frame header (the reference's ``Header`` record)."""
+
+    single_segment: bool = False
+    window_size: int = 0
+    dict_id: int = 0
+    has_checksum: bool = False
+    frame_content_size: int | None = None
+    skippable: bool = False
+    skippable_id: int = 0
+    skippable_size: int = 0
+    header_size: int = 0
+    # first-block info
+    first_block_ok: bool = False
+    first_block_last: bool = False
+    first_block_type: int = 0
+    first_block_size: int = 0
+
+
+def parse_frame_header(buf: bytes, pos: int = 0) -> Header:
+    """Parse magic + header; raises FrameError on anything invalid.
+
+    header_size is relative to pos (magic included)."""
+    h = Header()
+    start = pos
+    if pos + 4 > len(buf):
+        raise FrameError("truncated magic")
+    magic = int.from_bytes(buf[pos:pos + 4], "little")
+    pos += 4
+    if (magic & 0xFFFFFFF0) == SKIPPABLE_MAGIC_BASE:
+        if pos + 4 > len(buf):
+            raise FrameError("truncated skippable size")
+        h.skippable = True
+        h.skippable_id = magic & 0xF
+        h.skippable_size = int.from_bytes(buf[pos:pos + 4], "little")
+        h.header_size = pos + 4 - start
+        return h
+    if magic != MAGIC:
+        raise FrameError("bad magic")
+    if pos >= len(buf):
+        raise FrameError("truncated FHD")
+    fhd = buf[pos]
+    pos += 1
+    if fhd & 0x08:
+        raise FrameError("reserved FHD bit set")
+    h.single_segment = bool(fhd & 0x20)
+    h.has_checksum = bool(fhd & 0x04)
+    did_bytes = [0, 1, 2, 4][fhd & 0x03]
+    fcs_code = fhd >> 6
+    fcs_bytes = [0, 2, 4, 8][fcs_code]
+    if h.single_segment and fcs_code == 0:
+        fcs_bytes = 1
+    if not h.single_segment:
+        if pos >= len(buf):
+            raise FrameError("truncated window descriptor")
+        h.window_size = descriptor_window(buf[pos])
+        pos += 1
+    if did_bytes:
+        if pos + did_bytes > len(buf):
+            raise FrameError("truncated dict id")
+        h.dict_id = int.from_bytes(buf[pos:pos + did_bytes], "little")
+        pos += did_bytes
+    if fcs_bytes:
+        if pos + fcs_bytes > len(buf):
+            raise FrameError("truncated FCS")
+        v = int.from_bytes(buf[pos:pos + fcs_bytes], "little")
+        if fcs_bytes == 2:
+            v += 256
+        h.frame_content_size = v
+        pos += fcs_bytes
+    if h.single_segment:
+        h.window_size = h.frame_content_size or 0
+    h.header_size = pos - start
+    # peek at the first block header
+    if pos + 3 <= len(buf):
+        bh = int.from_bytes(buf[pos:pos + 3], "little")
+        h.first_block_ok = True
+        h.first_block_last = bool(bh & 1)
+        h.first_block_type = (bh >> 1) & 3
+        h.first_block_size = bh >> 3
+    return h

@@ -15,14 +15,19 @@ import pytest
 import torch
 
 from compress_tpu_torch import corpus, huff0
+from compress_tpu_torch.fse import core as fse_core
 from compress_tpu_torch.ops import (entropy_dec, entropy_kern, execute, lz2,
-                                    lzemit2, lzkern, zenc2, zparse, zseqenc)
+                                    lzemit2, lzkern, zenc2, zparse, zseq_kern,
+                                    zseqenc)
 from compress_tpu_torch.s2 import block as s2_block
 from compress_tpu_torch.s2.device_dec import decode_blocks_device as \
     s2_decode_blocks_device
 from compress_tpu_torch.s2.device_dec import plan_blocks
 from compress_tpu_torch.utils.varint import put_uvarint
 from compress_tpu_torch.zstd import device as zdevice
+from compress_tpu_torch.zstd import encoder as zencoder
+from compress_tpu_torch.zstd import seqs as zseqs
+from compress_tpu_torch.zstd.device_dec import decompress_frames_device
 
 
 @pytest.fixture(scope="module")
@@ -376,3 +381,116 @@ def test_decode_kernels_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         entropy_kern.huff0_decode_chunks_shared(w, lb.to(torch.int64), ns,
                                                 tab)
+
+
+def _seq_chunks(nc: int, win: int, seed: int, logs=(9, 8, 9)):
+    """Random sequence chunks: windows, cursors anywhere in the window (the
+    top included), pad chunks (lbit 8 * win, nsym 0), nsym from 0 to 8,
+    states below 2^log, repeat offsets with r1 = 1 among them."""
+    windows, lbit, nsym = _chunks(nc, win, 8, seed)
+    rng = np.random.default_rng(seed + 1)
+    states = np.stack([rng.integers(0, 1 << lg, nc) for lg in logs],
+                      1).astype(np.int32)
+    reps = rng.integers(1, 1 << 17, (nc, 3)).astype(np.int32)
+    reps[rng.random(nc) < 0.3, 0] = 1
+    return windows, lbit, nsym, states, reps
+
+
+def _random_table_set(seed: int) -> np.ndarray:
+    """A table set of FSE tables from random histograms at the largest
+    logs (9, 8, 9), whose codes reach the largest extras (ll 35, ml 52,
+    offset 31)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for max_sym, log in ((35, 9), (31, 8), (52, 9)):
+        hist = rng.integers(1, 50, max_sym + 1)
+        norm = fse_core.normalize_count(hist, log, int(hist.sum()), max_sym)
+        rows.append(zseq_kern.state_row(*fse_core.build_dtable(norm, log)))
+    return zseq_kern.table_set(*rows)
+
+
+@pytest.mark.cuda
+def test_zseq_kernel_shared_matches_plain(cuda_device):
+    chunks = _seq_chunks(3000, zseq_kern.WIN, seed=5, logs=(6, 5, 6))
+    last = (np.random.default_rng(6).random(3000) < 0.2).astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in (*chunks, last, zseq_kern.pack_tables())]
+    before = zseq_kern.zseq_decode_chunks_shared.launches
+    got = zseq_kern.zseq_decode_chunks_shared(*args)
+    want = zseq_kern.zseq_decode_chunks_shared_ref(*args)
+    torch.cuda.synchronize()
+    assert zseq_kern.zseq_decode_chunks_shared.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [512, 100, 3])
+@pytest.mark.parametrize("resolve", [False, True], ids=["ofv", "rep"])
+def test_zseq_kernel_per_item_matches_plain(cuda_device, C, resolve):
+    """One table set per item of C chunks; C = 100 and 3 put several
+    items in one CTA of the kernel."""
+    N = 5
+    w, lb, ns, st, rp = _seq_chunks(N * C, entropy_dec.ZWIN, seed=C)
+    nore = np.minimum(ns, np.random.default_rng(C).integers(0, 9, N * C))
+    tables = np.stack([_random_table_set(C + i) for i in range(N)])
+    t = [torch.from_numpy(a.reshape(N, C)).to(cuda_device)
+         for a in (lb, st[:, 0], st[:, 1], st[:, 2], ns,
+                   nore.astype(np.int32))]
+    wt = torch.from_numpy(w.reshape(N, C, -1)).to(cuda_device)
+    tt = torch.from_numpy(tables).to(cuda_device)
+    if resolve:
+        r = [torch.from_numpy(rp[:, j].reshape(N, C)).to(cuda_device)
+             for j in range(3)]
+        fn, ref = (entropy_dec.zseq_decode_chunks_rep,
+                   entropy_dec.zseq_decode_chunks_rep_ref)
+        args = (wt, *t, *r, tt)
+    else:
+        fn, ref = (entropy_dec.zseq_decode_chunks,
+                   entropy_dec.zseq_decode_chunks_ref)
+        args = (wt, *t, tt)
+    before = fn.launches
+    (got, got_e), (want, want_e) = fn(*args), ref(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(got_e, want_e)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_zstd_frame_decode_on_cuda_matches_cpu(cuda_device, blocks_np):
+    """Text frames of the port's encoder (own and predefined tables) take
+    the device route; the other classes give raw, RLE and non-4X blocks
+    that go to the host decoder."""
+    rng = np.random.default_rng(4)
+    texts = [corpus.make_block("text", rng).tobytes()[:20000]
+             for _ in range(4)]
+    frames = [zencoder.compress(t, level=1) for t in texts[:2]]
+    with zencoder.predef_seq_tables():
+        frames += [zencoder.compress(t, level=1) for t in texts[2:]]
+    data = texts + [b.tobytes()[:20000] for b in blocks_np[1:4]]
+    frames += [zencoder.compress(d, level=1) for d in data[4:]]
+    stats = {}
+    got = decompress_frames_device(frames, stats=stats)
+    assert got == decompress_frames_device(frames, device="cpu") == data
+    assert stats["routes"]["dev"] == 4
+
+
+@pytest.mark.cuda
+def test_zseq_kernel_rejects_bad_inputs(cuda_device):
+    w, lb, ns, st, rp = (torch.from_numpy(a).to(cuda_device) for a in
+                         _seq_chunks(10, zseq_kern.WIN, seed=0))
+    last = torch.zeros_like(lb)
+    tab = torch.from_numpy(zseq_kern.pack_tables()).to(cuda_device)
+    with pytest.raises(ValueError):
+        zseq_kern.zseq_decode_chunks_shared(w, lb, ns, st, rp, last, tab[:-1])
+    with pytest.raises(ValueError):
+        zseq_kern.zseq_decode_chunks_shared(w[:, :78].contiguous(), lb, ns,
+                                            st, rp, last, tab)
+    with pytest.raises(ValueError):
+        zseq_kern.zseq_decode_chunks_shared(w, lb.to(torch.int64), ns, st,
+                                            rp, last, tab)
+    with pytest.raises(ValueError):
+        zseq_kern.zseq_decode_chunks_shared(w, lb, ns, st, rp, last,
+                                            tab.cpu())
