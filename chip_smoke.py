@@ -9,7 +9,8 @@ Device S2 block encode, on a 16 MiB seeded corpus (256 blocks of 64 KiB
 mixing every class of ``compress_tpu_torch.corpus``):
 
 1. prints the device (name, count, ``nvidia-smi`` name and power limit);
-2. builds the kernels and prints the seconds it took;
+2. builds the kernels and prints the seconds it took, and each kernel's
+   registers and spills (ptxas);
 3. makes the corpus;
 4. holds the finder kernel (cap 10 and the slim cap 6) against its plain
    PyTorch version on the card: (off, L) must be bit-identical;
@@ -19,7 +20,10 @@ mixing every class of ``compress_tpu_torch.corpus``):
    to 0 just before and read just after; every body must decode with the
    port's S2 decoder to its input block; prints the ratio;
 7. times each kernel and its plain version with CUDA events (median after
-   a warm-up) and the whole path on the host clock;
+   a warm-up) and the whole path on the host clock; holds the finder
+   against its plain version on 256 all-zeros, 256 ``rand4`` and 256
+   ``rand256`` blocks too, and times it there (its sort's dependence on
+   the data); times the finder by device time too (see ``cuda_ms``);
 8. traces one call with ``torch.profiler``.
 
 zstd v2 device encode, on 32 MiB: 8 jobs of 4 MiB (one launch of 512
@@ -39,7 +43,10 @@ them that starts an odd number of bytes in (``corpus.replica_jobs``):
     give the input back;
 11. times each kernel, its plain version and the plain-PyTorch stages
     (long-range channel, codes, literal, pack) with CUDA events, the whole
-    call on the host clock, and traces one call.
+    call on the host clock, and traces one call; prints the literal
+    lookup's achieved GB/s beside its bound's, and times the finder, the
+    literal lookup, ``torch.gather`` and a fill of the lookup's two
+    outputs alone (the card's write rate on them) by device time too.
 
 Device batch decode of what the port encodes:
 
@@ -107,20 +114,31 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 # CUDA-core rate (non-tensor) from the published H100 table; the integer
 # work of these kernels is counted against it for the operations bound
 CORE_OPS_PER_S = 67e12
+SPIN_CYCLES = 2_000_000  # device spin before a call timed by device time
+# batches of one block class that show the finder's dependence on the
+# data: one digit everywhere, four digits, and random bytes (its slowest)
+UNIFORM_CLASSES = ("zeros", "rand4", "rand256")
 
 
 def _say(*parts) -> None:
     print(*parts, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of fn() between CUDA events, after a warm-up."""
+def cuda_ms(fn, reps: int, spin: bool = False) -> float:
+    """Median milliseconds of fn() between CUDA events, after a warm-up.
+    On an idle card the start event runs at once, so the time also holds
+    the host work of fn() before its launch (a wrapper's Python checks,
+    allocations and ctypes call).  With ``spin`` each timed call is queued
+    behind a device spin of about a millisecond (``torch.cuda._sleep``),
+    so the events time the device alone: device time."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -384,6 +402,16 @@ def zstd_path(dev) -> list:
         "encode_jobs": cuda_ms(lambda: zenc2.zstd_encode_jobs_v2(
             jobs, job=job, prefixes=prefixes, has_prefix=has_prefix), 3),
     }
+    # device time (no host work) of the finder, the lookup and torch.gather,
+    # and of a fill of the lookup's two outputs (the card's write rate)
+    fill = torch.empty((2, R, blk), dtype=torch.int32, device=dev)
+    dev_t = {
+        "find": cuda_ms(lambda: lzkern.find_matches_blocks(blocks), 10, True),
+        "litlut": cuda_ms(lambda: zenc2._litlut(lits, packed), 20, True),
+        "gather": cuda_ms(lambda: torch.gather(tab256, 1, idx), 20, True),
+        "fill": cuda_ms(lambda: fill.fill_(7), 20, True),
+    }
+    del fill
     t_call = host_ms(lambda: zdevice.compress_device(data, job=job), 3)
     _say(f"zstd kernel times (ms, {R} blocks): " + ", ".join(
         f"{k} {v:.4f} (plain {plain[k]:.4f})" for k, v in t.items())
@@ -405,7 +433,19 @@ def zstd_path(dev) -> list:
     b_rep = bound(8 * sum_seqs + 4 * R + seq_b, 24 * sum_seqs)
     b_fse = bound(12 * sum_seqs + 3 * 128 * 4 + 4 * R + 2 * seq_b + 12 * R,
                   60 * sum_seqs)
-    b_lut = bound(blk_b + R * 1024 + 8 * blk_b, 4 * blk_b)
+    lut_bytes = blk_b + R * 1024 + 8 * blk_b
+    b_lut = bound(lut_bytes, 4 * blk_b)
+    lut_gbps = lut_bytes / (t["litlut"] * 1e-3) / 1e9
+    lut_dev_gbps = lut_bytes / (dev_t["litlut"] * 1e-3) / 1e9
+    _say(f"litlut: {lut_bytes} bytes moved in {t['litlut']:.4f} ms = "
+         f"{lut_gbps:.1f} GB/s ({dev_t['litlut']:.4f} ms = "
+         f"{lut_dev_gbps:.1f} GB/s device time) against "
+         f"{HBM_BYTES_PER_S / 1e9:.0f} GB/s (bound {b_lut[0]:.4f} ms)")
+    _say(f"timers (ms, events from an idle card / device time): litlut "
+         f"{t['litlut']:.4f} / {dev_t['litlut']:.4f}, torch.gather "
+         f"{lib_litlut:.4f} / {dev_t['gather']:.4f}, finder ({R} blocks) "
+         f"{t['find']:.4f} / {dev_t['find']:.4f}; a fill of the lookup's "
+         f"two outputs alone {dev_t['fill']:.4f} device time")
     rows = [
         ("parse_blocks", "parse", "compress_tpu_torch/csrc/zparse.cu",
          "compress_tpu/ops/zparse.py:90", b_parse, None),
@@ -425,11 +465,16 @@ def zstd_path(dev) -> list:
                  "bound_by": bnd[1], "library_ms": lib}
         if key in ("rep", "fse"):
             entry["longest_chain"] = max_seqs
+        if key == "litlut":
+            entry.update({"gbps": lut_gbps, "device_ms": dev_t["litlut"],
+                          "library_device_ms": dev_t["gather"],
+                          "output_fill_device_ms": dev_t["fill"]})
         out.append(entry)
     # the finder's row (phase 7, 256 blocks) gains this path's numbers
     find = {"zstd_launches": launches["find"], "zstd_ms": t["find"],
             "zstd_plain_ms": plain["find"], "zstd_bound_ms": b_find[0],
-            "zstd_max_abs_err": errs["find_matches"]}
+            "zstd_max_abs_err": errs["find_matches"],
+            "zstd_device_ms": dev_t["find"]}
     return out, find
 
 
@@ -953,6 +998,7 @@ def main() -> int:
     # ---- 7. times ----------------------------------------------------------
     nb = N_BLOCKS
     t_find = cuda_ms(lambda: lzkern.find_matches_blocks(blocks), 20)
+    t_find_dev = cuda_ms(lambda: lzkern.find_matches_blocks(blocks), 20, True)
     t_find_slim = cuda_ms(
         lambda: lzkern.find_matches_blocks(blocks, slim=True), 20)
     t_emit = cuda_ms(lambda: lzemit2.emit_blocks(blocks, off, L), 20)
@@ -960,6 +1006,17 @@ def main() -> int:
     p_find_slim = cuda_ms(
         lambda: lzkern.find_matches_blocks_ref(blocks, slim=True), 3)
     p_emit = cuda_ms(lambda: lzemit2.emit_blocks_ref(blocks, off, L), 3)
+    uniform = {}
+    rng = np.random.default_rng([SEED, 7])
+    for cls in UNIFORM_CLASSES:
+        ub = torch.from_numpy(np.stack([corpus.make_block(cls, rng)
+                                        for _ in range(nb)])).to(dev)
+        err = max(_hold(f"finder ({cls} x {nb}, slim={slim})",
+                        lzkern.find_matches_blocks(ub, slim=slim),
+                        lzkern.find_matches_blocks_ref(ub, slim=slim))
+                  for slim in (False, True))
+        uniform[cls] = (cuda_ms(lambda: lzkern.find_matches_blocks(ub), 20),
+                        err)
     t_path = host_ms(lambda: lz2.encode_blocks_np(data), 5)
     # the whole path's parts on the host clock: input to the card, the two
     # kernels, row assembly (selection on the card, D2H, split)
@@ -970,9 +1027,13 @@ def main() -> int:
     t_asm = host_ms(lambda: lzemit2.assemble_bodies(*panels), 5)
     gbps_path = len(data) / (t_path * 1e-3) / 1e9
     gbps_kern = len(data) / ((t_find + t_emit) * 1e-3) / 1e9
-    _say(f"times (ms, {nb} blocks): finder {t_find:.4f} (slim "
+    _say(f"times (ms, {nb} blocks): finder {t_find:.4f} ({t_find_dev:.4f} "
+         f"device time; slim "
          f"{t_find_slim:.4f}), emit {t_emit:.4f}; plain finder "
          f"{p_find:.4f} (slim {p_find_slim:.4f}), plain emit {p_emit:.4f}")
+    _say(f"finder by data (ms, {nb} blocks, cap 10): mixed corpus "
+         f"{t_find:.4f}, " + ", ".join(f"all {k} {v[0]:.4f}"
+                                       for k, v in uniform.items()))
     _say(f"whole path (host clock, ms): {t_path:.4f} = input to card "
          f"{t_h2d:.4f} + kernels {t_kern_host:.4f} + assembly {t_asm:.4f} "
          f"(parts timed apart)")
@@ -999,7 +1060,9 @@ def main() -> int:
          "bound_ms": find_bound[0], "bound_by": find_bound[1],
          "library_ms": None,
          "slim_ms": t_find_slim, "slim_plain_ms": p_find_slim,
-         "slim_max_abs_err": found[True][1]},
+         "slim_max_abs_err": found[True][1], "device_ms": t_find_dev,
+         **{f"{k}_ms": v[0] for k, v in uniform.items()},
+         **{f"{k}_max_abs_err": v[1] for k, v in uniform.items()}},
         {"name": "emit_blocks", "route": "cuda",
          "source": "compress_tpu_torch/csrc/lzemit.cu",
          "replaces": "compress_tpu/ops/lzemit2.py:102",

@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "ct_find_matches": [_P, _P, _P, _P, _I, _I, _P],
+    "ct_find_matches": [_P, _P, _P, _I, _I, _P],
     "ct_emit_blocks": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "ct_parse_blocks": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "ct_rep_scan": [_P, _P, _P, _P, _I, _I, _P],
@@ -127,8 +127,13 @@ def check(rc: int, what: str) -> None:
 
 
 def stream(device: torch.device) -> int:
-    """The handle of PyTorch's current stream on ``device``."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """The handle of PyTorch's current stream on ``device``, read without
+    building a ``torch.cuda.Stream`` object, which is much of a small
+    kernel wrapper's host work."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def require_cuda_input(t: torch.Tensor, name: str, dtype, shape) -> None:

@@ -130,6 +130,50 @@ def make_block(kind: str, rng: np.random.Generator) -> np.ndarray:
     raise ValueError(f"unknown block class {kind!r}")
 
 
+FINDER_CLASSES = ("zeros", "unique", "far_pair", "wrap", "one_bin")
+
+
+def _de_bruijn_bytes() -> np.ndarray:
+    """The least de Bruijn sequence B(256, 2), 65536 bytes: every byte pair
+    occurs once, cyclically, so no 4-byte word repeats, wrapped or not."""
+    parts = []
+    for a in range(256):
+        b = np.arange(a + 1, 256)
+        parts += [[a], np.stack([np.full_like(b, a), b], 1).ravel()]
+    return np.concatenate(parts).astype(np.uint8)
+
+
+def finder_block(kind: str) -> np.ndarray:
+    """One (65536,) uint8 block that stresses the match finder's sort:
+
+    - ``zeros``: one chain of offset 1;
+    - ``unique``: no 4-byte word repeats (a de Bruijn sequence);
+    - ``far_pair``: ``unique`` with the word at 0 repeated at 65532, the
+      largest offset that can match;
+    - ``wrap``: random bytes whose last 16 repeat an earlier stretch, and
+      whose first 16 repeat the stretch after it, so suffix compares near
+      the end read equal bytes past the block end;
+    - ``one_bin``: zeros but for one byte, so every byte-digit pass of a
+      radix sort puts all positions but one in one bin."""
+    if kind == "zeros":
+        return np.zeros(BS, np.uint8)
+    if kind in ("unique", "far_pair"):
+        blk = _de_bruijn_bytes()
+        if kind == "far_pair":
+            blk[BS - 4:] = blk[:4]
+        return blk
+    if kind == "wrap":
+        blk = np.random.default_rng(5).integers(0, 256, BS, dtype=np.uint8)
+        blk[BS - 16:] = blk[1000:1016]
+        blk[:16] = blk[1016:1032]
+        return blk
+    if kind == "one_bin":
+        blk = np.zeros(BS, np.uint8)
+        blk[40000] = 1
+        return blk
+    raise ValueError(f"unknown finder block {kind!r}")
+
+
 def corpus_blocks(n_blocks: int, seed: int = 0) -> np.ndarray:
     """(n_blocks, 65536) uint8: block i is of class
     CLASSES[i % len(CLASSES)], made from its own generator seeded by

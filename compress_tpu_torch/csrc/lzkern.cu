@@ -11,158 +11,235 @@
 // as source or as candidate): off = L = 0.
 //
 // Bound on the H100: memory.  It must read 64 KiB and write 512 KiB of
-// (off, L) per block; its arithmetic is a sort of 64 Ki 48-bit keys.
+// (off, L) per block.  What keeps a block's work above that is ordering
+// 65533 positions by (word, position) on chip: a comparison sort of 48-bit
+// keys (the first design: bitonic chunks in shared memory, merge passes
+// through a 1 MiB global scratch per block) costs millions of
+// compare-exchanges and spills the keys to L2.
 //
-// Design: one CTA per block, the block's bytes staged in shared memory.
-// The 64 Ki keys (v32 << 16 | pos, 512 KiB) do not fit the 227 KB of
-// shared memory a CTA can use, so the sort is two-level: four 16 Ki-key
-// chunks are bitonic-sorted in shared memory and written to a global
-// scratch (L2-resident while the CTA runs), then two merge-path passes
-// over global memory finish the sort.  The predecessor in (v32, pos)
-// order is the nearest previous equal word; candidates are scattered by
-// position into shared memory (as 16-bit offsets), and a final pass in
-// position order compares the suffix bytes and writes off and L
-// coalesced.  The sort's shared-memory passes and the merge's L2 traffic
-// are what keep this kernel above its bound; a radix sort or a hashed
-// first pass are the obvious next steps.
+// Design: a stable LSD radix sort of 16-bit positions, no keys stored.
+// Pass d (d = 0..3) orders positions by the byte s[p + d], digit d of the
+// word, least significant first; the sort starts in position order and is
+// stable, so after four passes positions are in (word, position) order.
+// The 3 tail positions never match and stay out of the sort.
+//
+// A block's bytes (64 KiB) and two position buffers (2 x 128 KiB) do not
+// fit one CTA's 227 KB, so a cluster of 2 CTAs (Hopper's distributed
+// shared memory) sorts one block: each CTA holds all the bytes, one half of
+// each position buffer (sorted ranks [c * HALF, (c + 1) * HALF)) and its
+// warps' digit counts, about 210 KiB, with no global scratch.  In a pass
+// each warp owns a contiguous segment of 1024 entries of its CTA's half:
+//   1. it counts its segment's digits into its own 256-bin row, equal
+//      digits of a 32-entry step aggregated by __match_any_sync (an
+//      all-zeros block puts no more than one update a step on a bin);
+//   2. the counts are scanned in (digit, CTA, warp) order: a warp scan per
+//      digit inside each CTA, then the two CTAs' digit totals, exchanged
+//      through distributed shared memory;
+//   3. it walks its segment again, 32 at a time: an entry's rank is its
+//      warp's running base for the digit plus the lower lanes with the same
+//      digit; the leader advances the base.  A rank in the other CTA's half
+//      is a remote shared-memory store.  cluster.sync() ends the pass.
+// The sorted predecessor with an equal word is the candidate; its 16-bit
+// offset is scattered by position into the buffer the sort no longer
+// needs (position p lives in CTA p / HALF), and each CTA compares suffix
+// bytes for its half of the positions and writes (off, L) coalesced.
+#include <cooperative_groups.h>
+
 #include "ct_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using namespace ct;
 
 constexpr int FIND_THREADS = 1024;
-constexpr int CHUNK = 16384;  // keys sorted per shared-memory pass
-constexpr int NCHUNK = BS / CHUNK;
-constexpr int SENT_BASE = BS - 3;  // positions that never match
-constexpr int ITEMS = BS / FIND_THREADS;  // merge outputs per thread
-constexpr size_t FIND_SMEM = BS + CHUNK * sizeof(unsigned long long);
+constexpr int NWARP = FIND_THREADS / 32;
+constexpr int HALF = BS / 2;          // sorted entries and positions per CTA
+constexpr int SENT_BASE = BS - 3;     // positions that never match
+constexpr int SEG = HALF / NWARP;     // entries per warp segment
+constexpr int RADIX = 256;
+// counts, [warp][digit]: a warp's lanes touch its own row at random digits,
+// and the scan reads one digit of all 32 rows; a row of 258 entries (129
+// words) puts both in distinct banks
+constexpr int CROW = RADIX + 2;
+constexpr int NCNT = NWARP * CROW;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr size_t FIND_SMEM = BS                      // the block's bytes
+                             + 2 * HALF * sizeof(uint16_t)  // two halves
+                             + NCNT * sizeof(uint16_t)      // warp counts
+                             + 2 * RADIX * sizeof(uint32_t)  // totals, bases
+                             + NWARP * sizeof(uint32_t);     // scan carries
 
-__device__ __forceinline__ unsigned long long key_at(const uint8_t* s,
-                                                     int p) {
-  uint32_t v = (uint32_t)s[p] | ((uint32_t)s[(p + 1) & (BS - 1)] << 8) |
-               ((uint32_t)s[(p + 2) & (BS - 1)] << 16) |
-               ((uint32_t)s[(p + 3) & (BS - 1)] << 24);
-  return ((unsigned long long)v << 16) | (unsigned long long)p;
+static_assert(SEG % 32 == 0, "a warp segment is whole 32-entry steps");
+static_assert(SENT_BASE - HALF <= HALF, "the second CTA's half fits");
+
+__device__ __forceinline__ uint32_t word_at(const uint8_t* s, int p) {
+  return (uint32_t)s[p] | ((uint32_t)s[(p + 1) & (BS - 1)] << 8) |
+         ((uint32_t)s[(p + 2) & (BS - 1)] << 16) |
+         ((uint32_t)s[(p + 3) & (BS - 1)] << 24);
 }
 
 template <int CAP>
-__global__ void __launch_bounds__(FIND_THREADS, 1)
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(FIND_THREADS, 1)
     finder_kernel(const uint8_t* __restrict__ blocks, int32_t* __restrict__ off,
-                  int32_t* __restrict__ len,
-                  unsigned long long* __restrict__ scratch) {
+                  int32_t* __restrict__ len) {
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* s = smem;                                   // the block's bytes
-  unsigned long long* keys =
-      reinterpret_cast<unsigned long long*>(smem + BS);  // one chunk
-  const int tid = threadIdx.x;
-  const size_t b = blockIdx.x;
-  const uint8_t* src = blocks + b * BS;
-  unsigned long long* bufA = scratch + b * 2 * BS;
-  unsigned long long* bufB = bufA + BS;
+  uint8_t* s = smem;                                       // the block's bytes
+  uint16_t* bufA = reinterpret_cast<uint16_t*>(smem + BS);  // this CTA's half
+  uint16_t* bufB = bufA + HALF;                             // of each buffer
+  uint16_t* cnt = bufB + HALF;
+  uint32_t* tot = reinterpret_cast<uint32_t*>(cnt + NCNT);  // digit totals
+  uint32_t* gbase = tot + RADIX;                            // digit bases
+  uint32_t* carry = gbase + RADIX;
 
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1;
+  const size_t b = blockIdx.x >> 1;
+  const int n_c = c == 0 ? HALF : SENT_BASE - HALF;  // entries of this half
+  uint16_t* rA = cluster.map_shared_rank(bufA, c ^ 1);
+  uint16_t* rB = cluster.map_shared_rank(bufB, c ^ 1);
+  const uint32_t* rtot = cluster.map_shared_rank(tot, c ^ 1);
+
+  const uint8_t* src = blocks + b * BS;
   for (int i = tid; i < BS / 16; i += FIND_THREADS)
     reinterpret_cast<uint4*>(s)[i] = reinterpret_cast<const uint4*>(src)[i];
-  __syncthreads();
+  cluster.sync();  // both CTAs run and hold the bytes
 
-  // 1. bitonic sort of each chunk in shared memory
-  for (int c = 0; c < NCHUNK; ++c) {
-    for (int i = tid; i < CHUNK; i += FIND_THREADS)
-      keys[i] = key_at(s, c * CHUNK + i);
+  for (int d = 0; d < 4; ++d) {
+    // pass 0 reads position order itself; then A -> B -> A -> B
+    const uint16_t* from = (d & 1) ? bufA : bufB;
+    uint16_t* to_here = (d & 1) ? bufB : bufA;
+    uint16_t* to_there = (d & 1) ? rB : rA;
+    for (int i = tid; i < NCNT / 2; i += FIND_THREADS)
+      reinterpret_cast<uint32_t*>(cnt)[i] = 0;
     __syncthreads();
-    for (int k = 2; k <= CHUNK; k <<= 1) {
-      for (int j = k >> 1; j > 0; j >>= 1) {
-        for (int i = tid; i < CHUNK / 2; i += FIND_THREADS) {
-          int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
-          int hi = lo + j;
-          unsigned long long x = keys[lo], y = keys[hi];
-          bool asc = (lo & k) == 0;
-          if ((x > y) == asc) {
-            keys[lo] = y;
-            keys[hi] = x;
-          }
-        }
-        __syncthreads();
+
+    // 1. each warp counts its segment's digits into its row
+    for (int j = lane; j < SEG; j += 32) {
+      const int e = warp * SEG + j;
+      const bool valid = e < n_c;
+      const int p = valid ? (d == 0 ? c * HALF + e : from[e]) : 0;
+      const int dig = valid ? s[(p + d) & (BS - 1)] : -1;
+      const unsigned peers = __match_any_sync(FULL, dig);
+      if (valid && (peers & below) == 0)
+        cnt[warp * CROW + dig] += (uint16_t)__popc(peers);
+      __syncwarp();
+    }
+    __syncthreads();
+
+    // 2. exclusive scan in (digit, CTA, warp) order.  Inside the CTA: a
+    // warp scan over the 32 warps of each digit, and the digit's total.
+    for (int dg = warp; dg < RADIX; dg += NWARP) {
+      const uint32_t v = cnt[lane * CROW + dg];
+      uint32_t incl = v;
+#pragma unroll
+      for (int k = 1; k < 32; k <<= 1) {
+        const uint32_t y = __shfl_up_sync(FULL, incl, k);
+        if (lane >= k) incl += y;
       }
+      cnt[lane * CROW + dg] = (uint16_t)(incl - v);
+      if (lane == 31) tot[dg] = incl;
     }
-    for (int i = tid; i < CHUNK; i += FIND_THREADS)
-      bufA[c * CHUNK + i] = keys[i];
-    __syncthreads();
-  }
-
-  // 2. merge-path passes over global scratch: runs of CHUNK -> BS
-  unsigned long long* from = bufA;
-  unsigned long long* to = bufB;
-  for (int run = CHUNK; run < BS; run <<= 1) {
-    const int d0 = tid * ITEMS;
-    const int base = (d0 / (2 * run)) * 2 * run;
-    const unsigned long long* A = from + base;
-    const unsigned long long* B = A + run;
-    const int d = d0 - base;
-    int lo = d > run ? d - run : 0;
-    int hi = d < run ? d : run;
-    while (lo < hi) {
-      int mid = (lo + hi) >> 1;
-      if (A[mid] < B[d - 1 - mid])
-        lo = mid + 1;
-      else
-        hi = mid;
-    }
-    int i = lo, j = d - lo;
-    for (int t = 0; t < ITEMS; ++t) {
-      bool takeA = j >= run || (i < run && A[i] < B[j]);
-      to[base + d + t] = takeA ? A[i++] : B[j++];
+    cluster.sync();  // both CTAs' totals are visible
+    // digit bases over both halves: digits in order, CTA 0 before CTA 1
+    uint32_t oth = 0, all = 0, incl = 0;
+    if (tid < RADIX) {
+      oth = rtot[tid];
+      all = tot[tid] + oth;
+      incl = all;
+#pragma unroll
+      for (int k = 1; k < 32; k <<= 1) {
+        const uint32_t y = __shfl_up_sync(FULL, incl, k);
+        if (lane >= k) incl += y;
+      }
+      if (lane == 31) carry[warp] = incl;
     }
     __syncthreads();
-    unsigned long long* tmp = from;
-    from = to;
-    to = tmp;
+    if (tid < RADIX) {
+      uint32_t pre = 0;
+      for (int w = 0; w < warp; ++w) pre += carry[w];
+      gbase[tid] = pre + incl - all + (c == 1 ? oth : 0);
+    }
+    __syncthreads();
+    for (int i = tid; i < NWARP * RADIX; i += FIND_THREADS) {
+      uint16_t* c = &cnt[(i / RADIX) * CROW + i % RADIX];
+      *c = (uint16_t)(*c + gbase[i % RADIX]);  // ranks < 65533
+    }
+    __syncthreads();
+
+    // 3. stable scatter: rank = the warp's base for the digit + lower peers
+    for (int j = lane; j < SEG; j += 32) {
+      const int e = warp * SEG + j;
+      const bool valid = e < n_c;
+      const int p = valid ? (d == 0 ? c * HALF + e : from[e]) : 0;
+      const int dig = valid ? s[(p + d) & (BS - 1)] : -1;
+      const unsigned peers = __match_any_sync(FULL, dig);
+      int base = 0;
+      if (valid) {
+        base = cnt[warp * CROW + dig];
+        const int rank = base + __popc(peers & below);
+        uint16_t* to = (rank / HALF) == c ? to_here : to_there;
+        to[rank & (HALF - 1)] = (uint16_t)p;
+      }
+      __syncwarp();
+      if (valid && (peers & below) == 0)
+        cnt[warp * CROW + dig] = (uint16_t)(base + __popc(peers));
+      __syncwarp();
+    }
+    cluster.sync();  // both halves of the pass's order are written
   }
 
-  // 3. sorted predecessor -> 16-bit offset, scattered by position
-  uint16_t* off16 = reinterpret_cast<uint16_t*>(keys);  // reuses the chunk
-  for (int i = tid; i < BS; i += FIND_THREADS) {
-    unsigned long long k = from[i];
-    int pos = (int)(k & 0xFFFF);
+  // 4. sorted predecessor with an equal word -> 16-bit offset, scattered by
+  // position into the A halves (free after the last pass, which read them)
+  for (int e = tid; e < n_c; e += FIND_THREADS) {
+    const int p = bufB[e];
+    int q = -1;
+    if (e > 0)
+      q = bufB[e - 1];
+    else if (c == 1)
+      q = rB[HALF - 1];  // the last entry of the first half
     uint16_t o = 0;
-    if (i > 0 && pos < SENT_BASE) {
-      unsigned long long pk = from[i - 1];
-      if ((pk >> 16) == (k >> 16)) o = (uint16_t)(pos - (int)(pk & 0xFFFF));
-    }
-    off16[pos] = o;
+    if (q >= 0 && word_at(s, p) == word_at(s, q)) o = (uint16_t)(p - q);
+    uint16_t* to = (p / HALF) == c ? bufA : rA;
+    to[p & (HALF - 1)] = o;
   }
-  __syncthreads();
+  if (c == 1 && tid < BS - SENT_BASE) bufA[SENT_BASE - HALF + tid] = 0;
+  cluster.sync();  // every offset is in place; no remote access after this
 
-  // 4. suffix compare in position order; coalesced (off, L) writes
-  int32_t* offb = off + b * BS;
-  int32_t* lenb = len + b * BS;
-  for (int p = tid; p < BS; p += FIND_THREADS) {
-    int o = off16[p];
+  // 5. suffix compare for this CTA's positions; coalesced (off, L) writes
+  int32_t* offb = off + b * BS + c * HALF;
+  int32_t* lenb = len + b * BS + c * HALF;
+  for (int i = tid; i < HALF; i += FIND_THREADS) {
+    const int p = c * HALF + i;
+    const int o = bufA[i];
     int L = 0;
     if (o) {
-      int c = p - o;
+      const int q = p - o;
       L = 4;
 #pragma unroll
       for (int k = 4; k < CAP; ++k) {
-        if (s[(p + k) & (BS - 1)] != s[(c + k) & (BS - 1)]) break;
+        if (s[(p + k) & (BS - 1)] != s[(q + k) & (BS - 1)]) break;
         ++L;
       }
       L = min(L, BS - p);
     }
-    offb[p] = o;
-    lenb[p] = L;
+    offb[i] = o;
+    lenb[i] = L;
   }
 }
 
 template <int CAP>
-int launch_finder(const uint8_t* blocks, int32_t* off, int32_t* len,
-                  unsigned long long* scratch, int nb, cudaStream_t stream) {
+int launch_finder(const uint8_t* blocks, int32_t* off, int32_t* len, int nb,
+                  cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       finder_kernel<CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)FIND_SMEM);
   if (e != cudaSuccess) return (int)e;
-  finder_kernel<CAP><<<nb, FIND_THREADS, FIND_SMEM, stream>>>(blocks, off,
-                                                              len, scratch);
+  finder_kernel<CAP><<<2 * nb, FIND_THREADS, FIND_SMEM, stream>>>(blocks, off,
+                                                                  len);
   return (int)cudaGetLastError();
 }
 
@@ -170,14 +247,14 @@ int launch_finder(const uint8_t* blocks, int32_t* off, int32_t* len,
 
 extern "C" {
 
-// blocks: (nb, BS) u8; off, len: (nb, BS) i32; scratch: (nb, 2, BS) u64.
-// cap: 10 (full) or 6 (slim).
-int ct_find_matches(const uint8_t* blocks, int32_t* off, int32_t* len,
-                    unsigned long long* scratch, int nb, int cap,
-                    cudaStream_t stream) {
+// blocks: (nb, BS) u8; off, len: (nb, BS) i32.  cap: 10 (full) or 6
+// (slim).  A cluster of 2 CTAs per block.
+int ct_find_matches(const uint8_t* blocks, int32_t* off, int32_t* len, int nb,
+                    int cap, cudaStream_t stream) {
   if (nb <= 0) return 0;
-  if (cap == 10) return launch_finder<10>(blocks, off, len, scratch, nb, stream);
-  if (cap == 6) return launch_finder<6>(blocks, off, len, scratch, nb, stream);
+  if (nb > (1 << 30)) return (int)cudaErrorInvalidValue;
+  if (cap == 10) return launch_finder<10>(blocks, off, len, nb, stream);
+  if (cap == 6) return launch_finder<6>(blocks, off, len, nb, stream);
   return (int)cudaErrorInvalidValue;
 }
 

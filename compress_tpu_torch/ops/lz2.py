@@ -15,8 +15,9 @@ from compress_tpu_torch.ops import lzemit2, lzkern
 
 B = 1 << 16
 TILE = 512
-# blocks per launch: bounds the device memory of one chunk (finder scratch
-# 1 MiB, (off, L) 512 KiB and output panels 66 KiB per block)
+# blocks per launch: bounds the device memory of one chunk ((off, L)
+# 512 KiB and output panels 66 KiB per block; the finder keeps its sort on
+# chip)
 MAX_LAUNCH_BLOCKS = 256
 
 

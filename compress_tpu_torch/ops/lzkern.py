@@ -76,13 +76,11 @@ def find_matches_blocks(blocks_u8: torch.Tensor, slim: bool = False):
     dev = blocks_u8.device
     off = torch.empty((nb, BS), dtype=torch.int32, device=dev)
     L = torch.empty((nb, BS), dtype=torch.int32, device=dev)
-    scratch = torch.empty((nb, 2, BS), dtype=torch.int64, device=dev)
     lib = _cuda.library()
     with torch.cuda.device(dev):
         rc = lib.ct_find_matches(
-            blocks_u8.data_ptr(), off.data_ptr(), L.data_ptr(),
-            scratch.data_ptr(), nb, L_CAP_SLIM if slim else L_CAP,
-            _cuda.stream(dev))
+            blocks_u8.data_ptr(), off.data_ptr(), L.data_ptr(), nb,
+            L_CAP_SLIM if slim else L_CAP, _cuda.stream(dev))
     _cuda.check(rc, "find_matches_blocks")
     find_matches_blocks.launches += 1
     return off, L

@@ -163,29 +163,38 @@ def _litlut(lits: torch.Tensor, packed_tab: torch.Tensor):
     """lits (R, BS) u8 + packed per-block tables (R, 2, 128) int32
     (code | nb << 16, entry x at [x >> 7, x & 127]) -> (code, nb) each
     (R, BS) int32.  A CUDA tensor goes through the CUDA kernel
-    (``csrc/litlut.cu``), a CPU tensor through ``_litlut_ref``."""
+    (``csrc/litlut.cu``), a CPU tensor through ``_litlut_ref``.  BS is a
+    multiple of 4; ``lits`` may start at any address."""
     if lits.dim() != 2 or packed_tab.shape != (lits.shape[0], 2, 128):
         raise ValueError("_litlut: expected (R, BS) lits and (R, 2, 128) "
                          "tables")
-    if packed_tab.device != lits.device:
+    dev = lits.device
+    if packed_tab.device != dev:
         raise ValueError("_litlut: inputs on different devices")
-    if lits.device.type == "cpu":
+    if dev.type == "cpu":
         return _litlut_ref(lits, packed_tab)
+    # The checks and the one allocation are kept lean: at 64 KiB rows the
+    # kernel takes about 0.1 ms, so the wrapper's host work is a large
+    # share of a call.
+    if dev.type != "cuda":
+        raise ValueError(f"_litlut: expected a CUDA tensor, got {dev}")
     R, bs = lits.shape
-    _cuda.require_cuda_input(lits, "lits", torch.uint8, (R, bs))
-    _cuda.require_cuda_input(packed_tab, "packed_tab", _I32, (R, 2, 128))
+    if lits.dtype != torch.uint8 or packed_tab.dtype != _I32:
+        raise ValueError(f"_litlut: expected uint8 lits and int32 tables, "
+                         f"got {lits.dtype} and {packed_tab.dtype}")
+    if not (lits.is_contiguous() and packed_tab.is_contiguous()):
+        raise ValueError("_litlut: expected contiguous tensors")
     if bs % 4:
         raise ValueError(f"_litlut: block size {bs} is not a multiple of 4")
-    dev = lits.device
-    code = torch.empty((R, bs), dtype=_I32, device=dev)
-    nb = torch.empty((R, bs), dtype=_I32, device=dev)
+    out = torch.empty((2, R, bs), dtype=_I32, device=dev)   # code, nbits
+    ptr = out.data_ptr()
     with torch.cuda.device(dev):
         rc = _cuda.library().ct_litlut(
-            lits.data_ptr(), packed_tab.data_ptr(), code.data_ptr(),
-            nb.data_ptr(), R, bs, _cuda.stream(dev))
+            lits.data_ptr(), packed_tab.data_ptr(), ptr, ptr + 4 * R * bs,
+            R, bs, _cuda.stream(dev))
     _cuda.check(rc, "_litlut")
     _litlut.launches += 1
-    return code, nb
+    return out[0], out[1]
 
 
 _litlut.launches = 0

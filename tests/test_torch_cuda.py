@@ -3,8 +3,10 @@
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors, bit for bit (tolerance 0: integers and bytes), on one block of
 every seeded corpus class (the zstd kernels also on a replica job, whose
-long-range matches reach past the block).  Without a card every test
-here skips.
+long-range matches reach past the block), and the finder and the
+literal lookup also on hostile inputs (``corpus.finder_block``, batches of
+1, 133 and 512 blocks; odd row lengths, every byte value, misaligned
+rows).  Without a card every test here skips.
 
 The file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch and the CUDA toolkit:
@@ -162,6 +164,95 @@ def test_zstd_kernels_reject_bad_inputs(cuda_device, zstd_data):
     with pytest.raises(ValueError):
         zenc2._litlut(lits.to(torch.int32), torch.zeros(
             (lits.shape[0], 2, 128), dtype=torch.int32, device=cuda_device))
+
+
+# ---- hostile inputs for the finder and the literal lookup -----------------
+
+def _hold_finder(t, slim):
+    got = lzkern.find_matches_blocks(t, slim=slim)
+    want = lzkern.find_matches_blocks_ref(t, slim=slim)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slim", [False, True], ids=["cap10", "slim"])
+@pytest.mark.parametrize("kind", corpus.FINDER_CLASSES)
+def test_finder_kernel_hostile_blocks(cuda_device, kind, slim):
+    """All-zeros (one offset-1 chain), no repeated word, one pair at the
+    largest offset (65532), suffix reads past the block end, and every
+    digit pass with all positions but one in one bin."""
+    blk = torch.from_numpy(corpus.finder_block(kind)[None].copy())
+    _hold_finder(blk.to(cuda_device), slim)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slim", [False, True], ids=["cap10", "slim"])
+@pytest.mark.parametrize("nb", [1, 133, 512])
+def test_finder_kernel_batches(cuda_device, nb, slim):
+    """One block, more than one wave of clusters, and the zstd launch's
+    512 blocks; the hostile blocks sit among the corpus blocks."""
+    blocks = np.resize(corpus.corpus_blocks(min(nb, 64), seed=nb),
+                       (nb, lzkern.BS))
+    for i, kind in enumerate(corpus.FINDER_CLASSES):
+        blocks[(7 * i + 3) % nb] = corpus.finder_block(kind)
+    _hold_finder(torch.from_numpy(blocks).to(cuda_device), slim)
+
+
+def _hold_litlut(lits, tab):
+    before = zenc2._litlut.launches
+    got = zenc2._litlut(lits, tab)
+    want = zenc2._litlut_ref(lits, tab)
+    torch.cuda.synchronize()
+    assert zenc2._litlut.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _litlut_tables(rng, R, dev):
+    """Random packed entries over the whole int32 range (the kernel and
+    the plain version must agree on the sign of e >> 16 too)."""
+    tab = rng.integers(-(1 << 31), 1 << 31, (R, 2, 128), dtype=np.int64)
+    return torch.from_numpy(tab.astype(np.int32)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 3])
+@pytest.mark.parametrize("bs", [4, 20, 65540])
+def test_litlut_kernel_odd_lengths(cuda_device, bs, R):
+    """Row lengths that are multiples of 4 but not of 16: scalar heads
+    and tails on every row but the first."""
+    rng = np.random.default_rng(bs + R)
+    lits = torch.from_numpy(rng.integers(0, 256, (R, bs), dtype=np.uint8))
+    _hold_litlut(lits.to(cuda_device), _litlut_tables(rng, R, cuda_device))
+
+
+@pytest.mark.cuda
+def test_litlut_kernel_every_byte(cuda_device):
+    """Every byte value in every row, each row in its own order."""
+    R, bs = 5, 1 << 16
+    rng = np.random.default_rng(3)
+    lits = np.stack([rng.permutation(np.arange(bs) % 256) for _ in range(R)])
+    _hold_litlut(torch.from_numpy(lits.astype(np.uint8)).to(cuda_device),
+                 _litlut_tables(rng, R, cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", [4, 1])
+@pytest.mark.parametrize("bs", [65536, 65540])
+def test_litlut_kernel_misaligned_input(cuda_device, start, bs):
+    """A contiguous ``lits`` view that starts ``start`` bytes into a larger
+    buffer: 4 takes the scalar head and the 16-byte body, 1 (no aligned
+    16-byte output possible) the scalar loop alone.  The kernel takes both;
+    no ValueError."""
+    R = 3
+    rng = np.random.default_rng(start)
+    buf = torch.from_numpy(rng.integers(0, 256, R * bs + 64, dtype=np.uint8))
+    buf = buf.to(cuda_device)
+    lits = buf[start:start + R * bs].view(R, bs)
+    assert lits.is_contiguous() and lits.data_ptr() % 16 == start
+    _hold_litlut(lits, _litlut_tables(rng, R, cuda_device))
 
 
 # ---- decode: the LZ execute kernel and the huff0 chunk kernel -------------

@@ -79,3 +79,131 @@ def test_finder_rejects_bad_shape():
     with pytest.raises(ValueError):
         lzkern.find_matches_blocks(torch.zeros((2, 1000), dtype=torch.uint8))
 
+
+
+# ---- a CPU model of the CUDA finder's algorithm (csrc/lzkern.cu) ----------
+#
+# The kernel sorts 16-bit positions by four stable byte-digit passes, split
+# over a cluster of two CTAs of 32 warps.  The model below runs the same
+# steps in numpy (the same digit order, the same scan order, the same
+# 32-entry warp steps with match_any peers, lower-lane popcounts and leader
+# advances, the same split of ranks and positions between the two CTAs)
+# and is held against the plain version, bit for bit, before any chip run.
+
+NWARP = 32
+HALF = lzkern.BS // 2
+SEG = HALF // NWARP
+LOWER = np.tril(np.ones((32, 32), bool), -1)  # [lane, other]: other < lane
+FINDER_NAMES = [k for k in corpus.FINDER_CLASSES if k not in NAMES]
+
+
+def _model_pass(halves, s, d):
+    """One stable digit pass (digit d: the byte at p + d) over the two
+    CTAs' halves of the current order; returns the next halves."""
+    BS = lzkern.BS
+    n = [len(h) for h in halves]
+    digs = [s[(h + d) & (BS - 1)] for h in halves]
+    # 1. each warp's digit counts over its 1024-entry segment
+    cnt = np.zeros((2, NWARP, 256), np.int64)
+    for c in range(2):
+        np.add.at(cnt[c], (np.arange(n[c]) // SEG, digs[c]), 1)
+    # 2. exclusive scan in (digit, CTA, warp) order, split as the kernel
+    # splits it: warps inside a CTA, then the two CTAs' digit totals
+    tot = cnt.sum(axis=1)
+    both = tot[0] + tot[1]
+    base = np.cumsum(cnt, axis=1) - cnt + (np.cumsum(both) - both)
+    base[1] += tot[0]
+    assert base.max() < 1 << 16 and cnt.max() <= SEG  # 16-bit counts
+    # 3. the scatter, 32 entries of every warp at a time
+    new = [np.full(HALF, -1, np.int64) for _ in range(2)]
+    warps = np.broadcast_to(np.arange(NWARP)[:, None], (NWARP, 32))
+    for c in range(2):
+        dig = np.full(HALF, -1, np.int64)
+        dig[:n[c]] = digs[c]
+        pos = np.zeros(HALF, np.int64)
+        pos[:n[c]] = halves[c]
+        dig = dig.reshape(NWARP, SEG // 32, 32)
+        pos = pos.reshape(NWARP, SEG // 32, 32)
+        run = base[c].copy()
+        for j in range(SEG // 32):
+            dj = dig[:, j]
+            same = dj[:, :, None] == dj[:, None, :]       # match_any
+            below = (same & LOWER).sum(-1)                # popc(peers & lt)
+            valid = dj >= 0
+            rank = run[warps, np.where(valid, dj, 0)] + below
+            for r, p in zip(rank[valid], pos[:, j][valid]):
+                new[r // HALF][r % HALF] = p              # local or remote
+            lead = valid & (below == 0)
+            run[warps[lead], dj[lead]] += same.sum(-1)[lead]
+    out = [new[0][:n[0]], new[1][:n[1]]]
+    assert all((h >= 0).all() for h in out)
+    return out
+
+
+def _model_finder(blk: np.ndarray, cap: int):
+    BS, SENT = lzkern.BS, lzkern._SENT_BASE
+    s = blk.astype(np.int64)
+    halves = [np.arange(HALF), np.arange(HALF, SENT)]  # position order
+    for d in range(4):
+        halves = _model_pass(halves, s, d)
+
+    def word(p):
+        return (s[p] | s[(p + 1) & (BS - 1)] << 8
+                | s[(p + 2) & (BS - 1)] << 16 | s[(p + 3) & (BS - 1)] << 24)
+
+    # 4. predecessor (across the CTA boundary for the second half's first
+    # entry) -> 16-bit offset, scattered by position into the halves
+    off16 = [np.full(HALF, -1, np.int64) for _ in range(2)]
+    for c in range(2):
+        p = halves[c]
+        q = np.concatenate([[halves[0][-1] if c else -1], p[:-1]])
+        o = np.where((q >= 0) & (word(p) == word(np.maximum(q, 0))), p - q, 0)
+        assert o.max() < 1 << 16
+        for c2 in range(2):
+            mine = p // HALF == c2
+            off16[c2][p[mine] % HALF] = o[mine]
+    off16[1][SENT - HALF:] = 0
+    o = np.concatenate(off16)
+    assert (o >= 0).all()  # every position written once
+    # 5. suffix compare in position order
+    pos = np.arange(BS)
+    q = pos - o
+    L = np.where(o > 0, 4, 0)
+    alive = o > 0
+    for k in range(4, cap):
+        alive &= s[(pos + k) & (BS - 1)] == s[(q + k) & (BS - 1)]
+        L += alive
+    L = np.where(o > 0, np.minimum(L, BS - pos), 0)
+    return o.astype(np.int32), L.astype(np.int32)
+
+
+@pytest.mark.parametrize("slim", [False, True], ids=["cap10", "slim"])
+@pytest.mark.parametrize("name", NAMES + FINDER_NAMES)
+def test_radix_model_matches_plain(name, slim, blocks):
+    blk = (blocks[NAMES.index(name)] if name in NAMES
+           else corpus.finder_block(name))
+    cap = lzkern.L_CAP_SLIM if slim else lzkern.L_CAP
+    want = lzkern.find_matches_blocks_ref(torch.from_numpy(blk[None].copy()),
+                                          slim=slim)
+    got = _model_finder(blk, cap)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w[0].numpy())
+
+
+def test_finder_blocks_are_hostile():
+    """The hostile blocks do what their names say (plain version)."""
+    def found(kind):
+        b = torch.from_numpy(corpus.finder_block(kind)[None].copy())
+        return [x[0].numpy() for x in lzkern.find_matches_blocks_ref(b)]
+
+    off, L = found("zeros")
+    assert (off[1:lzkern._SENT_BASE] == 1).all() and off[0] == 0
+    assert not found("unique")[1].any()
+    off, L = found("far_pair")
+    assert np.flatnonzero(L).tolist() == [65532] and off[65532] == 65532
+    off, L = found("wrap")
+    assert (off[lzkern.BS - 16:lzkern._SENT_BASE] == lzkern.BS - 1016).all()
+    assert (L[lzkern.BS - 10:lzkern._SENT_BASE]
+            == lzkern.BS - np.arange(lzkern.BS - 10, lzkern._SENT_BASE)).all()
+    blk = corpus.finder_block("one_bin")
+    assert np.count_nonzero(blk) == 1
