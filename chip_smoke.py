@@ -9,8 +9,9 @@ Device S2 block encode, on a 16 MiB seeded corpus (256 blocks of 64 KiB
 mixing every class of ``compress_tpu_torch.corpus``):
 
 1. prints the device (name, count, ``nvidia-smi`` name and power limit);
-2. builds the kernels and prints the seconds it took, and each kernel's
-   registers and spills (ptxas);
+2. builds the kernels and prints the seconds it took, each kernel's
+   registers and spills (ptxas), and the CTAs per SM of the exec, zstd
+   parse and emit kernels (the runtime's occupancy query);
 3. makes the corpus;
 4. holds the finder kernel (cap 10 and the slim cap 6) against its plain
    PyTorch version on the card: (off, L) must be bit-identical;
@@ -23,7 +24,8 @@ mixing every class of ``compress_tpu_torch.corpus``):
    a warm-up) and the whole path on the host clock; holds the finder
    against its plain version on 256 all-zeros, 256 ``rand4`` and 256
    ``rand256`` blocks too, and times it there (its sort's dependence on
-   the data); times the finder by device time too (see ``cuda_ms``);
+   the data); times the finder and emit by device time too (see
+   ``cuda_ms``);
 8. traces one call with ``torch.profiler``.
 
 zstd v2 device encode, on 32 MiB: 8 jobs of 4 MiB (one launch of 512
@@ -45,18 +47,22 @@ them that starts an odd number of bytes in (``corpus.replica_jobs``):
     (long-range channel, codes, literal, pack) with CUDA events, the whole
     call on the host clock, and traces one call; prints the literal
     lookup's achieved GB/s beside its bound's, and times the finder, the
-    literal lookup, ``torch.gather`` and a fill of the lookup's two
-    outputs alone (the card's write rate on them) by device time too.
+    parse, the literal lookup, ``torch.gather`` and a fill of the lookup's
+    two outputs alone (the card's write rate on them) by device time too.
 
 Device batch decode of what the port encodes:
 
 12. S2: plans the phase-6 bodies on the host (timed; every block must be
-    plannable) and holds the LZ execute kernel against its plain version
-    on the packed plan tensors;
+    plannable) into the compact plan (``execute.pack_pieces``) and holds
+    the LZ execute kernel against its plain version on it;
 13. runs ``s2.decode_blocks_device`` with the launch counter set to 0
     just before and read just after (one launch per arena class, no
-    host-decoded block, every block equal to its input), times the kernel,
-    its plain version and the whole call, and traces one call;
+    host-decoded block, every block equal to its input), times the kernel
+    (also by device time), its plain version and the whole call, traces
+    one call, and prints the bytes the call copies to the card (the
+    compact plan must stay under 0.1 GB) with the copy's device ms from
+    the trace, and the kernel's bound on live pieces beside the bound of
+    the earlier exec kernel, which read the padded plan;
 14. huff0 4X, shared engine: 16 MiB of seeded text as 1024 rows of
     16 KiB, ``compress_4x_batch(shared_table=True, max_log=8)``; holds the
     chunk kernel against its plain version on the prepared windows, runs
@@ -83,8 +89,9 @@ Batched zstd frame decode (``zstd.device_dec.decompress_frames_device``):
     counters set to 0 just before and read just after (one launch each of
     the huff0 chunk, sequence and execute kernels; 3 host-decoded frames;
     every frame equal to its input), times each kernel and its plain
-    version on the path's own inputs with CUDA events, the host stages
-    and the whole call on the host clock, and traces one call.
+    version on the path's own inputs with CUDA events (exec by device
+    time too, on the compact plan), the host stages and the whole call on
+    the host clock, and traces one call.
 
 Then it prints one ``{"kernels": [...]}`` line with all the kernels (the
 huff0 kernel once per engine, the sequence kernel once per mode).
@@ -163,7 +170,7 @@ def host_ms(fn, reps: int) -> float:
 def trace_path(fn, warm: bool = True):
     """(device busy ms, wall ms, [(name, device ms)] largest first) of one
     call of fn under torch.profiler, after a warm-up call unless warm is
-    False."""
+    False.  Copies to the card are named ``Memcpy HtoD ...``."""
     from torch.profiler import ProfilerActivity, profile
 
     if warm:
@@ -282,15 +289,60 @@ def _hold(name, got, want) -> int:
     return err
 
 
-def _say_trace(what: str, fn, warm: bool = True) -> None:
+def _say_trace(what: str, fn, warm: bool = True):
+    """Print one traced call's device busy time, idle share and largest
+    items; return the device ms of its copies to the card (None when the
+    profiler recorded no device time)."""
     busy, wall, by_name = trace_path(fn, warm)
     if busy > 0:
+        h2d = sum(v for k, v in by_name if "HtoD" in k)
         _say(f"{what} trace: device busy {busy:.4f} ms of {wall:.4f} ms wall, "
-             f"idle share {1 - busy / wall:.4f}; by name (ms): " + ", ".join(
+             f"idle share {1 - busy / wall:.4f}; copies to the card "
+             f"{h2d:.4f} ms; by name (ms): " + ", ".join(
                  f"{k[:60]} {v:.4f}" for k, v in by_name[:8]))
-    else:
-        _say(f"{what} trace: the profiler recorded no device time "
-             "(not measured)")
+        return h2d
+    _say(f"{what} trace: the profiler recorded no device time "
+         "(not measured)")
+    return None
+
+
+def _exec_bounds(lit_rows, pieces, rstart, n_out: int):
+    """The exec kernel's bound, and beside it the bound of the earlier
+    kernel, which read the padded plan.
+
+    The work, counted on the compact plan the kernel reads: each live
+    piece (8 bytes) and the round offsets read once, the literal bytes
+    that the pieces copy read once (each block's distinct source bytes in
+    its literal rows; the planner's sources all lie inside the arena), the
+    output rows written once, 8 integer operations per output byte.  The
+    padded bound counts the reference's layout instead: every literal row
+    read, the length of every slot of every block (the round caps
+    ``pack_plans`` gives these plans), src and dst of the live slots."""
+    from compress_tpu_torch.ops import execute as X
+
+    B, half = lit_rows.shape[0], lit_rows.shape[1] * 128
+    w = pieces.astype(np.int64)
+    blk = np.repeat(np.arange(B), rstart[:, -1] - rstart[:, 0])
+    s, d = w[:, 0], w[:, 1] & 0xFFFFFF
+    n = np.minimum((w[:, 1] >> 24) + 1, 128 - (d & 127))
+    if len(blk) != len(w) or (s < 0).any() or (s + n > 2 * half).any():
+        raise AssertionError("exec bound: a plan that is not block-major or "
+                             "reads outside its arena")
+    # distinct literal bytes read: cover each source span's part below the
+    # output half and count the covered bytes
+    lo = blk * half + np.minimum(s, half)
+    hi = blk * half + np.minimum(s + n, half)
+    edge = (np.bincount(lo, minlength=B * half + 1)
+            - np.bincount(hi, minlength=B * half + 1))
+    lit_read = int(np.count_nonzero(np.cumsum(edge[:-1])))
+    rows_b = lit_rows.size
+    counts = np.diff(rstart.astype(np.int64), axis=1)
+    slots = sum(X.default_round_caps(counts.max(axis=0))) if counts.size \
+        else 0
+    return (bound(lit_read + rows_b + pieces.nbytes + rstart.nbytes,
+                  8 * n_out),
+            bound(2 * rows_b + 4 * slots * B + 8 * len(w), 8 * n_out),
+            slots, lit_read)
 
 
 def zstd_path(dev) -> list:
@@ -407,6 +459,8 @@ def zstd_path(dev) -> list:
     fill = torch.empty((2, R, blk), dtype=torch.int32, device=dev)
     dev_t = {
         "find": cuda_ms(lambda: lzkern.find_matches_blocks(blocks), 10, True),
+        "parse": cuda_ms(lambda: zparse.parse_blocks(blocks, off, L), 10,
+                         True),
         "litlut": cuda_ms(lambda: zenc2._litlut(lits, packed), 20, True),
         "gather": cuda_ms(lambda: torch.gather(tab256, 1, idx), 20, True),
         "fill": cuda_ms(lambda: fill.fill_(7), 20, True),
@@ -444,7 +498,8 @@ def zstd_path(dev) -> list:
     _say(f"timers (ms, events from an idle card / device time): litlut "
          f"{t['litlut']:.4f} / {dev_t['litlut']:.4f}, torch.gather "
          f"{lib_litlut:.4f} / {dev_t['gather']:.4f}, finder ({R} blocks) "
-         f"{t['find']:.4f} / {dev_t['find']:.4f}; a fill of the lookup's "
+         f"{t['find']:.4f} / {dev_t['find']:.4f}, parse {t['parse']:.4f} / "
+         f"{dev_t['parse']:.4f}; a fill of the lookup's "
          f"two outputs alone {dev_t['fill']:.4f} device time")
     rows = [
         ("parse_blocks", "parse", "compress_tpu_torch/csrc/zparse.cu",
@@ -465,6 +520,8 @@ def zstd_path(dev) -> list:
                  "bound_by": bnd[1], "library_ms": lib}
         if key in ("rep", "fse"):
             entry["longest_chain"] = max_seqs
+        if key == "parse":
+            entry["device_ms"] = dev_t["parse"]
         if key == "litlut":
             entry.update({"gbps": lut_gbps, "device_ms": dev_t["litlut"],
                           "library_device_ms": dev_t["gather"],
@@ -505,19 +562,19 @@ def s2_decode_path(dev, data: bytes, bodies) -> dict:
     err = 0
     for c in classes:
         a = [torch.from_numpy(c[k]).to(dev)
-             for k in ("lit_rows", "src", "dst", "length")]
-        args[c["M"]] = (a, c["caps"])
-        err = max(err, _hold(f"exec (M={c['M']})", X.execute_rounds(
-            *a, c["caps"]), X.execute_rounds_ref(*a, c["caps"])))
+             for k in ("lit_rows", "pieces", "rstart")]
+        args[c["M"]] = a
+        err = max(err, _hold(f"exec (M={c['M']})", X.execute_pieces(*a),
+                             X.execute_pieces_ref(*a)))
 
     # ---- 13. main path, times, trace ---------------------------------------
-    X.execute_rounds.launches = 0
+    X.execute_pieces.launches = 0
     stats = {}
     t0 = time.perf_counter()
     got = device_dec.decode_blocks_device(blocks, stats=stats)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = X.execute_rounds.launches
+    launches = X.execute_pieces.launches
     _say(f"S2 decode main path: exec launches {launches}, blocks on the "
          f"device {stats['device']}, on the host {stats['host']}; classes "
          f"{stats['classes']} (first call {first_s:.2f} s)")
@@ -531,35 +588,44 @@ def s2_decode_path(dev, data: bytes, bodies) -> dict:
                              "input")
     _say(f"S2 decode: all {len(blocks)} blocks equal their input")
 
-    a, caps = args[classes[0]["M"]]
-    t_kern = cuda_ms(lambda: X.execute_rounds(*a, caps), 10)
-    t_plain = cuda_ms(lambda: X.execute_rounds_ref(*a, caps), 2)
+    a = args[classes[0]["M"]]
+    t_kern = cuda_ms(lambda: X.execute_pieces(*a), 10)
+    t_dev = cuda_ms(lambda: X.execute_pieces(*a), 10, True)
+    t_plain = cuda_ms(lambda: X.execute_pieces_ref(*a), 2)
     t_call = host_ms(lambda: device_dec.decode_blocks_device(blocks), 2)
-    _say(f"S2 decode times (ms): exec kernel {t_kern:.4f} (plain "
-         f"{t_plain:.4f}, CUDA events); whole call {t_call:.4f} on the host "
-         f"clock ({len(data) / (t_call * 1e-3) / 1e9:.4f} GB/s), of which the "
-         f"host plan {plan_ms:.4f}")
-    _say_trace("S2 decode", lambda: device_dec.decode_blocks_device(blocks))
+    _say(f"S2 decode times (ms): exec kernel {t_kern:.4f} ({t_dev:.4f} device "
+         f"time; plain {t_plain:.4f}, CUDA events); whole call {t_call:.4f} "
+         f"on the host clock ({len(data) / (t_call * 1e-3) / 1e9:.4f} GB/s), "
+         f"of which the host plan {plan_ms:.4f}")
+    h2d_ms = _say_trace("S2 decode",
+                        lambda: device_dec.decode_blocks_device(blocks))
+    plan_b = sum(v["plan_bytes"] for v in stats["classes"].values())
+    lit_b = sum(c["lit_rows"].nbytes for c in classes)
+    _say(f"S2 decode copies to the card: compact plan {plan_b} bytes "
+         f"({plan_b / 1e9:.4f} GB) + literal rows {lit_b} bytes = "
+         f"{(plan_b + lit_b) / 1e9:.4f} GB, "
+         + (f"{h2d_ms:.4f} ms in the trace" if h2d_ms is not None
+            else "ms not measured"))
+    if plan_b >= 1e8:
+        raise AssertionError(f"S2 decode plan of {plan_b} bytes")
 
-    # bound: literal rows read, output rows written, the length of every
-    # slot read, src and dst read for the live slots only (the kernel skips
-    # the pad slots' src and dst); a few integer operations per copied byte
-    n_blk = a[0].shape[0]
-    rows_b = a[0].numel()
-    slots = sum(caps)
-    live = int((a[3] > 0).sum())
-    bnd = bound(2 * rows_b + 4 * slots * n_blk + 8 * live, 8 * len(data))
-    _say(f"exec bound: {rows_b} literal bytes, {slots} slots per block, "
-         f"{live} live slots -> {bnd[0]:.4f} ms ({bnd[1]})")
-    return {"name": "execute_rounds", "route": "cuda",
+    c0 = classes[0]
+    n_live = len(c0["pieces"])
+    bnd, bnd_pad, slots, lit_read = _exec_bounds(
+        c0["lit_rows"], c0["pieces"], c0["rstart"], len(data))
+    _say(f"exec bound: {n_live} live pieces of 8 bytes, {lit_read} literal "
+         f"bytes read, {c0['lit_rows'].size} output bytes written -> "
+         f"{bnd[0]:.4f} ms ({bnd[1]}); the earlier kernel's padded-plan "
+         f"bound ({slots} slots a block) {bnd_pad[0]:.4f} ms")
+    return {"name": "execute_pieces", "route": "cuda",
             "source": "compress_tpu_torch/csrc/exec.cu",
             "replaces": "compress_tpu/ops/exec_pallas.py:39",
             "launches": launches, "max_abs_err": err, "equal_to_plain": True,
             "ms": t_kern, "plain_ms": t_plain, "bound_ms": bnd[0],
-            "bound_by": bnd[1], "library_ms": None,
-            "slots_per_block": slots, "live_slots": live, "pieces": sum(
-                v["pieces"] for v in stats["classes"].values()),
-            "plan_ms": plan_ms, "call_ms": t_call}
+            "bound_by": bnd[1], "library_ms": None, "device_ms": t_dev,
+            "padded_bound_ms": bnd_pad[0], "pieces": n_live,
+            "plan_bytes": plan_b, "h2d_ms": h2d_ms, "plan_ms": plan_ms,
+            "call_ms": t_call}
 
 
 def huff0_path(dev, blocks_np) -> list:
@@ -800,7 +866,7 @@ def zstd_decode_path(dev):
 
     # ---- 18. the path ------------------------------------------------------
     counted = {"huff0": ED.huff0_decode_chunks,
-               "zseq": ED.zseq_decode_chunks_rep, "exec": X.execute_rounds}
+               "zseq": ED.zseq_decode_chunks_rep, "exec": X.execute_pieces}
     for f in (*counted.values(), ED.zseq_decode_chunks,
               ZK.zseq_decode_chunks_shared):
         f.launches = 0
@@ -837,21 +903,22 @@ def zstd_decode_path(dev):
     seq_out = seqdev.decode_sequences_device(items, resolve=True)
     plans, rows, _order, _host = DD._exec_batch(metas_all, lit_dec, seq_out,
                                                 4)
-    src, dst, length, caps = X.pack_plans(plans)
-    xargs = [torch.from_numpy(x).to(dev) for x in (rows, src, dst, length)]
-    err_x = _hold("exec (zstd)", X.execute_rounds(*xargs, caps),
-                  X.execute_rounds_ref(*xargs, caps))
+    pieces, rstart = X.pack_pieces(plans)
+    xargs = [torch.from_numpy(x).to(dev) for x in (rows, pieces, rstart)]
+    err_x = _hold("exec (zstd)", X.execute_pieces(*xargs),
+                  X.execute_pieces_ref(*xargs))
 
     t = {"huff0": cuda_ms(lambda: ED.huff0_decode_chunks(*largs), 20),
          "zseq": cuda_ms(lambda: ED.zseq_decode_chunks_rep(*targs), 20),
          "shared": cuda_ms(lambda: ZK.zseq_decode_chunks_shared(*sargs), 20),
-         "exec": cuda_ms(lambda: X.execute_rounds(*xargs, caps), 20)}
+         "exec": cuda_ms(lambda: X.execute_pieces(*xargs), 20)}
     plain = {"huff0": cuda_ms(lambda: ED.huff0_decode_chunks_ref(*largs), 2),
              "zseq": cuda_ms(lambda: ED.zseq_decode_chunks_rep_ref(*targs),
                              2),
              "shared": cuda_ms(lambda: ZK.zseq_decode_chunks_shared_ref(
                  *sargs), 2),
-             "exec": cuda_ms(lambda: X.execute_rounds_ref(*xargs, caps), 2)}
+             "exec": cuda_ms(lambda: X.execute_pieces_ref(*xargs), 2)}
+    t_exec_dev = cuda_ms(lambda: X.execute_pieces(*xargs), 20, True)
     stats = {}
     t0 = time.perf_counter()
     DD.decompress_frames_device(frames, stats=stats)
@@ -862,20 +929,22 @@ def zstd_decode_path(dev):
     _say(f"zstd decode whole call (host clock): {t_call:.4f} ms, "
          f"{n_out / (t_call * 1e-3) / 1e9:.4f} GB/s of output; stages (s): "
          + ", ".join(f"{k} {v:.4f}" for k, v in stats["s"].items()))
-    _say_trace("zstd decode", lambda: DD.decompress_frames_device(frames),
-               warm=False)
+    h2d_ms = _say_trace("zstd decode",
+                        lambda: DD.decompress_frames_device(frames),
+                        warm=False)
 
     b_item = _zseq_bound(nc_i, ED.ZWIN, a["tables"].size, live_i)
     b_sh = _zseq_bound(nc_s, ZK.WIN, ZK.ZTAB, live_s)
     nc_h = largs[0].shape[0] * largs[0].shape[1]
     b_h = bound(nc_h * (ED.WIN + 8) + largs[3].numel() * 4 + nc_h * 36,
                 8 * int(largs[2].sum()))
-    live_x = int((xargs[3] > 0).sum())
-    b_x = bound(2 * xargs[0].numel() + 4 * sum(caps) * len(plans)
-                + 8 * live_x, 8 * n_out)
+    n_dev_out = sum(int(np.sum(p["len"])) for p in plans)
+    b_x, b_x_pad, _, _ = _exec_bounds(rows, pieces, rstart, n_dev_out)
     _say(f"zstd decode bounds (ms): huff0 {b_h[0]:.4f}, zseq per-item "
          f"{b_item[0]:.4f} ({b_item[1]}), shared {b_sh[0]:.4f}, exec "
-         f"{b_x[0]:.4f}")
+         f"{b_x[0]:.4f} ({len(pieces)} live pieces; padded-plan bound "
+         f"{b_x_pad[0]:.4f}); exec device time {t_exec_dev:.4f}; compact "
+         f"plan {pieces.nbytes + rstart.nbytes} bytes")
     common = {"route": "cuda", "source": "compress_tpu_torch/csrc/zseqdec.cu",
               "replaces": "compress_tpu/ops/zseq_pallas.py:68",
               "library_ms": None, "equal_to_plain": True}
@@ -897,9 +966,11 @@ def zstd_decode_path(dev):
                   "zdec_max_abs_err": err_h},
         "exec": {"zdec_launches": launches["exec"], "zdec_ms": t["exec"],
                  "zdec_plain_ms": plain["exec"], "zdec_bound_ms": b_x[0],
-                 "zdec_max_abs_err": err_x},
+                 "zdec_max_abs_err": err_x, "zdec_device_ms": t_exec_dev,
+                 "zdec_padded_bound_ms": b_x_pad[0]},
         "call": {"call_ms": t_call, "first_s": first_s, "encode_s": enc_s,
-                 "host_decode_s": hdec_s, "stages_s": stats["s"]},
+                 "host_decode_s": hdec_s, "stages_s": stats["s"],
+                 "h2d_ms": h2d_ms},
     }
     return rows_out, extra
 
@@ -933,6 +1004,14 @@ def main() -> int:
     for line in (_cuda.BUILD_DIR / "ptxas.log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             _say("  ptxas:", line.strip())
+    lib = _cuda.library()
+    ctas = {"execute_pieces": lib.ct_exec_occupancy(512),
+            "parse_blocks": lib.ct_parse_occupancy(),
+            "emit_blocks": lib.ct_emit_occupancy()}
+    _say("CTAs per SM (occupancy query; exec at M = 1): " + ", ".join(
+             f"{k} {v}" for k, v in ctas.items()))
+    if min(ctas.values()) < 1:
+        raise AssertionError(f"a kernel cannot be resident: {ctas}")
 
     # ---- 3. corpus ---------------------------------------------------------
     blocks_np = corpus.corpus_blocks(N_BLOCKS, SEED)
@@ -1002,6 +1081,8 @@ def main() -> int:
     t_find_slim = cuda_ms(
         lambda: lzkern.find_matches_blocks(blocks, slim=True), 20)
     t_emit = cuda_ms(lambda: lzemit2.emit_blocks(blocks, off, L), 20)
+    t_emit_dev = cuda_ms(lambda: lzemit2.emit_blocks(blocks, off, L), 20,
+                         True)
     p_find = cuda_ms(lambda: lzkern.find_matches_blocks_ref(blocks), 3)
     p_find_slim = cuda_ms(
         lambda: lzkern.find_matches_blocks_ref(blocks, slim=True), 3)
@@ -1029,7 +1110,8 @@ def main() -> int:
     gbps_kern = len(data) / ((t_find + t_emit) * 1e-3) / 1e9
     _say(f"times (ms, {nb} blocks): finder {t_find:.4f} ({t_find_dev:.4f} "
          f"device time; slim "
-         f"{t_find_slim:.4f}), emit {t_emit:.4f}; plain finder "
+         f"{t_find_slim:.4f}), emit {t_emit:.4f} ({t_emit_dev:.4f} device "
+         f"time); plain finder "
          f"{p_find:.4f} (slim {p_find_slim:.4f}), plain emit {p_emit:.4f}")
     _say(f"finder by data (ms, {nb} blocks, cap 10): mixed corpus "
          f"{t_find:.4f}, " + ", ".join(f"all {k} {v[0]:.4f}"
@@ -1069,17 +1151,21 @@ def main() -> int:
          "launches": launches["emit"], "max_abs_err": emit_err,
          "equal_to_plain": True, "ms": t_emit, "plain_ms": p_emit,
          "bound_ms": emit_bound[0], "bound_by": emit_bound[1],
-         "library_ms": None},
+         "library_ms": None, "device_ms": t_emit_dev,
+         "ctas_per_sm": ctas["emit_blocks"]},
     ]
 
     zstd_kernels, zstd_find = zstd_path(dev)
     kernels[0].update(zstd_find)
     kernels += zstd_kernels
     kernels.append(s2_decode_path(dev, data, bodies))
+    for row in kernels:
+        if row["name"] in ("parse_blocks", "execute_pieces"):
+            row["ctas_per_sm"] = ctas[row["name"]]
     kernels += huff0_path(dev, blocks_np)
     zseq_rows, zdec = zstd_decode_path(dev)
     for row in kernels:
-        if row["name"] == "execute_rounds":
+        if row["name"] == "execute_pieces":
             row.update(zdec["exec"])
         elif row.get("engine") == "table":
             row.update(zdec["huff0"])

@@ -37,7 +37,10 @@ _SIGNATURES = {
     "ct_rep_scan": [_P, _P, _P, _P, _I, _I, _P],
     "ct_fse_chain": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "ct_litlut": [_P, _P, _P, _P, _I, _I, _P],
-    "ct_exec_rounds": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "ct_exec_pieces": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "ct_exec_occupancy": [_I],
+    "ct_parse_occupancy": [],
+    "ct_emit_occupancy": [],
     "ct_huff0_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "ct_zseq_decode": [_P] * 7 + [_I] * 5 + [_P] * 6,
 }
@@ -147,3 +150,10 @@ def require_cuda_input(t: torch.Tensor, name: str, dtype, shape) -> None:
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def aligned(t: torch.Tensor, align: int = 16) -> torch.Tensor:
+    """``t``, or a fresh (aligned) copy of it where its data does not start
+    on an ``align``-byte boundary: the kernels load 16 bytes at a time."""
+    return t if t.data_ptr() % align == 0 else t.clone()
+

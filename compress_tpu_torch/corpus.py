@@ -199,3 +199,76 @@ def replica_jobs(n_jobs: int, job: int, seed: int = 0) -> np.ndarray:
         shift = 2 * int(np.random.default_rng([seed, j]).integers(0, BS)) + 1
         out[j, 1] = np.roll(out[j, 0], -shift)
     return out.reshape(-1)
+
+
+def exec_hostile_plans(M: int) -> list:
+    """Execute plans (``ops/execute`` plan dicts) for an arena of class M
+    that stress the LZ execute: one block of hand pieces that read below
+    the arena (row 0) and past it (its last output row), write dst rows
+    below and past it (they write nothing) and run past their row end
+    (cut there); and three planner blocks of overlapping copies at periods
+    1, 2 and 3 (one piece per period, each reading the round before)."""
+    from compress_tpu_torch.ops.execute import OUT_BASE, plan_block_ops
+
+    base = M * OUT_BASE
+    top = 2 * M * OUT_BASE            # first byte past the arena
+    hand = dict(
+        src=np.array([-300, -5, top + 900, top - 3, 7, 9, 11, base + 4],
+                     np.int32),
+        dst=np.array([base, base + 130, base + 300, base + 500, -128,
+                      top, top + 4000, base + 1000], np.int32),
+        len=np.array([20, 40, 10, 12, 30, 30, 30, 200], np.int32),
+        round=np.array([0, 0, 0, 1, 0, 1, 0, 1], np.int32), n_rounds=2)
+    plans = [hand]
+    for period in (1, 2, 3):
+        p = plan_block_ops([0, 1, 0, 1], [period, 700, 5, 300],
+                           [0, period, 0, period], max_rounds=2)
+        shift = (M - 1) * OUT_BASE     # the output half starts M times later
+        plans.append(dict(p, dst=(p["dst"] + shift).astype(np.int32),
+                          src=np.where(p["src"] >= OUT_BASE,
+                                       p["src"] + shift,
+                                       p["src"]).astype(np.int32)))
+    return plans
+
+
+PARSE_CLASSES = ("all_zeros", "chains", "most_seqs", "no_match")
+
+
+def parse_inputs(kind: str):
+    """(block (65536,) uint8, off, L (65536,) int32): a block and a
+    finder channel that stress the parse stages of the S2 emit and zstd
+    parse kernels:
+
+    - ``all_zeros``: all zeros, offset 1 and L = 10 (the cap) everywhere: every
+      position chains and the offset-1 probe covers every tile;
+    - ``chains``: random bytes (no probe fires) with offset 7 and L = 10,
+      chains broken at 300 random positions (L = 9 there);
+    - ``most_seqs``: random bytes, L = 6 and offsets below 1024 everywhere:
+      the zstd gate passes every match, so the greedy parse takes one every
+      6 positions, 85 a tile, the most sequences a block can hold;
+    - ``no_match``: random bytes and no match: literals only.
+    The last 3 positions never match, as from the finder."""
+    rng = np.random.default_rng(PARSE_CLASSES.index(kind) + 17)
+    g = np.arange(BS)
+    if kind == "all_zeros":
+        blk = np.zeros(BS, np.uint8)
+        off = np.where(g >= 1, 1, 0)
+        L = np.where(g >= 1, 10, 0)
+    elif kind == "chains":
+        blk = rng.integers(0, 256, BS, dtype=np.uint8)
+        off = np.where(g >= 7, 7, 0)
+        L = np.where(g >= 7, 10, 0)
+        L[rng.integers(0, BS, 300)] = 9
+    elif kind == "most_seqs":
+        blk = rng.integers(0, 256, BS, dtype=np.uint8)
+        off = np.minimum(rng.integers(1, 1024, BS), g)
+        L = np.where(off > 0, 6, 0)
+    elif kind == "no_match":
+        blk = rng.integers(0, 256, BS, dtype=np.uint8)
+        off = np.zeros(BS, np.int64)
+        L = np.zeros(BS, np.int64)
+    else:
+        raise ValueError(f"unknown parse input {kind!r}")
+    L[BS - 3:] = 0
+    off = np.where(L > 0, off, 0)
+    return blk, off.astype(np.int32), L.astype(np.int32)

@@ -1,127 +1,161 @@
-// LZ execute over a per-block byte arena (S2 block decode; zstd later).
+// LZ execute over a per-block byte arena (S2 block decode, zstd frame
+// decode), reading the compact plan.
 //
 // Replaces: compress_tpu/ops/exec_pallas.py `_exec_kernel` (via
-// `execute_rounds_pallas`), the M = 1 case of the XLA round graph
-// compress_tpu/ops/execute.py `execute_rounds`; here M is a parameter.
+// `execute_rounds_pallas`), and the XLA round graph
+// compress_tpu/ops/execute.py `execute_rounds` (M a parameter here).
 //
 // Function: arena of block b = LR * 128 literal bytes (lit, LR = 512 * M)
-// then LR * 128 output bytes, zero at the start.  For each round r, the
-// slots k in [bounds[r], bounds[r+1]) of the round-major plan (src, dst,
-// len: (total, B) i32) copy bytes j < min(len, 128 - (dst & 127)) from
-// arena byte src + j to dst + j.  A source byte a outside the arena reads
-// row clamp(a >> 7, 0, 2 * LR - 1), lane a & 127; a piece whose dst row is
-// outside the arena writes nothing.  out (B, LR, 128) u8 = the output rows.
+// then LR * 128 output bytes, zero at the start.  Pieces (P, 2) i32:
+// (src, dst | (n - 1) << 24), block-major, each block's sorted by round;
+// rstart (B, nr + 1) i32.  Round r of block b runs pieces [lo, hi), lo =
+// clamp(rstart[b][r], 0, P), hi = clamp(rstart[b][r + 1], lo, P): piece
+// (s, d, n) copies bytes j < min(n, 128 - (d & 127)) from arena byte s + j
+// to d + j, reading the arena as it stood at the round's start, if d lies
+// in the output half (else it writes nothing).  A source byte a reads row
+// clamp(a >> 7, 0, 2 * LR - 1), lane a & 127.  out (B, LR, 128) u8 = the
+// output rows.
 //
-// Bound on the H100: memory.  Per block it reads the literal rows, the
-// length of every slot and the src and dst of the live ones, and writes the
-// output rows once.
+// Bound on the H100: memory.  Per block it must read the literal rows and
+// each live piece once and write the output rows once.
 //
-// Design: one CTA per block; a warp loads 32 slots at once (a lane each,
-// so the strided plan reads are in flight together) and copies their live
-// pieces in turn (a piece is at most 128 bytes: 4 bytes a lane); pad slots
-// (len 0) are skipped.  The TPU kernel
-// gathered rows with one-hot bf16 matmuls, rotated lanes with
-// take_along_axis and summed each round into an accumulator; each output
-// byte is covered by exactly one piece and a round-r piece reads only bytes
-// of earlier rounds, so plain byte stores with a CTA-wide barrier between
-// rounds give the same arena.  M = 1: the 128 KiB arena lives in shared
-// memory, loaded with 16-byte copies; M > 1: in a global scratch (a CTA's
-// global writes are visible to its own threads after __syncthreads).
+// Design: one CTA per block.  The plan holds live pieces only, block-major,
+// so a warp reads 32 consecutive pieces (256 contiguous bytes) and the
+// next 32 are loaded while it copies these.  The warp copies its pieces'
+// bytes 32 at a time, one byte a lane, whatever their lengths (most are a
+// few bytes): an inclusive warp scan of the lengths places every byte,
+// and a lane finds its byte's piece by a 5-step binary search over the
+// scan with shuffles.  Only the output half lives in shared memory (64 KiB
+// at M = 1, so two CTAs share an SM); source bytes below it are read from
+// the literal rows in device memory through L1.  Every output byte is
+// covered by one piece and a round-r piece reads only bytes of earlier
+// rounds, so plain byte stores with a CTA-wide barrier between rounds give
+// the reference's sums.  Output halves above 128 KiB (M = 4) stay in
+// device memory: the kernel zeroes `out` and works in it (a CTA's global
+// writes are visible to its own threads after __syncthreads).
 #include "ct_common.cuh"
 
 namespace {
 
 constexpr int EXEC_THREADS = 512;
 constexpr int EXEC_WARPS = EXEC_THREADS / 32;
-constexpr int SMEM_ARENA = 2 * 512 * 128;  // M = 1
+constexpr int SMEM_HALF_MAX = 128 * 1024;  // output halves up to M = 2
+constexpr unsigned FULL = 0xFFFFFFFFu;
 
-__global__ void __launch_bounds__(EXEC_THREADS)
-    exec_kernel(const uint8_t* __restrict__ lit, const int32_t* __restrict__ src,
-                const int32_t* __restrict__ dst, const int32_t* __restrict__ len,
-                const int32_t* __restrict__ bounds, int nr, int B, int LR,
-                uint8_t* scratch, uint8_t* __restrict__ out) {
+template <bool SMEM>
+__global__ void __launch_bounds__(EXEC_THREADS, 2)
+    exec_pieces_kernel(const uint8_t* __restrict__ lit,
+                       const int2* __restrict__ pieces,
+                       const int32_t* __restrict__ rstart, int nr, int P,
+                       int LR, uint8_t* __restrict__ out) {
   extern __shared__ uint4 smem[];
   const int b = blockIdx.x;
-  const int lit_bytes = LR * 128;
+  const int half = LR * 128;
   const int rows = 2 * LR;
-  const int arena_bytes = 2 * lit_bytes;
-  uint8_t* arena = scratch ? scratch + (size_t)b * arena_bytes
-                           : reinterpret_cast<uint8_t*>(smem);
-  uint4* a4 = reinterpret_cast<uint4*>(arena);
-  const uint4* l4 = reinterpret_cast<const uint4*>(lit + (size_t)b * lit_bytes);
-  for (int i = threadIdx.x; i < lit_bytes / 16; i += EXEC_THREADS) a4[i] = l4[i];
-  for (int i = lit_bytes / 16 + threadIdx.x; i < arena_bytes / 16;
-       i += EXEC_THREADS)
-    a4[i] = make_uint4(0, 0, 0, 0);
+  uint8_t* o = SMEM ? reinterpret_cast<uint8_t*>(smem) : out + (size_t)b * half;
+  const uint8_t* l = lit + (size_t)b * half;
+  for (int i = threadIdx.x; i < half / 16; i += EXEC_THREADS)
+    reinterpret_cast<uint4*>(o)[i] = make_uint4(0, 0, 0, 0);
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int32_t* rs = rstart + (size_t)b * (nr + 1);
   for (int r = 0; r < nr; ++r) {
-    const int hi = bounds[r + 1];
-    // each lane loads one slot of the warp's 32, then the warp copies the
-    // live pieces one after another, a byte or a few per lane
-    for (int p0 = bounds[r] + 32 * warp; p0 < hi; p0 += 32 * EXEC_WARPS) {
-      const int p = p0 + lane;
-      int n = 0, d = 0, s = 0;
-      if (p < hi) {
-        const size_t k = (size_t)p * B + b;
-        const int ln = len[k];
-        if (ln > 0) {
-          d = dst[k];
-          const int row = d >> 7;
-          if (row >= 0 && row < rows) {
-            n = min(ln, 128 - (d & 127));
-            s = src[k];
-          }
-        }
+    const int lo = min(max(rs[r], 0), P);
+    const int hi = min(max(rs[r + 1], lo), P);
+    int p = lo + 32 * warp + lane;
+    int2 w = p < hi ? __ldg(pieces + p) : make_int2(0, 0);
+    for (int p0 = lo + 32 * warp; p0 < hi; p0 += 32 * EXEC_WARPS) {
+      p += 32 * EXEC_WARPS;
+      const int2 wn = p < hi ? __ldg(pieces + p) : make_int2(0, 0);
+      // this lane's piece: source, offset of dst in the output half, and
+      // live length (0 for a lane past hi: its dst field reads 0)
+      const unsigned u = (unsigned)w.y;
+      const int d = (int)(u & 0xFFFFFFu) - half;
+      int n = min((int)((u >> 24) & 127u) + 1, 128 - (int)(u & 127u));
+      if (d < 0 || d >= half) n = 0;
+      int incl = n;
+#pragma unroll
+      for (int k = 1; k < 32; k <<= 1) {
+        const int v = __shfl_up_sync(FULL, incl, k);
+        if (lane >= k) incl += v;
       }
-      for (unsigned live = __ballot_sync(0xffffffffu, n > 0); live;
-           live &= live - 1) {
-        const int l = __ffs(live) - 1;
-        const int pd = __shfl_sync(0xffffffffu, d, l);
-        const int ps = __shfl_sync(0xffffffffu, s, l);
-        const int pn = __shfl_sync(0xffffffffu, n, l);
-        for (int j = lane; j < pn; j += 32) {
+      const int total = __shfl_sync(FULL, incl, 31);
+      const int excl = incl - n;
+      for (int c = 0; c < total; c += 32) {
+        const int k = c + lane;
+        int q = 0;  // the first lane whose scan passes k
+#pragma unroll
+        for (int step = 16; step; step >>= 1)
+          if (__shfl_sync(FULL, incl, q + step - 1) <= k) q += step;
+        const int ps = __shfl_sync(FULL, w.x, q);
+        const int pd = __shfl_sync(FULL, d, q);
+        const int j = k - __shfl_sync(FULL, excl, q);
+        if (k < total) {
           const long long a = (long long)ps + j;
-          const long long ar = min(max(a >> 7, 0LL), (long long)rows - 1);
-          arena[pd + j] = arena[ar * 128 + (a & 127)];
+          const int ar = (int)min(max(a >> 7, 0LL), (long long)rows - 1);
+          const int at = ar * 128 + (int)(a & 127);
+          o[pd + j] = at < half ? __ldg(l + at) : o[at - half];
         }
       }
+      w = wn;
     }
     __syncthreads();
   }
 
-  uint4* o4 = reinterpret_cast<uint4*>(out + (size_t)b * lit_bytes);
-  for (int i = threadIdx.x; i < lit_bytes / 16; i += EXEC_THREADS)
-    o4[i] = a4[lit_bytes / 16 + i];
+  if (SMEM) {
+    uint4* o4 = reinterpret_cast<uint4*>(out + (size_t)b * half);
+    for (int i = threadIdx.x; i < half / 16; i += EXEC_THREADS)
+      o4[i] = reinterpret_cast<const uint4*>(o)[i];
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// lit: (B, LR, 128) u8, LR a multiple of 512; src, dst, len: (total, B)
-// i32; bounds: (nr + 1,) i32 slot bounds of the rounds (non-decreasing,
-// <= total); scratch: (B, 2 * LR * 128) u8 when LR > 512, else null (the
-// arena is in shared memory); out: (B, LR, 128) u8.  All 16-byte aligned.
-int ct_exec_rounds(const uint8_t* lit, const int32_t* src, const int32_t* dst,
-                   const int32_t* len, const int32_t* bounds, int nr, int B,
-                   int LR, uint8_t* scratch, uint8_t* out,
-                   cudaStream_t stream) {
+// lit: (B, LR, 128) u8, LR a multiple of 512 with LR * 256 <= 2^24;
+// pieces: (P, 2) i32; rstart: (B, nr + 1) i32; out: (B, LR, 128) u8.
+// lit and out 16-byte aligned, pieces 8-byte aligned.
+int ct_exec_pieces(const uint8_t* lit, const int32_t* pieces,
+                   const int32_t* rstart, int nr, int P, int B, int LR,
+                   uint8_t* out, cudaStream_t stream) {
   if (B <= 0) return 0;
-  if (LR <= 0 || LR % 512 || (LR > 512 && !scratch) || nr < 0)
+  if (LR <= 0 || LR % 512 || (long long)LR * 256 > (1 << 24) || nr < 0 ||
+      P < 0)
     return (int)cudaErrorInvalidValue;
-  int smem = 0;
-  if (!scratch) {
-    if (LR != 512) return (int)cudaErrorInvalidValue;
-    smem = SMEM_ARENA;
+  const int half = LR * 128;
+  const int2* pc = reinterpret_cast<const int2*>(pieces);
+  if (half <= SMEM_HALF_MAX) {
     const cudaError_t e = cudaFuncSetAttribute(
-        exec_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        exec_pieces_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        half);
     if (e != cudaSuccess) return (int)e;
+    exec_pieces_kernel<true><<<B, EXEC_THREADS, half, stream>>>(
+        lit, pc, rstart, nr, P, LR, out);
+  } else {
+    exec_pieces_kernel<false><<<B, EXEC_THREADS, 0, stream>>>(
+        lit, pc, rstart, nr, P, LR, out);
   }
-  exec_kernel<<<B, EXEC_THREADS, smem, stream>>>(lit, src, dst, len, bounds, nr,
-                                                 B, LR, scratch, out);
   return (int)cudaGetLastError();
+}
+
+// CTAs of the kernel resident on one SM at arena rows LR (< 0: an error).
+int ct_exec_occupancy(int LR) {
+  const int half = LR * 128;
+  int n = 0;
+  cudaError_t e;
+  if (half <= SMEM_HALF_MAX) {
+    e = cudaFuncSetAttribute(exec_pieces_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, half);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, exec_pieces_kernel<true>, EXEC_THREADS, half);
+  } else {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, exec_pieces_kernel<false>, EXEC_THREADS, 0);
+  }
+  return e == cudaSuccess ? n : -(int)e;
 }
 
 }  // extern "C"

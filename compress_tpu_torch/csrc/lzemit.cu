@@ -16,12 +16,13 @@
 // needed pointer doubling, shift-and-roll run lengths and an output-driven
 // binary-search route because a TPU core has no cheap scalar loop or
 // scatter; here the parse lives in shared memory (lzparse.cuh describes
-// stages A-C), and
+// stages A-C and what they keep: two CTAs share an SM), and
 //   D  a warp per row: an exclusive warp scan of the per-position byte
 //      counts places each op's bytes, which are written position-driven
-//      into a 256-byte row buffer and stored coalesced.
-// The serial tile walk (B) and the low occupancy of one 216 KiB CTA per SM
-// are what keep it above its bound.
+//      into a 256-byte row buffer (the warp's tile buffer, free after the
+//      parse) and stored coalesced; an op's L_t is found in its tile's op
+//      list by the ops before its take word plus a popcount, a literal's
+//      byte is read from the row's 4 bytes a lane in device memory.
 #include "lzparse.cuh"
 
 namespace {
@@ -43,32 +44,34 @@ __device__ __forceinline__ int lit_run(const uint32_t* litb, int g) {
   return nz - g;
 }
 
-__global__ void __launch_bounds__(EMIT_THREADS, 1)
+template <int CAP>
+__global__ void __launch_bounds__(EMIT_THREADS, 2)
     emit_kernel(const uint8_t* __restrict__ blocks,
                 const int32_t* __restrict__ offs,
                 const int32_t* __restrict__ lens, uint8_t* __restrict__ out0,
-                uint8_t* __restrict__ out1, int32_t* __restrict__ rowlens,
-                int cap) {
+                uint8_t* __restrict__ out1, int32_t* __restrict__ rowlens) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const ParseSmem s = parse_smem(smem, warp);
-  const uint8_t* blk = s.blk;
-  const uint16_t* lt = s.lt;
   const uint32_t* takeb = s.takeb;
   const uint32_t* litb = s.litb;
   const int* t_abs = s.t_abs;
   const int* t_recv = s.t_recv;
   const int* t_W = s.t_W;
-  uint8_t* wbuf = s.wbuf;
+  uint8_t* wbuf = reinterpret_cast<uint8_t*>(s.wlt);
   const size_t b = blockIdx.x;
+  const uint8_t* blkg = blocks + b * BS;
   const int32_t* offb = offs + b * BS;
 
-  parse_block<false>(s, blocks + b * BS, offb, lens + b * BS, cap);
+  parse_tiles<false, CAP>(s, blkg, offb, lens + b * BS);
+  if (warp == 0) merge_tiles(s, lane);
+  __syncthreads();
 
   // ---- D: emission, a warp per 128-position row, 4 positions per lane ---
   for (int row = warp; row < ROWS; row += EMIT_WARPS) {
     const int g0 = row * LANES + lane * 4;
     const int t = g0 / TILE;
+    const uint32_t bytes4 = __ldg(reinterpret_cast<const uint32_t*>(blkg + g0));
     int ob[4], hl[4];
     uint32_t w0[4], w1[4];
     bool islit[4];
@@ -89,7 +92,7 @@ __global__ void __launch_bounds__(EMIT_THREADS, 1)
         if (n >= 2) h[1] = x & 0xFF;
         if (n >= 3) h[2] = x >> 8;
       } else if (tk) {
-        const int v = lt[g];
+        const int v = op_at(s, g);
         const int L2 = (v & 0x3FF) + (r_t == t_recv[t] ? t_W[t] : 0);
         const int off = resolve_off(v, offb[g]);
         const int l1 = L2 >= 68 ? 64 : (L2 >= 65 ? L2 - 4 : L2);
@@ -137,15 +140,16 @@ __global__ void __launch_bounds__(EMIT_THREADS, 1)
     const int rowlen = __shfl_sync(FULL, incl, 31);
     reinterpret_cast<uint2*>(wbuf)[lane] = make_uint2(0u, 0u);
     __syncwarp();
-    int s = incl - sum;
+    int at = incl - sum;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       for (int k = 0; k < hl[j]; ++k) {
         const uint32_t byte = k < 4 ? (w0[j] >> (8 * k)) : (w1[j] >> (8 * (k - 4)));
-        if (s + k < ROW_OUT) wbuf[s + k] = (uint8_t)byte;
+        if (at + k < ROW_OUT) wbuf[at + k] = (uint8_t)byte;
       }
-      if (islit[j] && s + hl[j] < ROW_OUT) wbuf[s + hl[j]] = blk[g0 + j];
-      s += ob[j];
+      if (islit[j] && at + hl[j] < ROW_OUT)
+        wbuf[at + hl[j]] = (uint8_t)(bytes4 >> (8 * j));
+      at += ob[j];
     }
     __syncwarp();
     const size_t ro = (b * ROWS + row) * LANES;
@@ -158,24 +162,47 @@ __global__ void __launch_bounds__(EMIT_THREADS, 1)
   }
 }
 
+template <int CAP>
+int launch_emit(const uint8_t* blocks, const int32_t* off, const int32_t* len,
+                uint8_t* out0, uint8_t* out1, int32_t* rowlens, int nb,
+                cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      emit_kernel<CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)EMIT_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  emit_kernel<CAP><<<nb, EMIT_THREADS, EMIT_SMEM, stream>>>(
+      blocks, off, len, out0, out1, rowlens);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// blocks: (nb, BS) u8; off, len: (nb, BS) i32 from the finder;
-// out0, out1: (nb, 512, 128) u8; rowlens: (nb, 4, 128) i32.
+// blocks: (nb, BS) u8, 16-byte aligned rows; off, len: (nb, BS) i32 from
+// the finder, cap 10 or 6 (slim); out0, out1: (nb, 512, 128) u8; rowlens:
+// (nb, 4, 128) i32.
 int ct_emit_blocks(const uint8_t* blocks, const int32_t* off,
                    const int32_t* len, uint8_t* out0, uint8_t* out1,
                    int32_t* rowlens, int nb, int cap, cudaStream_t stream) {
   if (nb <= 0) return 0;
-  if (cap < 1) return (int)cudaErrorInvalidValue;
+  if (cap == 10)
+    return launch_emit<10>(blocks, off, len, out0, out1, rowlens, nb, stream);
+  if (cap == 6)
+    return launch_emit<6>(blocks, off, len, out0, out1, rowlens, nb, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// CTAs of the kernel at cap 10 resident on one SM (< 0: an error).
+int ct_emit_occupancy() {
+  int n = 0;
   cudaError_t e = cudaFuncSetAttribute(
-      emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      emit_kernel<10>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)EMIT_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  emit_kernel<<<nb, EMIT_THREADS, EMIT_SMEM, stream>>>(blocks, off, len, out0,
-                                                      out1, rowlens, cap);
-  return (int)cudaGetLastError();
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, emit_kernel<10>, EMIT_THREADS, EMIT_SMEM);
+  return e == cudaSuccess ? n : -(int)e;
 }
 
 }  // extern "C"

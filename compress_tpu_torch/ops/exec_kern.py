@@ -4,23 +4,38 @@ graph ``ops/execute.execute_rounds`` it replaces, which is the same
 function over an arena scaled by M).
 
 Arena of block b: LR * 128 literal bytes (LR = lit_rows.shape[1] = 512 *
-M), then LR * 128 output bytes, zero at the start.  Round r runs the slots
-[sum(caps[:r]), sum(caps[:r+1])) of the round-major plan (clipped to the
-plan's rows): slot k of block b copies bytes j < min(len, 128 - (dst &
-127)) from arena byte src + j to arena byte dst + j, reading the arena as
-it stood at the start of the round.  A source byte a outside the arena
-reads row clip(a >> 7, 0, 2 * LR - 1), lane a & 127; a piece whose dst
-row lies outside the arena writes nothing.  Returns the output rows
+M), then LR * 128 output bytes, zero at the start.  A piece (src, dst,
+len) of round r copies bytes j < min(len, 128 - (dst & 127)) from arena
+byte src + j to arena byte dst + j, reading the arena as it stood at the
+start of the round.  A source byte a outside the arena reads row
+clip(a >> 7, 0, 2 * LR - 1), lane a & 127; a piece whose dst row lies
+outside the arena writes nothing.  The result is the output rows
 (B, LR, 128) uint8.
 
-The reference sums each round's masked strips into the arena.  Plans
-from ``pack_plans`` cover every output byte exactly once and a round-r
-piece reads only bytes of earlier rounds, so the sum equals a plain
-store: the CUDA kernel stores, with a CTA-wide barrier between rounds;
-the plain version keeps the reference's sum.
+Two plan layouts:
 
-``execute_rounds`` launches the CUDA kernel (``csrc/exec.cu``) on CUDA
-tensors and runs ``execute_rounds_ref`` on CPU tensors.
+- the **compact plan** (``execute.pack_pieces``, ``compact_plan``), which
+  the decode paths send to the card: pieces (P, 2) int32, word 0 the
+  source byte and word 1 ``dst | (n - 1) << 24`` (n in 1..128), block-major
+  and each block's pieces sorted by round; rstart (B, nr + 1) int32.
+  Round r of block b runs pieces [lo, hi), lo = clip(rstart[b, r], 0, P),
+  hi = clip(rstart[b, r + 1], lo, P); a piece writes only where its dst
+  lies in the output half.  ``execute_pieces`` runs it;
+- the reference's **padded plan** (``execute.pack_plans``): (total, B)
+  slot tensors, round r the slots [sum(caps[:r]), sum(caps[:r+1]))
+  clipped to the plan's rows, pad slots of length 0.  ``execute_rounds``
+  runs it.
+
+The reference sums each round's masked strips into the arena.  Plans
+from the planner cover every output byte exactly once and a round-r
+piece reads only bytes of earlier rounds, so the sum equals a plain
+store: the CUDA kernel (``csrc/exec.cu``) stores, with a CTA-wide barrier
+between rounds; the plain versions keep the reference's sum.
+
+Both entry points launch that one kernel on CUDA tensors
+(``execute_rounds`` compacts its padded plan on the card first, and
+raises where a live slot writes the literal half, which the kernel does
+not take) and run their plain versions on CPU tensors.
 """
 
 from __future__ import annotations
@@ -30,7 +45,8 @@ import torch
 
 from compress_tpu_torch import _cuda
 
-__all__ = ["execute_rounds", "execute_rounds_ref"]
+__all__ = ["execute_pieces", "execute_pieces_ref", "execute_rounds",
+           "execute_rounds_ref", "compact_pieces", "compact_plan"]
 
 
 def _round_bounds(caps, total: int) -> list[int]:
@@ -39,11 +55,15 @@ def _round_bounds(caps, total: int) -> list[int]:
         np.asarray(caps, np.int64))])]
 
 
-def _check_inputs(lit_rows, src, dst, length):
+def _check_lit(lit_rows):
     if lit_rows.dim() != 3 or lit_rows.shape[2] != 128 \
             or lit_rows.shape[1] % 512:
         raise ValueError(f"lit_rows: expected (B, 512 * M, 128), got "
                          f"{tuple(lit_rows.shape)}")
+
+
+def _check_inputs(lit_rows, src, dst, length):
+    _check_lit(lit_rows)
     B = lit_rows.shape[0]
     if src.dim() != 2 or src.shape[1] != B or dst.shape != src.shape \
             or length.shape != src.shape:
@@ -52,21 +72,62 @@ def _check_inputs(lit_rows, src, dst, length):
         raise ValueError("execute_rounds: inputs on different devices")
 
 
+def _check_pieces(lit_rows, pieces, rstart):
+    _check_lit(lit_rows)
+    if lit_rows.shape[1] * 256 > 1 << 24:
+        raise ValueError("lit_rows: an arena above 16 MiB does not fit the "
+                         "compact plan's 24-bit dst")
+    if pieces.dim() != 2 or pieces.shape[1] != 2:
+        raise ValueError(f"pieces: expected (P, 2), got "
+                         f"{tuple(pieces.shape)}")
+    if rstart.dim() != 2 or rstart.shape[0] != lit_rows.shape[0] \
+            or rstart.shape[1] < 1:
+        raise ValueError(f"rstart: expected (B, nr + 1), got "
+                         f"{tuple(rstart.shape)}")
+    if pieces.device != lit_rows.device or rstart.device != lit_rows.device:
+        raise ValueError("execute_pieces: inputs on different devices")
+
+
+def _run_round(arena, owner, s, d, n, LR: int):
+    """One round on the flat int32 arena of all blocks: every byte of
+    every piece (owner block, src, dst, live length n) is gathered as the
+    arena stands, then summed into place."""
+    dev = arena.device
+    piece = torch.repeat_interleave(torch.arange(n.numel(), device=dev), n)
+    if piece.numel() == 0:
+        return
+    ab = 2 * LR * 128
+    start = torch.cumsum(n, 0) - n
+    j = torch.arange(piece.numel(), device=dev) - start[piece]
+    a = s[piece] + j
+    a_row = (a >> 7).clamp(0, 2 * LR - 1)
+    base = owner[piece] * ab
+    vals = arena[base + a_row * 128 + (a & 127)]
+    arena.index_put_((base + d[piece] + j,), vals, accumulate=True)
+
+
+def _arena(lit_rows):
+    B, LR = lit_rows.shape[0], lit_rows.shape[1]
+    arena = torch.zeros((B, 2 * LR * 128), dtype=torch.int32,
+                        device=lit_rows.device)
+    arena[:, :LR * 128] = lit_rows.reshape(B, -1).to(torch.int32)
+    return arena
+
+
+def _out_rows(arena, B: int, LR: int):
+    return (arena.view(B, 2 * LR, 128)[:, LR:] & 255).to(torch.uint8)
+
+
 def execute_rounds_ref(lit_rows: torch.Tensor, src: torch.Tensor,
                        dst: torch.Tensor, length: torch.Tensor,
                        round_caps) -> torch.Tensor:
-    """Plain PyTorch execute: per round, every live byte of every piece is
-    gathered from the arena as it stood at the round's start, then summed
-    into place."""
+    """Plain PyTorch execute of a padded plan, round by round."""
     _check_inputs(lit_rows, src, dst, length)
     B, LR = lit_rows.shape[0], lit_rows.shape[1]
     dev = lit_rows.device
     if B == 0:
         return torch.empty((0, LR, 128), dtype=torch.uint8, device=dev)
-    ab = 2 * LR * 128                                   # arena bytes
-    arena = torch.zeros((B, ab), dtype=torch.int32, device=dev)
-    arena[:, :LR * 128] = lit_rows.reshape(B, -1).to(torch.int32)
-    arena = arena.view(-1)
+    arena = _arena(lit_rows)
     bounds = _round_bounds(round_caps, src.shape[0])
     blk = torch.arange(B, device=dev, dtype=torch.int64)
     for lo, hi in zip(bounds[:-1], bounds[1:]):
@@ -75,61 +136,144 @@ def execute_rounds_ref(lit_rows: torch.Tensor, src: torch.Tensor,
         s = src[lo:hi].to(torch.int64).T.reshape(-1)
         d = dst[lo:hi].to(torch.int64).T.reshape(-1)
         ln = length[lo:hi].to(torch.int64).T.reshape(-1)
-        owner = blk.repeat_interleave(hi - lo)
         row = d >> 7
         n = torch.minimum(ln, 128 - (d & 127)).clamp(min=0)
         n = torch.where((row >= 0) & (row < 2 * LR), n, 0)
-        piece = torch.repeat_interleave(
-            torch.arange(n.numel(), device=dev), n)
-        if piece.numel() == 0:
-            continue
-        start = torch.cumsum(n, 0) - n
-        j = torch.arange(piece.numel(), device=dev) - start[piece]
-        a = s[piece] + j
-        a_row = (a >> 7).clamp(0, 2 * LR - 1)
-        base = owner[piece] * ab
-        vals = arena[base + a_row * 128 + (a & 127)]
-        arena.index_put_((base + d[piece] + j,), vals, accumulate=True)
-    out = arena.view(B, 2 * LR, 128)[:, LR:]
-    return (out & 255).to(torch.uint8)
+        _run_round(arena.view(-1), blk.repeat_interleave(hi - lo), s, d, n,
+                   LR)
+    return _out_rows(arena, B, LR)
+
+
+def execute_pieces_ref(lit_rows: torch.Tensor, pieces: torch.Tensor,
+                       rstart: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch execute of a compact plan, round by round over all
+    blocks at once."""
+    _check_pieces(lit_rows, pieces, rstart)
+    B, LR = lit_rows.shape[0], lit_rows.shape[1]
+    dev = lit_rows.device
+    if B == 0:
+        return torch.empty((0, LR, 128), dtype=torch.uint8, device=dev)
+    arena = _arena(lit_rows)
+    P = pieces.shape[0]
+    half = LR * 128
+    rs = rstart.to(torch.int64)
+    blk = torch.arange(B, device=dev, dtype=torch.int64)
+    for r in range(rs.shape[1] - 1):
+        lo = rs[:, r].clamp(0, P)
+        hi = torch.maximum(rs[:, r + 1].clamp(max=P), lo)
+        cnt = hi - lo
+        owner = blk.repeat_interleave(cnt)
+        k = torch.arange(owner.numel(), device=dev)
+        idx = lo[owner] + k - (torch.cumsum(cnt, 0) - cnt)[owner]
+        w = pieces[idx].to(torch.int64)
+        s, w1 = w[:, 0], w[:, 1] & 0xFFFFFFFF
+        d = w1 & 0xFFFFFF
+        n = torch.minimum(((w1 >> 24) & 127) + 1, 128 - (d & 127))
+        n = torch.where((d >= half) & (d < 2 * half), n, 0)
+        _run_round(arena.view(-1), owner, s, d, n, LR)
+    return _out_rows(arena, B, LR)
+
+
+def compact_pieces(blk: torch.Tensor, rnd: torch.Tensor, src: torch.Tensor,
+                   dst: torch.Tensor, length: torch.Tensor, B: int, nr: int,
+                   rows: int):
+    """The compact plan of flattened pieces, on their device.
+
+    blk, rnd, src, dst, length: (N,) int64 tensors, a piece's block in
+    [0, B), round in [0, nr), source and destination arena bytes and
+    length, for an arena of ``rows`` literal rows.  Returns (pieces (P, 2)
+    int32, rstart (B, nr + 1) int32): the pieces that write something,
+    ordered by block and round, stably.  Raises ValueError on a piece that
+    writes the literal half (the compact plan has no room for it; the
+    check reads a flag back from the device)."""
+    n = torch.minimum(length, 128 - (dst & 127))
+    row = dst >> 7
+    if bool(((n > 0) & (row >= 0) & (row < rows)).any()):
+        raise ValueError("a piece writes the literal half of the arena")
+    live = (n > 0) & (row >= rows) & (row < 2 * rows)
+    key = (blk * nr + rnd)[live]
+    order = torch.sort(key, stable=True).indices
+    pieces = torch.stack([src, dst | (n - 1) << 24], dim=1)[live][order]
+    dev = dst.device
+    flat = torch.zeros(B * nr + 1, dtype=torch.int64, device=dev)
+    flat[1:] = torch.bincount(key, minlength=B * nr).cumsum(0)
+    at = (torch.arange(B, device=dev)[:, None] * nr
+          + torch.arange(nr + 1, device=dev))
+    return pieces.to(torch.int32).contiguous(), flat[at].to(torch.int32)
+
+
+def compact_plan(src: torch.Tensor, dst: torch.Tensor, length: torch.Tensor,
+                 round_caps, rows: int):
+    """``compact_pieces`` of a padded plan's slots, on the padded plan's
+    device: equal to ``execute.pack_pieces`` of the plans ``pack_plans``
+    packed, so ``execute_pieces`` of the result equals ``execute_rounds``
+    of the padded plan.  Raises ValueError on a negative cap too."""
+    total, B = src.shape
+    bounds = _round_bounds(round_caps, total)
+    counts = np.diff(bounds)
+    if (counts < 0).any():
+        raise ValueError(f"round caps must not be negative: {round_caps}")
+    end, dev = bounds[-1], src.device
+    rnd = torch.repeat_interleave(torch.arange(len(counts), device=dev),
+                                  torch.from_numpy(counts).to(dev))
+    blk = torch.arange(B, device=dev).repeat_interleave(end)
+    s, d, ln = (t[:end].T.reshape(-1).to(torch.int64)
+                for t in (src, dst, length))
+    return compact_pieces(blk, rnd.repeat(B), s, d, ln, B, len(counts), rows)
+
+
+def _launch(lit_rows, pieces, rstart) -> torch.Tensor:
+    """Launch ``csrc/exec.cu`` on checked CUDA inputs; returns the output
+    rows."""
+    B, LR = lit_rows.shape[0], lit_rows.shape[1]
+    P, nr = pieces.shape[0], rstart.shape[1] - 1
+    _cuda.require_cuda_input(lit_rows, "lit_rows", torch.uint8, (B, LR, 128))
+    _cuda.require_cuda_input(pieces, "pieces", torch.int32, (P, 2))
+    _cuda.require_cuda_input(rstart, "rstart", torch.int32, (B, nr + 1))
+    lit_rows, pieces = _cuda.aligned(lit_rows), _cuda.aligned(pieces, 8)
+    dev = lit_rows.device
+    out = torch.empty((B, LR, 128), dtype=torch.uint8, device=dev)
+    if B == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = _cuda.library().ct_exec_pieces(
+            lit_rows.data_ptr(), pieces.data_ptr(), rstart.data_ptr(), nr, P,
+            B, LR, out.data_ptr(), _cuda.stream(dev))
+    _cuda.check(rc, "execute")
+    return out
+
+
+def execute_pieces(lit_rows: torch.Tensor, pieces: torch.Tensor,
+                   rstart: torch.Tensor) -> torch.Tensor:
+    """Run a compact plan: lit_rows (B, 512 * M, 128) uint8, pieces (P, 2)
+    and rstart (B, nr + 1) int32 per ``execute.pack_pieces``.  Returns
+    (B, 512 * M, 128) uint8 output rows."""
+    if lit_rows.device.type == "cpu":
+        return execute_pieces_ref(lit_rows, pieces, rstart)
+    _check_pieces(lit_rows, pieces, rstart)
+    out = _launch(lit_rows, pieces, rstart)
+    execute_pieces.launches += 1
+    return out
 
 
 def execute_rounds(lit_rows: torch.Tensor, src: torch.Tensor,
                    dst: torch.Tensor, length: torch.Tensor,
                    round_caps) -> torch.Tensor:
-    """Run the planned rounds: lit_rows (B, 512 * M, 128) uint8; src, dst,
+    """Run a padded plan: lit_rows (B, 512 * M, 128) uint8; src, dst,
     length (total, B) int32, round-major per ``pack_plans``; round_caps
     the per-round slot counts.  Returns (B, 512 * M, 128) uint8 output
     rows."""
     if lit_rows.device.type == "cpu":
         return execute_rounds_ref(lit_rows, src, dst, length, round_caps)
     _check_inputs(lit_rows, src, dst, length)
-    B, LR = lit_rows.shape[0], lit_rows.shape[1]
-    total = src.shape[0]
-    _cuda.require_cuda_input(lit_rows, "lit_rows", torch.uint8, (B, LR, 128))
+    B = lit_rows.shape[0]
     for name, t in (("src", src), ("dst", dst), ("length", length)):
-        _cuda.require_cuda_input(t, name, torch.int32, (total, B))
-    if lit_rows.data_ptr() % 16:
-        raise ValueError("lit_rows: expected a 16-byte aligned tensor")
-    dev = lit_rows.device
-    out = torch.empty((B, LR, 128), dtype=torch.uint8, device=dev)
-    if B == 0:
-        return out
-    bounds = torch.tensor(_round_bounds(round_caps, total), dtype=torch.int32,
-                          device=dev)
-    # a 128 KiB arena (M = 1) lives in shared memory; larger ones in a
-    # global scratch, one per block
-    scratch = (torch.empty((B, 2 * LR * 128), dtype=torch.uint8, device=dev)
-               if LR > 512 else None)
-    with torch.cuda.device(dev):
-        rc = _cuda.library().ct_exec_rounds(
-            lit_rows.data_ptr(), src.data_ptr(), dst.data_ptr(),
-            length.data_ptr(), bounds.data_ptr(), bounds.numel() - 1, B, LR,
-            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
-            _cuda.stream(dev))
-    _cuda.check(rc, "execute_rounds")
+        _cuda.require_cuda_input(t, name, torch.int32, (src.shape[0], B))
+    out = _launch(lit_rows, *compact_plan(src, dst, length, round_caps,
+                                          lit_rows.shape[1]))
     execute_rounds.launches += 1
     return out
 
 
+execute_pieces.launches = 0
 execute_rounds.launches = 0

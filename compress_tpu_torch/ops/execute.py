@@ -11,10 +11,15 @@ The host planner (``plan_ops``; ``plan_block_ops`` is its M = 1 form)
 turns decode-order LZ ops into dst-row-aligned **pieces** of at most 128
 bytes, each with an execution **round**: a round-r piece reads only bytes written in rounds
 before r, and every output byte is covered by exactly one piece.
-``pack_plans`` stacks per-block plans round-major into (total, B) slot
-tensors with per-round capacities (pad slots have length 0).
-``execute_rounds`` runs them: the CUDA kernel ``csrc/exec.cu`` on CUDA
-tensors (``ops/exec_kern.py``), its plain PyTorch version on CPU tensors.
+``pack_pieces`` packs per-block plans into the compact plan the decode
+paths send to the card: live pieces only, block-major, each block's
+pieces sorted by round, 8 bytes a piece, with per-block round offsets;
+``execute_pieces`` runs it (the CUDA kernel ``csrc/exec.cu`` on CUDA
+tensors, its plain PyTorch version on CPU tensors; ``ops/exec_kern.py``).
+``pack_plans`` stacks per-block plans round-major into the reference's
+padded (total, B) slot tensors with per-round capacities (pad slots have
+length 0); ``execute_rounds`` runs those (on the card by compacting them
+first), for the tests that hold the port against the JAX package.
 
 The multi-block history executor of the reference (``pack_plans_mb``,
 ``execute_blocks_hist``, the pieces that read ``HIST_BASE`` addresses)
@@ -24,8 +29,13 @@ belongs to multi-block zstd decode and is not ported yet.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from compress_tpu_torch.ops.exec_kern import execute_rounds, execute_rounds_ref
+from compress_tpu_torch.ops.exec_kern import (compact_pieces, compact_plan,
+                                              execute_pieces,
+                                              execute_pieces_ref,
+                                              execute_rounds,
+                                              execute_rounds_ref)
 
 ARENA_ROWS = 1024      # 512 literal rows + 512 output rows (M = 1)
 OUT_BASE = 512 * 128   # arena byte where output begins (M = 1)
@@ -33,7 +43,8 @@ HIST_BASE = ARENA_ROWS * 128  # history address space (multi-block frames)
 BLOCK = 1 << 16
 
 __all__ = ["ARENA_ROWS", "OUT_BASE", "HIST_BASE", "BLOCK", "plan_ops",
-           "plan_block_ops", "pack_plans", "execute_rounds",
+           "plan_block_ops", "pack_plans", "pack_pieces", "compact_plan",
+           "execute_pieces", "execute_pieces_ref", "execute_rounds",
            "execute_rounds_ref"]
 
 
@@ -168,21 +179,27 @@ def plan_block_ops(kinds, lens, offs, max_rounds=4):
             "n_rounds": int(rnd.max()) + 1 if len(rnd) else 1}
 
 
+def default_round_caps(largest) -> list[int]:
+    """``pack_plans``' capacity of each round from its largest per-block
+    piece count: rounded up to a power of two, at least 64."""
+    return [max(64, 1 << int(np.ceil(np.log2(max(int(c), 1)))))
+            for c in largest]
+
+
 def pack_plans(plans, round_caps=None):
     """Stack per-block plans into per-round padded tensors.
 
     Returns (src, dst, length) numpy int32 arrays of shape (total, B),
     round-major with per-round capacities, plus the caps tuple.  Without
     ``round_caps`` each round's cap is its largest per-block piece count,
-    rounded up to a power of two and at least 64.  Pad slots have
-    length 0 (dst OUT_BASE, src 0)."""
+    rounded up to a power of two and at least 64 (``default_round_caps``).
+    Pad slots have length 0 (dst OUT_BASE, src 0)."""
     B = len(plans)
     n_rounds = max(p["n_rounds"] for p in plans)
     if round_caps is None:
-        round_caps = []
-        for r in range(n_rounds):
-            cap = max(int((p["round"] == r).sum()) for p in plans)
-            round_caps.append(max(64, 1 << int(np.ceil(np.log2(max(cap, 1))))))
+        round_caps = default_round_caps(
+            max(int((p["round"] == r).sum()) for p in plans)
+            for r in range(n_rounds))
     total = sum(round_caps)
     src = np.zeros((total, B), np.int32)
     dst = np.full((total, B), OUT_BASE, np.int32)
@@ -203,3 +220,35 @@ def pack_plans(plans, round_caps=None):
         dst[idx, b] = p["dst"][order]
         length[idx, b] = p["len"][order]
     return src, dst, length, tuple(round_caps)
+
+
+def pack_pieces(plans, rows: int = 512):
+    """Pack per-block plans into the compact plan of ``execute_pieces``
+    for an arena of ``rows`` literal rows (512 * M).
+
+    Returns (pieces (P, 2) int32, rstart (B, nr + 1) int32) numpy arrays,
+    nr the largest ``n_rounds``.  Piece k is (src, dst | (n - 1) << 24),
+    n = min(len, 128 - (dst & 127)) in 1..128; pieces are block-major and
+    each block's are sorted by round, stably (the order ``pack_plans``
+    gives its slots); rstart[b, r] is where round r of block b starts.  A
+    piece that writes nothing (n <= 0, or dst outside the arena) is left
+    out; a piece that writes the literal half raises ValueError, as does
+    a round outside [0, nr).  ``compact_pieces`` does the packing, as it
+    does for ``compact_plan`` of a padded plan."""
+    if rows <= 0 or rows * 256 > 1 << 24:
+        raise ValueError(f"rows: expected 1..65536, got {rows}")
+    B = len(plans)
+    nr = max((int(p["n_rounds"]) for p in plans), default=1)
+
+    def cat(key):
+        return (np.concatenate([np.asarray(p[key], np.int64) for p in plans])
+                if B else np.zeros(0, np.int64))
+
+    rnd = cat("round")
+    if ((rnd < 0) | (rnd >= nr)).any():
+        raise ValueError(f"a piece's round is outside [0, {nr})")
+    blk = np.repeat(np.arange(B), [len(p["len"]) for p in plans])
+    pieces, rstart = compact_pieces(
+        *(torch.from_numpy(a) for a in (blk, rnd, cat("src"), cat("dst"),
+                                        cat("len"))), B, nr, rows)
+    return pieces.numpy(), rstart.numpy()

@@ -227,8 +227,9 @@ def emit_blocks(blocks_u8: torch.Tensor, off: torch.Tensor, L: torch.Tensor,
 
     b0, b1: (NB, 512, 128) u8, row-local slots 0-127 and 128-255;
     rowlens: (NB, 4, 128) int32, row r's length at [r >> 7, r & 127].
-    A CUDA tensor goes through the CUDA kernel, a CPU tensor through the
-    plain version."""
+    A CUDA tensor goes through the CUDA kernel (the finder's caps 10 and
+    6 only; an input that is not 16-byte aligned is copied first), a CPU
+    tensor through the plain version (any positive cap)."""
     if blocks_u8.dim() != 2 or blocks_u8.shape[1] != BS:
         raise ValueError(f"expected (NB, {BS}) blocks, got "
                          f"{tuple(blocks_u8.shape)}")
@@ -240,10 +241,14 @@ def emit_blocks(blocks_u8: torch.Tensor, off: torch.Tensor, L: torch.Tensor,
         raise ValueError(f"cap must be positive, got {cap}")
     if blocks_u8.device.type == "cpu":
         return emit_blocks_ref(blocks_u8, off, L, cap)
+    if cap not in (10, 6):
+        raise ValueError(f"the CUDA kernel takes the finder's caps 10 and 6, "
+                         f"got {cap}")
     nb = blocks_u8.shape[0]
     _cuda.require_cuda_input(blocks_u8, "blocks", torch.uint8, (nb, BS))
     _cuda.require_cuda_input(off, "off", torch.int32, (nb, BS))
     _cuda.require_cuda_input(L, "L", torch.int32, (nb, BS))
+    blocks_u8, off, L = (_cuda.aligned(t) for t in (blocks_u8, off, L))
     dev = blocks_u8.device
     b0 = torch.empty((nb, ROWS, LANES), dtype=torch.uint8, device=dev)
     b1 = torch.empty((nb, ROWS, LANES), dtype=torch.uint8, device=dev)

@@ -65,8 +65,9 @@ def parse_blocks(blocks_u8: torch.Tensor, off: torch.Tensor, L: torch.Tensor):
 
     ll, ml, of: (NB, MAXSEQ) int32 sequence fields in sequence order;
     lits: (NB, 65536) u8 literals; n_seqs, lit_cnt: (NB,) int32.
-    A CUDA tensor goes through the CUDA kernel, a CPU tensor through the
-    plain version."""
+    A CUDA tensor goes through the CUDA kernel (an input that is not
+    16-byte aligned is copied first; the outputs share one allocation), a
+    CPU tensor through the plain version."""
     if blocks_u8.dim() != 2 or blocks_u8.shape[1] != BS:
         raise ValueError(f"expected (NB, {BS}) blocks, got "
                          f"{tuple(blocks_u8.shape)}")
@@ -74,28 +75,40 @@ def parse_blocks(blocks_u8: torch.Tensor, off: torch.Tensor, L: torch.Tensor):
         raise ValueError("off and L must have the blocks' shape")
     if off.device != blocks_u8.device or L.device != blocks_u8.device:
         raise ValueError("off and L must be on the blocks' device")
-    if blocks_u8.device.type == "cpu":
-        return parse_blocks_ref(blocks_u8, off, L)
-    nb = blocks_u8.shape[0]
-    _cuda.require_cuda_input(blocks_u8, "blocks", torch.uint8, (nb, BS))
-    _cuda.require_cuda_input(off, "off", torch.int32, (nb, BS))
-    _cuda.require_cuda_input(L, "L", torch.int32, (nb, BS))
     dev = blocks_u8.device
-    fields = [torch.empty((nb, MAXSEQ), dtype=torch.int32, device=dev)
-              for _ in range(3)]
-    lits = torch.empty((nb, BS), dtype=torch.uint8, device=dev)
-    n_seqs = torch.empty((nb,), dtype=torch.int32, device=dev)
-    lit_cnt = torch.empty((nb,), dtype=torch.int32, device=dev)
-    lib = _cuda.library()
+    if dev.type == "cpu":
+        return parse_blocks_ref(blocks_u8, off, L)
+    # The checks and the one allocation are kept lean: the kernel takes
+    # about half a millisecond, so the wrapper's host work is a visible
+    # share of a call.
+    if dev.type != "cuda":
+        raise ValueError(f"parse_blocks: expected a CUDA tensor, got {dev}")
+    if blocks_u8.dtype != torch.uint8 or off.dtype != torch.int32 \
+            or L.dtype != torch.int32:
+        raise ValueError("parse_blocks: expected uint8 blocks and int32 off "
+                         "and L")
+    if not (blocks_u8.is_contiguous() and off.is_contiguous()
+            and L.is_contiguous()):
+        raise ValueError("parse_blocks: expected contiguous tensors")
+    blocks_u8, off, L = (_cuda.aligned(t) for t in (blocks_u8, off, L))
+    ptrs = (blocks_u8.data_ptr(), off.data_ptr(), L.data_ptr())
+    nb = blocks_u8.shape[0]
+    # one allocation: ll, ml, of, then the literals, n_seqs and lit_cnt
+    n_f = nb * MAXSEQ * 4
+    buf = torch.empty(3 * n_f + nb * BS + 8 * nb, dtype=torch.uint8,
+                      device=dev)
+    p = buf.data_ptr()
     with torch.cuda.device(dev):
-        rc = lib.ct_parse_blocks(
-            blocks_u8.data_ptr(), off.data_ptr(), L.data_ptr(),
-            *(f.data_ptr() for f in fields), lits.data_ptr(),
-            n_seqs.data_ptr(), lit_cnt.data_ptr(), nb, L_CAP,
+        rc = _cuda.library().ct_parse_blocks(
+            *ptrs, p, p + n_f, p + 2 * n_f, p + 3 * n_f,
+            p + 3 * n_f + nb * BS, p + 3 * n_f + nb * BS + 4 * nb, nb, L_CAP,
             _cuda.stream(dev))
     _cuda.check(rc, "parse_blocks")
     parse_blocks.launches += 1
-    return (*fields, lits, n_seqs, lit_cnt)
+    ll, ml, of = buf[:3 * n_f].view(torch.int32).view(3, nb, MAXSEQ)
+    n_seqs, lit_cnt = buf[3 * n_f + nb * BS:].view(torch.int32).view(2, nb)
+    return ll, ml, of, buf[3 * n_f:3 * n_f + nb * BS].view(nb, BS), \
+        n_seqs, lit_cnt
 
 
 parse_blocks.launches = 0

@@ -3,9 +3,10 @@ package's ``s2/device_dec.py`` ``decode_blocks_device``).
 
 The host parses each block's tag stream (the inherently serial byte
 work) into its literal bytes and a round-annotated execute plan
-(``s2/plan.py``); the byte movement then runs as one arena execute per
-arena class over every block of that class at once (``ops/execute.py``,
-the CUDA kernel ``csrc/exec.cu`` on the card).  Blocks the planner cannot
+(``s2/plan.py``), packed into a compact plan (live pieces only,
+``execute.pack_pieces``); the byte movement then runs as one arena
+execute per arena class over every block of that class at once
+(``ops/execute.py``, the CUDA kernel ``csrc/exec.cu`` on the card).  Blocks the planner cannot
 take (longer than 256 KiB, corrupt) go to the host decoder
 (``s2/block.decode``), the reference's own contract.
 """
@@ -29,9 +30,9 @@ def plan_blocks(blocks, *, allow_repeat: bool = True, max_rounds: int = 4):
     the host-decoded bytes of block i, or None where block i is planned;
     classes holds one dict per arena class M (ascending) with ``M``,
     ``index`` (the blocks' positions), ``total`` (their lengths),
-    ``lit_rows`` (Bc, 512 * M, 128) uint8 and the ``pack_plans`` output
-    ``src``, ``dst``, ``length`` (total slots, Bc) int32 and ``caps``, all
-    numpy."""
+    ``lit_rows`` (Bc, 512 * M, 128) uint8, ``plans`` (the per-block plan
+    dicts) and their compact plan ``pieces`` (P, 2) and ``rstart``
+    (Bc, nr + 1) int32 (``execute.pack_pieces``), all numpy."""
     results = [None] * len(blocks)
     planned = []
     for i, blk in enumerate(blocks):
@@ -56,13 +57,11 @@ def plan_blocks(blocks, *, allow_repeat: bool = True, max_rounds: int = 4):
             plans.append({"src": src,
                           "dst": (M * X.OUT_BASE + starts).astype(np.int32),
                           "len": length, "round": rnd, "n_rounds": n_rounds})
-        src, dst, length, caps = X.pack_plans(plans)
+        pieces, rstart = X.pack_pieces(plans, M * 512)
         classes.append({"M": M, "index": [i for i, _ in sel],
                         "total": [p[0] for _, p in sel],
                         "lit_rows": lit_rows.reshape(len(sel), M * 512, 128),
-                        "src": src, "dst": dst, "length": length,
-                        "caps": caps,
-                        "pieces": sum(len(p["src"]) for p in plans)})
+                        "plans": plans, "pieces": pieces, "rstart": rstart})
     return results, classes
 
 
@@ -76,22 +75,22 @@ def decode_blocks_device(blocks, *, allow_repeat: bool = True,
     plain PyTorch execute); raises when no card is present and no device
     was given.  ``stats``, when given, receives the count of blocks
     decoded on the device and on the host, and per arena class its block
-    count, round caps and piece count."""
+    count, rounds, piece count and the bytes of its compact plan."""
     dev = resolve_device(device)
     results, classes = plan_blocks(blocks, allow_repeat=allow_repeat,
                                    max_rounds=max_rounds)
     for c in classes:
-        out = X.execute_rounds(
-            torch.from_numpy(c["lit_rows"]).to(dev),
-            torch.from_numpy(c["src"]).to(dev),
-            torch.from_numpy(c["dst"]).to(dev),
-            torch.from_numpy(c["length"]).to(dev), c["caps"])
+        out = X.execute_pieces(*(torch.from_numpy(c[k]).to(dev) for k in (
+            "lit_rows", "pieces", "rstart")))
         out = out.reshape(out.shape[0], -1).cpu().numpy()
         for k, (i, total) in enumerate(zip(c["index"], c["total"])):
             results[i] = out[k, :total].tobytes()
     if stats is not None:
         n_dev = sum(len(c["index"]) for c in classes)
         stats.update(device=n_dev, host=len(blocks) - n_dev, classes={
-            c["M"]: {"blocks": len(c["index"]), "caps": c["caps"],
-                     "pieces": c["pieces"]} for c in classes})
+            c["M"]: {"blocks": len(c["index"]),
+                     "rounds": c["rstart"].shape[1] - 1,
+                     "pieces": len(c["pieces"]),
+                     "plan_bytes": c["pieces"].nbytes + c["rstart"].nbytes}
+            for c in classes})
     return results

@@ -534,12 +534,11 @@ def decompress_frames_device(frames, max_rounds: int = 4, device=None,
     plans, lit_rows, order, host = _exec_batch(metas, lit_decoded, seq_out,
                                                max_rounds)
     if plans:
-        src, dst, length, caps = X.pack_plans(plans)
+        pieces, rstart = X.pack_pieces(plans)
         t1 = time.perf_counter()
         times["plan"] += t1 - t0
-        out = X.execute_rounds(
-            *(torch.from_numpy(a).to(dev) for a in (lit_rows, src, dst,
-                                                     length)), caps)
+        out = X.execute_pieces(*(torch.from_numpy(a).to(dev) for a in (
+            lit_rows, pieces, rstart)))
         out = out.reshape(len(plans), -1).cpu().numpy()
         for j, i in enumerate(order):
             results[i] = out[j, :int(np.sum(plans[j]["len"]))].tobytes()

@@ -6,7 +6,10 @@ every seeded corpus class (the zstd kernels also on a replica job, whose
 long-range matches reach past the block), and the finder and the
 literal lookup also on hostile inputs (``corpus.finder_block``, batches of
 1, 133 and 512 blocks; odd row lengths, every byte value, misaligned
-rows).  Without a card every test here skips.
+rows), the parse kernels (zstd parse, S2 emit) on ``corpus.parse_inputs``
+and batches of 1, 133 and 512 blocks, and the LZ execute on compact and
+padded plans of every arena class and on ``corpus.exec_hostile_plans``.
+Without a card every test here skips.
 
 The file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch and the CUDA toolkit:
@@ -166,6 +169,102 @@ def test_zstd_kernels_reject_bad_inputs(cuda_device, zstd_data):
             (lits.shape[0], 2, 128), dtype=torch.int32, device=cuda_device))
 
 
+# ---- hostile inputs for the parse kernels (zparse, emit) -------------------
+
+def _hold_parse(blocks, off, L, dev):
+    """zparse at cap 10 and emit at the finder's two caps against their
+    plain versions."""
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+         for a in (blocks, off, L)]
+    before = (zparse.parse_blocks.launches, lzemit2.emit_blocks.launches)
+    got = [*zparse.parse_blocks(*t)]
+    want = [*zparse.parse_blocks_ref(*t)]
+    for cap in (lzkern.L_CAP, lzkern.L_CAP_SLIM):
+        got += lzemit2.emit_blocks(*t, cap=cap)
+        want += lzemit2.emit_blocks_ref(*t, cap=cap)
+    torch.cuda.synchronize()
+    assert (zparse.parse_blocks.launches, lzemit2.emit_blocks.launches) == (
+        before[0] + 1, before[1] + 2)
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", corpus.PARSE_CLASSES)
+def test_parse_kernels_hostile_blocks(cuda_device, kind):
+    """All zeros (every position chains, the offset-1 probe everywhere),
+    long chains at cap 10, the most sequences the gate allows (85 a tile),
+    no op at all."""
+    blk, off, L = corpus.parse_inputs(kind)
+    _hold_parse(blk[None], off[None], L[None], cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 133, 512])
+def test_parse_kernels_batches(cuda_device, nb):
+    """One block, more blocks than the card has SMs, and the zstd launch's
+    512 blocks: corpus blocks with the plain finder's (off, L), the hostile
+    parse inputs among them."""
+    blocks = np.resize(corpus.corpus_blocks(min(nb, 64), seed=nb),
+                       (nb, lzkern.BS))
+    t = torch.from_numpy(blocks).to(cuda_device)
+    off, L = (a.cpu().numpy() for a in lzkern.find_matches_blocks_ref(t))
+    for i, kind in enumerate(corpus.PARSE_CLASSES):
+        blocks[(5 * i + 2) % nb], off[(5 * i + 2) % nb], L[(5 * i + 2) % nb] \
+            = corpus.parse_inputs(kind)
+    _hold_parse(blocks, off, L, cuda_device)
+
+
+@pytest.mark.cuda
+def test_parse_kernels_take_unaligned_inputs(cuda_device, blocks_np):
+    """Inputs that do not start on a 16-byte boundary are copied first:
+    both parse kernels give their plain versions' outputs."""
+    t = torch.from_numpy(blocks_np).to(cuda_device)
+    off, L = lzkern.find_matches_blocks(t)
+
+    def shifted(a):
+        buf = torch.zeros(a.numel() + 1, dtype=a.dtype, device=cuda_device)
+        out = buf[1:].view(a.shape)
+        out.copy_(a)
+        return out
+
+    t1, off1 = shifted(t), shifted(off)
+    assert t1.data_ptr() % 16 and off1.data_ptr() % 16
+    got = [*zparse.parse_blocks(t1, off1, L), *lzemit2.emit_blocks(t1, off1, L)]
+    want = [*zparse.parse_blocks_ref(t, off, L),
+            *lzemit2.emit_blocks_ref(t, off, L)]
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), k
+
+
+@pytest.mark.cuda
+def test_cuda_entry_points_refuse_what_only_plain_versions_take(cuda_device,
+                                                                blocks_np):
+    """The port's known departures from the reference: the plain versions
+    run a padded-plan slot that writes the literal half of the arena and
+    emit at any positive cap; on CUDA tensors ``execute_rounds`` and
+    ``emit_blocks`` raise on both instead of computing something else."""
+    out = execute.OUT_BASE
+    plan = dict(src=np.array([3, out + 5], np.int32),
+                dst=np.array([out, 7], np.int32),
+                len=np.array([9, 4], np.int32),
+                round=np.array([0, 1], np.int32), n_rounds=2)
+    src, dst, length, caps = execute.pack_plans([plan])
+    lit = np.random.default_rng(3).integers(0, 256, (1, 512, 128), np.uint8)
+    cpu = [torch.from_numpy(a) for a in (lit, src, dst, length)]
+    want = execute.execute_rounds(*cpu, caps)
+    assert want[0, 0, :9].tolist() == lit[0, 0, 3:12].tolist()
+    with pytest.raises(ValueError, match="literal half"):
+        execute.execute_rounds(*(a.to(cuda_device) for a in cpu), caps)
+    blk = torch.from_numpy(blocks_np[:2])
+    off, L = lzkern.find_matches_blocks(blk)
+    assert lzemit2.emit_blocks(blk, off, L, cap=8)[0].shape == (2, 512, 128)
+    with pytest.raises(ValueError, match="caps 10 and 6"):
+        lzemit2.emit_blocks(*(a.to(cuda_device) for a in (blk, off, L)),
+                            cap=8)
+
+
 # ---- hostile inputs for the finder and the literal lookup -----------------
 
 def _hold_finder(t, slim):
@@ -311,17 +410,84 @@ def s2_dec_blocks(blocks_np):
 
 @pytest.mark.cuda
 def test_exec_kernel_matches_plain(cuda_device, s2_dec_blocks):
+    """``execute_rounds`` of the padded plan: compacted on the card, then
+    the exec kernel."""
     _, classes = plan_blocks(s2_dec_blocks)
     assert sorted(c["M"] for c in classes) == [1, 2, 4]
     for c in classes:
-        args = [torch.from_numpy(c[k]).to(cuda_device)
-                for k in ("lit_rows", "src", "dst", "length")]
+        src, dst, length, caps = execute.pack_plans(c["plans"])
+        args = [torch.from_numpy(a).to(cuda_device)
+                for a in (c["lit_rows"], src, dst, length)]
         before = execute.execute_rounds.launches
-        got = execute.execute_rounds(*args, c["caps"])
-        want = execute.execute_rounds_ref(*args, c["caps"])
+        got = execute.execute_rounds(*args, caps)
+        want = execute.execute_rounds_ref(*args, caps)
         torch.cuda.synchronize()
         assert execute.execute_rounds.launches == before + 1
         assert torch.equal(got, want), c["M"]
+
+
+def _hold_pieces(lit, plans, dev):
+    """The exec kernel on the compact plan against its plain version and
+    the padded plain execute."""
+    pieces, rstart = execute.pack_pieces(plans, lit.shape[1])
+    args = [torch.from_numpy(a).to(dev) for a in (lit, pieces, rstart)]
+    before = execute.execute_pieces.launches
+    got = execute.execute_pieces(*args)
+    want = execute.execute_pieces_ref(*args)
+    padded = execute.pack_plans(plans)
+    want_padded = execute.execute_rounds_ref(
+        *(torch.from_numpy(a).to(dev) for a in (lit, *padded[:3])),
+        padded[3])
+    torch.cuda.synchronize()
+    assert execute.execute_pieces.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got, want_padded)
+
+
+@pytest.mark.cuda
+def test_exec_pieces_kernel_matches_plain(cuda_device, s2_dec_blocks):
+    """The compact plans the S2 decode sends, at M = 1, 2 and 4."""
+    _, classes = plan_blocks(s2_dec_blocks)
+    assert sorted(c["M"] for c in classes) == [1, 2, 4]
+    for c in classes:
+        _hold_pieces(c["lit_rows"], c["plans"], cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 2, 4])
+def test_exec_pieces_kernel_hostile_plans(cuda_device, M):
+    """Sources below and past the arena, dst rows outside it, pieces past
+    their row end, overlapping copies at periods 1, 2 and 3."""
+    plans = corpus.exec_hostile_plans(M)
+    lit = np.random.default_rng(M).integers(
+        0, 256, (len(plans), 512 * M, 128), np.uint8)
+    _hold_pieces(lit, plans, cuda_device)
+
+
+@pytest.mark.cuda
+def test_exec_pieces_kernel_edges(cuda_device):
+    """No piece and no round; rstart rows past P and decreasing (every
+    round empty after the clamps the plain version applies too) beside a
+    valid one; no block."""
+    rng = np.random.default_rng(11)
+    lit = torch.from_numpy(rng.integers(0, 256, (3, 512, 128), np.uint8))
+    pieces, rstart = execute.pack_pieces(corpus.exec_hostile_plans(1)[1:4])
+    P = len(pieces)
+    rstart[1] = P + 9
+    rstart[2, 1:] = rstart[2, 0] - np.arange(1, rstart.shape[1])
+    cases = [(np.zeros((0, 2), np.int32), np.zeros((3, 1), np.int32)),
+             (pieces, rstart)]
+    for pc, rs in cases:
+        args = [t.to(cuda_device) for t in (
+            lit, torch.from_numpy(pc), torch.from_numpy(rs))]
+        got = execute.execute_pieces(*args)
+        want = execute.execute_pieces_ref(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    empty = [lit[:0].to(cuda_device), torch.from_numpy(pieces).to(
+        cuda_device), torch.zeros((0, 2), dtype=torch.int32,
+                                  device=cuda_device)]
+    assert execute.execute_pieces(*empty).shape == (0, 512, 128)
 
 
 @pytest.mark.cuda
@@ -461,6 +627,13 @@ def test_decode_kernels_reject_bad_inputs(cuda_device):
         execute.execute_rounds(lit, z.to(torch.int64), z, z, (64,))
     with pytest.raises(ValueError):
         execute.execute_rounds(lit, z.cpu(), z, z, (64,))
+    rs = torch.zeros((2, 2), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        execute.execute_pieces(lit, z[:, :1].contiguous(), rs)
+    with pytest.raises(ValueError):
+        execute.execute_pieces(lit, z.to(torch.int64), rs)
+    with pytest.raises(ValueError):
+        execute.execute_pieces(lit, z, rs.cpu())
     w, lb, ns = (torch.from_numpy(a).to(cuda_device)
                  for a in _chunks(10, entropy_dec.WIN, 32, seed=0))
     tab = torch.from_numpy(_table(8, 0)).to(cuda_device)

@@ -8,7 +8,14 @@
   ``execute_rounds`` (the XLA round graph) at arena classes M = 1, 2 and
   4, and JAX ``execute_rounds_pallas(interpret=True)`` at M = 1, on the
   same packed plans, the hand plans of ``tests/test_exec_pallas.py``
-  included."""
+  included.
+- The compact plan: ``pack_pieces`` equals ``compact_plan`` of
+  ``pack_plans`` of the same plans, and ``execute_pieces`` on CPU tensors
+  (its plain version) equals ``execute_rounds_ref`` of the padded plan and
+  the JAX XLA and Pallas executes, on seeded, text and rand4 plans at
+  max_rounds 1, 2 and 4, every arena class, empty rounds, clipped caps and
+  hostile pieces (sources below 0 and past the arena, dst rows outside
+  it, overlapping copies at periods 1, 2 and 3)."""
 
 import numpy as np
 import pytest
@@ -174,7 +181,7 @@ def s2_classes():
 def test_execute_rounds_matches_xla_per_class(M, s2_classes):
     srcs, classes = s2_classes
     c = next(c for c in classes if c["M"] == M)
-    args = (c["lit_rows"], c["src"], c["dst"], c["length"], c["caps"])
+    args = (c["lit_rows"], *X.pack_plans(c["plans"]))
     got = _run_port(*args)
     assert got.shape == (len(c["index"]), 512 * M, 128)
     assert np.array_equal(got, _run_xla(*args))
@@ -187,7 +194,7 @@ def test_execute_rounds_matches_pallas_on_real_plans():
     text = corpus.make_block("text", rng).tobytes()
     srcs = [text[:3000], text[5000:7000], bytes(1500)]
     _, (c,) = plan_blocks([jax_s2.encode(s) for s in srcs])
-    args = (c["lit_rows"], c["src"], c["dst"], c["length"], c["caps"])
+    args = (c["lit_rows"], *X.pack_plans(c["plans"]))
     got = _run_port(*args)
     pallas = np.asarray(jax_xp.execute_rounds_pallas(
         *(jnp.asarray(a) for a in args[:4]), args[4], interpret=True))
@@ -204,3 +211,124 @@ def test_execute_rounds_rejects_bad_shapes():
     lit = torch.zeros((2, 512, 128), dtype=torch.uint8)
     with pytest.raises(ValueError):
         X.execute_rounds(lit, z[:, :1], z, z, (64,))
+
+
+# ---- the compact plan ------------------------------------------------------
+
+def _run_pieces(lit, pieces, rstart):
+    return X.execute_pieces(*(torch.from_numpy(np.ascontiguousarray(a))
+                              for a in (lit, pieces, rstart))).numpy()
+
+
+def _hold_compact(lit, plans, pallas=False):
+    """pack_pieces == compact_plan(pack_plans); the compact execute equals
+    the padded plain execute and JAX's XLA (and Pallas) executes."""
+    rows = lit.shape[1]
+    pieces, rstart = X.pack_pieces(plans, rows)
+    padded = X.pack_plans(plans)
+    cp, cr = X.compact_plan(*(torch.from_numpy(a) for a in padded[:3]),
+                            padded[3], rows)
+    assert np.array_equal(pieces, cp.numpy())
+    assert np.array_equal(rstart, cr.numpy())
+    assert pieces.dtype == rstart.dtype == np.int32
+    got = _run_pieces(lit, pieces, rstart)
+    assert got.shape == lit.shape and got.dtype == np.uint8
+    assert np.array_equal(got, _run_port(lit, *padded))
+    assert np.array_equal(got, _run_xla(lit, *padded))
+    if pallas:
+        assert np.array_equal(got, np.asarray(jax_xp.execute_rounds_pallas(
+            *(jnp.asarray(a) for a in (lit, *padded[:3])), padded[3],
+            interpret=True)))
+    return got
+
+
+@pytest.mark.parametrize("max_rounds", [1, 2, 4])
+@pytest.mark.parametrize("ops", ["seeded1", "text", "rand4"])
+def test_compact_plan_matches_padded_and_jax(ops, max_rounds, op_lists):
+    plans = [X.plan_block_ops(*op_lists[ops], max_rounds=max_rounds),
+             X.plan_block_ops(*op_lists["seeded2"], max_rounds=max_rounds)]
+    lit = np.random.default_rng(max_rounds).integers(
+        0, 256, (2, 512, 128)).astype(np.uint8)
+    _hold_compact(lit, plans, pallas=max_rounds == 4)
+
+
+def test_compact_plan_hand_plans_match_pallas():
+    lit = np.random.default_rng(1).integers(0, 256, (3, 512, 128)).astype(
+        np.uint8)
+    got = _hold_compact(lit, _hand_plans(), pallas=True)
+    assert not got[2].any()
+
+
+@pytest.mark.parametrize("M", [1, 2, 4])
+def test_compact_plan_matches_xla_per_class(M, s2_classes):
+    srcs, classes = s2_classes
+    c = next(c for c in classes if c["M"] == M)
+    got = _hold_compact(c["lit_rows"], c["plans"])
+    assert np.array_equal(c["pieces"], X.pack_pieces(c["plans"], 512 * M)[0])
+    for k, i in enumerate(c["index"]):
+        assert got[k].reshape(-1)[:len(srcs[i])].tobytes() == srcs[i]
+
+
+def test_compact_plan_of_empty_rounds_and_clipped_caps():
+    """compact_plan of a padded plan with a round of pads only, a cap of 0
+    and caps past the plan's rows equals the padded execute and XLA."""
+    rng = np.random.default_rng(2)
+    lit = rng.integers(0, 256, (2, 512, 128)).astype(np.uint8)
+    src, dst, length, caps = X.pack_plans(_hand_plans()[:2])
+    pad = np.zeros((64, 2), np.int32)
+    src = np.concatenate([src[:64], pad, src[64:]])
+    dst = np.concatenate([dst[:64], pad + OUT, dst[64:]])
+    length = np.concatenate([length[:64], pad, length[64:]])
+    caps = (64, 64, 0) + caps[1:] + (100,)
+    pieces, rstart = X.compact_plan(*(torch.from_numpy(a) for a in (
+        src, dst, length)), caps, 512)
+    assert rstart.shape == (2, len(caps) + 1)
+    assert (rstart[:, 1] == rstart[:, 2]).all()        # the pads' round
+    got = _run_pieces(lit, pieces.numpy(), rstart.numpy())
+    assert np.array_equal(got, _run_port(lit, src, dst, length, caps))
+    assert np.array_equal(got, _run_xla(lit, src, dst, length, caps))
+
+
+@pytest.mark.parametrize("M", [1, 2, 4])
+def test_compact_plan_hostile_pieces(M):
+    plans = corpus.exec_hostile_plans(M)
+    lit = np.random.default_rng(M).integers(
+        0, 256, (len(plans), 512 * M, 128)).astype(np.uint8)
+    pieces, _ = X.pack_pieces(plans, 512 * M)
+    # the dst rows outside the arena left no piece
+    assert len(pieces) == sum(len(p["len"]) for p in plans) - 3
+    got = _hold_compact(lit, plans, pallas=M == 1)
+    for k, period in enumerate((1, 2, 3), start=1):
+        row = got[k].reshape(-1)
+        seed = lit[k].reshape(-1)[:period]
+        assert row[:700 + period].tobytes() == (
+            seed.tobytes() * 701)[:700 + period]
+
+
+def test_compact_plan_rejects_literal_half_writes_and_bad_caps():
+    p = dict(src=np.array([0], np.int32), dst=np.array([OUT - 128], np.int32),
+             len=np.array([4], np.int32), round=np.array([0], np.int32),
+             n_rounds=1)
+    with pytest.raises(ValueError, match="literal half"):
+        X.pack_pieces([p])
+    padded = [torch.from_numpy(a) for a in X.pack_plans([p])[:3]]
+    with pytest.raises(ValueError, match="literal half"):
+        X.compact_plan(*padded, (64,), 512)
+    with pytest.raises(ValueError, match="negative"):
+        X.compact_plan(*padded, (64, -10, 64), 512)
+    with pytest.raises(ValueError, match="round"):
+        X.pack_pieces([dict(p, dst=np.array([OUT], np.int32),
+                            round=np.array([1], np.int32))])
+
+
+def test_execute_pieces_rejects_bad_shapes():
+    lit = torch.zeros((2, 512, 128), dtype=torch.uint8)
+    pieces = torch.zeros((4, 2), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        X.execute_pieces(lit, pieces[:, :1], torch.zeros((2, 2),
+                                                         dtype=torch.int32))
+    with pytest.raises(ValueError):
+        X.execute_pieces(lit, pieces, torch.zeros((3, 2), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        X.execute_pieces(lit[:, :500], pieces,
+                         torch.zeros((2, 2), dtype=torch.int32))
