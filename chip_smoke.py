@@ -11,7 +11,8 @@ mixing every class of ``compress_tpu_torch.corpus``):
 1. prints the device (name, count, ``nvidia-smi`` name and power limit);
 2. builds the kernels and prints the seconds it took, each kernel's
    registers and spills (ptxas), and the CTAs per SM of the exec, zstd
-   parse and emit kernels (the runtime's occupancy query);
+   parse, emit, repeat-scan and FSE-chain kernels (the runtime's
+   occupancy query);
 3. makes the corpus;
 4. holds the finder kernel (cap 10 and the slim cap 6) against its plain
    PyTorch version on the card: (off, L) must be bit-identical;
@@ -48,7 +49,9 @@ them that starts an odd number of bytes in (``corpus.replica_jobs``):
     call on the host clock, and traces one call; prints the literal
     lookup's achieved GB/s beside its bound's, and times the finder, the
     parse, the literal lookup, ``torch.gather`` and a fill of the lookup's
-    two outputs alone (the card's write rate on them) by device time too.
+    two outputs alone (the card's write rate on them) by device time too,
+    and the repeat scan and the FSE chain by device time beside the
+    longest chain.
 
 Device batch decode of what the port encodes:
 
@@ -93,8 +96,18 @@ Batched zstd frame decode (``zstd.device_dec.decompress_frames_device``):
     time too, on the compact plan), the host stages and the whole call on
     the host clock, and traces one call.
 
+The routes no path sends, which take the inputs the reference takes:
+
+19. holds the zstd parse and the S2 emit at a cap other than the
+    finder's (the run-time cap instantiation) on the hostile parse inputs
+    (with chains at that cap) and two corpus blocks, and ``execute_rounds``
+    on the padded plans only the reference's sum gets right (its sum
+    kernel), against their plain versions; times them; their launches on
+    the main paths above must be 0.
+
 Then it prints one ``{"kernels": [...]}`` line with all the kernels (the
-huff0 kernel once per engine, the sequence kernel once per mode).
+huff0 kernel once per engine, the sequence kernel once per mode, the
+routes of phase 19 once each).
 Every comparison is exact (tolerance 0: all outputs are integers or
 bytes).  Any failure raises and the exit code is not 0.  The last line
 of standard output is ``{"ok": true, "device": {...}}``.
@@ -387,7 +400,10 @@ def zstd_path(dev) -> list:
      _) = zenc2._codes_stage(ll, ml, rep, n_seqs)
     chain_in = (pk_ll, pk_of, pk_ml, n_seqs, tables)
     chain = zseqenc.fse_chain(*chain_in)
-    hold("fse_chain", chain, zseqenc.fse_chain_ref(*chain_in))
+    chain_want = zseqenc.fse_chain_ref(*chain_in)
+    hold("fse_chain", chain, chain_want)
+    hold("fse_chain (clamped walk)",
+         zseqenc.fse_chain(*chain_in, clamped_only=True), chain_want)
     packed = zenc2._literal_tables(lits, lit_cnt, blk)[4]
     hold("litlut", zenc2._litlut(lits, packed),
          zenc2._litlut_ref(lits, packed))
@@ -462,6 +478,10 @@ def zstd_path(dev) -> list:
         "parse": cuda_ms(lambda: zparse.parse_blocks(blocks, off, L), 10,
                          True),
         "litlut": cuda_ms(lambda: zenc2._litlut(lits, packed), 20, True),
+        "rep": cuda_ms(lambda: zseqenc.rep_scan(of, ll, n_seqs), 10, True),
+        "fse": cuda_ms(lambda: zseqenc.fse_chain(*chain_in), 10, True),
+        "fse_clamped": cuda_ms(lambda: zseqenc.fse_chain(
+            *chain_in, clamped_only=True), 10, True),
         "gather": cuda_ms(lambda: torch.gather(tab256, 1, idx), 20, True),
         "fill": cuda_ms(lambda: fill.fill_(7), 20, True),
     }
@@ -499,7 +519,10 @@ def zstd_path(dev) -> list:
          f"{t['litlut']:.4f} / {dev_t['litlut']:.4f}, torch.gather "
          f"{lib_litlut:.4f} / {dev_t['gather']:.4f}, finder ({R} blocks) "
          f"{t['find']:.4f} / {dev_t['find']:.4f}, parse {t['parse']:.4f} / "
-         f"{dev_t['parse']:.4f}; a fill of the lookup's "
+         f"{dev_t['parse']:.4f}, repeat scan {t['rep']:.4f} / "
+         f"{dev_t['rep']:.4f}, FSE chain {t['fse']:.4f} / {dev_t['fse']:.4f} "
+         f"(longest chain {max_seqs}; device time with the clamped re-walk "
+         f"everywhere {dev_t['fse_clamped']:.4f}); a fill of the lookup's "
          f"two outputs alone {dev_t['fill']:.4f} device time")
     rows = [
         ("parse_blocks", "parse", "compress_tpu_torch/csrc/zparse.cu",
@@ -520,8 +543,10 @@ def zstd_path(dev) -> list:
                  "bound_by": bnd[1], "library_ms": lib}
         if key in ("rep", "fse"):
             entry["longest_chain"] = max_seqs
-        if key == "parse":
-            entry["device_ms"] = dev_t["parse"]
+        if key in ("parse", "rep", "fse"):
+            entry["device_ms"] = dev_t[key]
+        if key == "fse":
+            entry["clamped_walk_device_ms"] = dev_t["fse_clamped"]
         if key == "litlut":
             entry.update({"gbps": lut_gbps, "device_ms": dev_t["litlut"],
                           "library_device_ms": dev_t["gather"],
@@ -975,6 +1000,104 @@ def zstd_decode_path(dev):
     return rows_out, extra
 
 
+def _route_counters():
+    from compress_tpu_torch.ops import exec_kern, lzemit2, zparse
+
+    return [(zparse.parse_blocks, "any_cap_launches"),
+            (lzemit2.emit_blocks, "any_cap_launches"),
+            (exec_kern.execute_rounds, "launches")]
+
+
+def reset_route_counts() -> None:
+    """Set the launch counts of the routes no path sends to 0."""
+    for fn, attr in _route_counters():
+        setattr(fn, attr, 0)
+
+
+def route_counts() -> list:
+    """Their launch counts (after the main paths: all must be 0)."""
+    return [getattr(fn, attr) for fn, attr in _route_counters()]
+
+
+def other_routes(dev, blocks_np, main_launches) -> list:
+    """Phase 19: the run-time cap routes of the zstd parse and the S2 emit
+    and the sum route of ``execute_rounds`` against their plain versions
+    on small inputs; returns their JSON entries.  ``main_launches``: their
+    launch counts over the main paths above, which send none of them."""
+    from compress_tpu_torch import corpus
+    from compress_tpu_torch.ops import exec_kern, execute, lzemit2, lzkern
+    from compress_tpu_torch.ops import zparse
+
+    _say(f"other routes: launches on the main paths (parse any cap, emit "
+         f"any cap, execute_rounds sums) {main_launches}")
+    if any(main_launches):
+        raise AssertionError("a main path took a route it does not need")
+    cap = 17
+    ins = [corpus.parse_inputs(k) for k in corpus.PARSE_CLASSES]
+    ins += [corpus.parse_inputs(k, cap) for k in ("chains", "all_zeros")]
+    t = torch.from_numpy(blocks_np[:2]).to(dev)
+    off, L = lzkern.find_matches_blocks_ref(t)
+    ins += [(blocks_np[i], off[i].cpu().numpy(), L[i].cpu().numpy())
+            for i in range(2)]
+    blocks, off, L = (torch.from_numpy(np.stack(a)).to(dev)
+                      for a in zip(*ins))
+    nb = blocks.shape[0]
+    before = route_counts()
+    err_p = _hold(f"parse_blocks (cap {cap}, {nb} blocks)",
+                  zparse.parse_blocks(blocks, off, L, cap=cap),
+                  zparse.parse_blocks_ref(blocks, off, L, cap=cap))
+    err_e = _hold(f"emit_blocks (cap {cap}, {nb} blocks)",
+                  lzemit2.emit_blocks(blocks, off, L, cap=cap),
+                  lzemit2.emit_blocks_ref(blocks, off, L, cap=cap))
+    plans = list(corpus.exec_sum_plans().values())
+    plans.append(corpus.exec_hostile_plans(1)[1])
+    rng = np.random.default_rng([SEED, 19])
+    lit = rng.integers(0, 256, (len(plans), 512, 128), np.uint8)
+    src, dst, length, caps = execute.pack_plans(plans)
+    xargs = [torch.from_numpy(a).to(dev) for a in (lit, src, dst, length)]
+    err_x = _hold(f"execute_rounds (sums, {len(plans)} blocks)",
+                  exec_kern.execute_rounds(*xargs, caps),
+                  exec_kern.execute_rounds_ref(*xargs, caps))
+    took = [a - b for a, b in zip(route_counts(), before)]
+    if took != [1, 1, 1]:
+        raise AssertionError(f"the other routes launched {took} times")
+    t = {"parse": cuda_ms(lambda: zparse.parse_blocks(blocks, off, L,
+                                                      cap=cap), 5),
+         "emit": cuda_ms(lambda: lzemit2.emit_blocks(blocks, off, L,
+                                                     cap=cap), 5),
+         "sum": cuda_ms(lambda: exec_kern.execute_rounds(*xargs, caps), 5)}
+    plain = {"parse": cuda_ms(lambda: zparse.parse_blocks_ref(
+                 blocks, off, L, cap=cap), 1),
+             "emit": cuda_ms(lambda: lzemit2.emit_blocks_ref(
+                 blocks, off, L, cap=cap), 1),
+             "sum": cuda_ms(lambda: exec_kern.execute_rounds_ref(
+                 *xargs, caps), 1)}
+    _say("other routes (ms, kernel / plain): " + ", ".join(
+        f"{k} {t[k]:.4f} / {plain[k]:.4f}" for k in t))
+    # bounds as the main-path rows count them; the sums read each slot of
+    # the padded plan, the literal rows and write the output rows
+    blk_b = nb * lzkern.BS
+    seq_b = nb * zparse.MAXSEQ * 4
+    b_parse = bound(blk_b + 8 * blk_b + 3 * seq_b + blk_b + 8 * nb,
+                    blk_b * 64)
+    b_emit = bound(blk_b + 8 * blk_b + 2 * blk_b + nb * 512 * 4, blk_b * 64)
+    b_sum = bound(2 * lit.nbytes + src.nbytes + dst.nbytes + length.nbytes,
+                  8 * lit.size)
+    csrc = "compress_tpu_torch/csrc/"
+    rows = [("parse_blocks_any_cap", "parse", csrc + "zparse.cu",
+             "compress_tpu/ops/zparse.py:90", b_parse, err_p, 0),
+            ("emit_blocks_any_cap", "emit", csrc + "lzemit.cu",
+             "compress_tpu/ops/lzemit2.py:102", b_emit, err_e, 1),
+            ("execute_rounds_sum", "sum", csrc + "exec.cu",
+             "compress_tpu/ops/exec_pallas.py:39", b_sum, err_x, 2)]
+    return [{"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": main_launches[k],
+             "max_abs_err": err, "equal_to_plain": True, "ms": t[key],
+             "plain_ms": plain[key], "bound_ms": bnd[0], "bound_by": bnd[1],
+             "library_ms": None, "path": "phase 19: no path sends it"}
+            for name, key, source, replaces, bnd, err, k in rows]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1007,11 +1130,15 @@ def main() -> int:
     lib = _cuda.library()
     ctas = {"execute_pieces": lib.ct_exec_occupancy(512),
             "parse_blocks": lib.ct_parse_occupancy(),
-            "emit_blocks": lib.ct_emit_occupancy()}
+            "emit_blocks": lib.ct_emit_occupancy(),
+            "rep_scan": lib.ct_rep_occupancy(),
+            "fse_chain": lib.ct_fse_occupancy()}
     _say("CTAs per SM (occupancy query; exec at M = 1): " + ", ".join(
              f"{k} {v}" for k, v in ctas.items()))
     if min(ctas.values()) < 1:
         raise AssertionError(f"a kernel cannot be resident: {ctas}")
+
+    reset_route_counts()
 
     # ---- 3. corpus ---------------------------------------------------------
     blocks_np = corpus.corpus_blocks(N_BLOCKS, SEED)
@@ -1160,7 +1287,8 @@ def main() -> int:
     kernels += zstd_kernels
     kernels.append(s2_decode_path(dev, data, bodies))
     for row in kernels:
-        if row["name"] in ("parse_blocks", "execute_pieces"):
+        if row["name"] in ("parse_blocks", "execute_pieces", "rep_scan",
+                           "fse_chain"):
             row["ctas_per_sm"] = ctas[row["name"]]
     kernels += huff0_path(dev, blocks_np)
     zseq_rows, zdec = zstd_decode_path(dev)
@@ -1171,6 +1299,7 @@ def main() -> int:
             row.update(zdec["huff0"])
     zseq_rows[0].update(zdec["call"])
     kernels += zseq_rows
+    kernels += other_routes(dev, blocks_np, route_counts())
 
     _say(smi)
     _say(json.dumps({"kernels": kernels}))

@@ -35,10 +35,13 @@ _SIGNATURES = {
     "ct_emit_blocks": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "ct_parse_blocks": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "ct_rep_scan": [_P, _P, _P, _P, _I, _I, _P],
-    "ct_fse_chain": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "ct_fse_chain": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ct_litlut": [_P, _P, _P, _P, _I, _I, _P],
     "ct_exec_pieces": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "ct_exec_sum": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "ct_exec_occupancy": [_I],
+    "ct_rep_occupancy": [],
+    "ct_fse_occupancy": [],
     "ct_parse_occupancy": [],
     "ct_emit_occupancy": [],
     "ct_huff0_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],

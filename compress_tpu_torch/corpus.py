@@ -231,18 +231,48 @@ def exec_hostile_plans(M: int) -> list:
     return plans
 
 
+EXEC_SUM_CLASSES = ("literal_half", "double_write", "same_round_read")
+
+
+def exec_sum_plans() -> dict:
+    """Execute plans (``ops/execute`` plan dicts, arena class M = 1) on
+    which a plain store differs from the reference's sum of each round's
+    strips: a piece that writes the literal half (round 1, read back by
+    round 2); a byte written twice in one round and again in a later
+    round (whose other piece reads bytes of its own round); pieces that
+    read bytes their own round writes."""
+    from compress_tpu_torch.ops.execute import OUT_BASE as out
+
+    def plan(src, dst, length, rnd):
+        return dict(src=np.array(src, np.int32), dst=np.array(dst, np.int32),
+                    len=np.array(length, np.int32),
+                    round=np.array(rnd, np.int32), n_rounds=max(rnd) + 1)
+
+    return {
+        "literal_half": plan([3, out + 5, 2], [out, 7, out + 40], [9, 4, 12],
+                             [0, 1, 2]),
+        "double_write": plan([10, 20, 30, out + 2],
+                             [out, out + 4, out + 2, out + 60], [8, 8, 4, 8],
+                             [0, 0, 1, 1]),
+        "same_round_read": plan([5, out, out + 100], [out, out + 3, out + 130],
+                                [16, 20, 40], [0, 0, 0]),
+    }
+
+
 PARSE_CLASSES = ("all_zeros", "chains", "most_seqs", "no_match")
 
 
-def parse_inputs(kind: str):
+def parse_inputs(kind: str, cap: int = 10):
     """(block (65536,) uint8, off, L (65536,) int32): a block and a
     finder channel that stress the parse stages of the S2 emit and zstd
-    parse kernels:
+    parse kernels at the chain extension's ``cap`` (the finder's 10 by
+    default):
 
-    - ``all_zeros``: all zeros, offset 1 and L = 10 (the cap) everywhere: every
-      position chains and the offset-1 probe covers every tile;
-    - ``chains``: random bytes (no probe fires) with offset 7 and L = 10,
-      chains broken at 300 random positions (L = 9 there);
+    - ``all_zeros``: all zeros, offset 1 and L = cap everywhere: every
+      position chains (a cap of 4 or more) and the offset-1 probe covers
+      every tile;
+    - ``chains``: random bytes (no probe fires) with offset 7 and L = cap,
+      chains broken at 300 random positions (L = cap - 1 there);
     - ``most_seqs``: random bytes, L = 6 and offsets below 1024 everywhere:
       the zstd gate passes every match, so the greedy parse takes one every
       6 positions, 85 a tile, the most sequences a block can hold;
@@ -253,12 +283,12 @@ def parse_inputs(kind: str):
     if kind == "all_zeros":
         blk = np.zeros(BS, np.uint8)
         off = np.where(g >= 1, 1, 0)
-        L = np.where(g >= 1, 10, 0)
+        L = np.where(g >= 1, cap, 0)
     elif kind == "chains":
         blk = rng.integers(0, 256, BS, dtype=np.uint8)
         off = np.where(g >= 7, 7, 0)
-        L = np.where(g >= 7, 10, 0)
-        L[rng.integers(0, BS, 300)] = 9
+        L = np.where(g >= 7, cap, 0)
+        L[rng.integers(0, BS, 300)] = cap - 1
     elif kind == "most_seqs":
         blk = rng.integers(0, 256, BS, dtype=np.uint8)
         off = np.minimum(rng.integers(1, 1024, BS), g)
@@ -272,3 +302,94 @@ def parse_inputs(kind: str):
     L[BS - 3:] = 0
     off = np.where(L > 0, off, 0)
     return blk, off.astype(np.int32), L.astype(np.int32)
+
+
+_I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
+REP_CLASSES = ("alphabets", "n_seqs_edges", "serial_route")
+
+
+def rep_inputs(kind: str):
+    """(of, ll (R, MAXSEQ) int32, n_seqs (R,) int32): repeat-offset scan
+    inputs that stress the scan form and its serial route:
+
+    - ``alphabets``: 12 blocks whose offsets come from an alphabet of 1-7
+      values, with ll = 0 in runs of 8 at a random rate, n_seqs up to 600
+      and one block of MAXSEQ (the zstd parse's sequence slots);
+    - ``n_seqs_edges``: such blocks with n_seqs 0, 1, 2, 3, 4, MAXSEQ, past
+      it and negative;
+    - ``serial_route``: such blocks with a live offset of 0, of -5, of 0
+      in a second 2048-sequence chunk, of INT32_MIN, and within 3 of
+      INT32_MAX (off + 3 wraps negative in int32 and the step moves no
+      state): chunks the scan form does not hold for; and one of
+      INT32_MAX - 3, the largest the scan form takes, among ordinary
+      ones."""
+    from compress_tpu_torch.ops.zparse import MAXSEQ
+
+    seed = REP_CLASSES.index(kind) + 31
+    rng = np.random.default_rng(seed)
+    R = {"alphabets": 12, "n_seqs_edges": 8, "serial_route": 7}[kind]
+    of = np.zeros((R, MAXSEQ), np.int32)
+    ll = np.zeros((R, MAXSEQ), np.int32)
+    for b in range(R):
+        alpha = rng.choice(np.arange(1, 12), rng.integers(1, 8), replace=False)
+        of[b] = rng.choice(alpha, MAXSEQ)
+        zero = rng.random(MAXSEQ // 8 + 1) < rng.uniform(0, 0.9)
+        ll[b] = np.where(np.repeat(zero, 8)[:MAXSEQ], 0,
+                         rng.integers(1, 50, MAXSEQ))
+    if kind == "alphabets":
+        n = rng.integers(0, 600, R)
+        n[0] = MAXSEQ
+    elif kind == "n_seqs_edges":
+        n = np.array([0, 1, 2, 3, 4, MAXSEQ, MAXSEQ + 5, -3])
+    else:
+        n = np.array([300, 300, 2500, 300, 300, 40, 700])
+        of[0, 120] = 0
+        of[1, 7] = -5
+        of[2, 2100] = 0
+        of[3, 50:60] = _I32_MIN
+        of[4, 10:200:3] = _I32_MAX
+        of[4, 11:200:3] = _I32_MAX - 1
+        of[5, :40] = _I32_MAX - np.arange(40) % 3
+        of[6, 100:110] = _I32_MAX - 3
+    return of, ll, n.astype(np.int32)
+
+
+FSE_CLASSES = ("random_edges", "doped_rle", "permutation")
+
+
+def fse_inputs(kind: str):
+    """(pk_ll, pk_of, pk_ml (R, MAXSEQ) int32, n_seqs (R,) int32, tables
+    (3, 128) int32): FSE chain inputs, deltas packed as
+    (dnb + 128) << 9 | (dfs + 128):
+
+    - ``random_edges``: random deltas and tables, n_seqs 0, 1, 2, 3, 4,
+      MAXSEQ, past it (every step live, from state 0) and negative;
+    - ``doped_rle``: the offset stream doped as an RLE stream (dnb = dfs =
+      -128, table all 128: state 0, no bits), the others random, on
+      blocks of 5000 and 300 sequences;
+    - ``permutation``: every stream maps the 128 states by one random
+      permutation at every step (dnb = 0, dfs = -128: no bits, the lookup
+      at the state itself), so no two trajectories ever meet, on blocks
+      of MAXSEQ and 3000 sequences."""
+    from compress_tpu_torch.ops.zparse import MAXSEQ
+
+    rng = np.random.default_rng(FSE_CLASSES.index(kind) + 53)
+
+    def pack(dnb, dfs):
+        return (((dnb + 128) << 9) | (dfs + 128)).astype(np.int32)
+
+    if kind == "permutation":
+        n = np.array([MAXSEQ, 3000])
+        tables = np.stack([rng.permutation(128) + 128 for _ in range(3)])
+        pk = np.full((len(n), MAXSEQ), pack(np.int64(0), np.int64(-128)))
+        return pk, pk.copy(), pk.copy(), n.astype(np.int32), \
+            tables.astype(np.int32)
+    n = (np.array([0, 1, 2, 3, 4, MAXSEQ, MAXSEQ + 7, -1])
+         if kind == "random_edges" else np.array([5000, 300]))
+    pks = [pack(rng.integers(-128, 8 << 16, (len(n), MAXSEQ)),
+                rng.integers(-128, 128, (len(n), MAXSEQ))) for _ in range(3)]
+    tables = rng.integers(0, 256, (3, 128))
+    if kind == "doped_rle":
+        pks[1][:] = pack(np.int64(-128), np.int64(-128))
+        tables[1] = 128
+    return (*pks, n.astype(np.int32), tables.astype(np.int32))

@@ -33,6 +33,19 @@
 // the reference's sums.  Output halves above 128 KiB (M = 4) stay in
 // device memory: the kernel zeroes `out` and works in it (a CTA's global
 // writes are visible to its own threads after __syncthreads).
+//
+// The sum kernel (`ct_exec_sum`) computes the reference's sums for every
+// plan, those the store cannot take too: a piece that writes the literal
+// half, a byte written twice, a piece that reads a byte its own round
+// writes.
+// Its compact plan keeps every piece whose dst lies in the arena.  One
+// CTA per block keeps an int32 arena and an int32 sum buffer in device
+// memory (the caller's scratch); in each round the threads first gather
+// every piece's bytes as the arena stands and add them into the sum
+// buffer (atomics), then, after a barrier, move each sum into the arena
+// (the first exchange of a byte takes its whole sum).  `execute_rounds`
+// sends it every padded plan; no path of the decoders calls that, so it
+// is simple, not fast.
 #include "ct_common.cuh"
 
 namespace {
@@ -110,6 +123,56 @@ __global__ void __launch_bounds__(EXEC_THREADS, 2)
   }
 }
 
+constexpr int SUM_THREADS = 256;
+
+__global__ void __launch_bounds__(SUM_THREADS)
+    exec_sum_kernel(const uint8_t* __restrict__ lit,
+                    const int2* __restrict__ pieces,
+                    const int32_t* __restrict__ rstart, int nr, int P, int LR,
+                    int* __restrict__ arena, int* __restrict__ sums,
+                    uint8_t* __restrict__ out) {
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int half = LR * 128, rows = 2 * LR;
+  int* A = arena + (size_t)b * 2 * half;
+  int* S = sums + (size_t)b * 2 * half;
+  const uint8_t* l = lit + (size_t)b * half;
+  for (int i = tid; i < half; i += SUM_THREADS) {
+    A[i] = l[i];
+    A[half + i] = 0;
+    S[i] = 0;
+    S[half + i] = 0;
+  }
+  __syncthreads();
+  const int32_t* rs = rstart + (size_t)b * (nr + 1);
+  for (int r = 0; r < nr; ++r) {
+    const int lo = min(max(rs[r], 0), P);
+    const int hi = min(max(rs[r + 1], lo), P);
+    for (int pass = 0; pass < 2; ++pass) {
+      for (int p = lo + tid; p < hi; p += SUM_THREADS) {
+        const int2 w = pieces[p];
+        const unsigned u = (unsigned)w.y;
+        const int d = (int)(u & 0xFFFFFFu);
+        const int n = min((int)((u >> 24) & 127u) + 1, 128 - (d & 127));
+        if (d >= 2 * half) continue;
+        for (int j = 0; j < n; ++j) {
+          if (pass == 0) {
+            const long long a = (long long)w.x + j;
+            const int ar = (int)min(max(a >> 7, 0LL), (long long)rows - 1);
+            atomicAdd(S + d + j, A[ar * 128 + (int)(a & 127)]);
+          } else {
+            const int v = atomicExch(S + d + j, 0);
+            if (v) atomicAdd(A + d + j, v);
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  uint8_t* o = out + (size_t)b * half;
+  for (int i = tid; i < half; i += SUM_THREADS)
+    o[i] = (uint8_t)(A[half + i] & 255);
+}
+
 }  // namespace
 
 extern "C" {
@@ -137,6 +200,23 @@ int ct_exec_pieces(const uint8_t* lit, const int32_t* pieces,
     exec_pieces_kernel<false><<<B, EXEC_THREADS, 0, stream>>>(
         lit, pc, rstart, nr, P, LR, out);
   }
+  return (int)cudaGetLastError();
+}
+
+// As ct_exec_pieces, with the reference's sums: pieces may write anywhere
+// in the arena (dst < 2 * LR * 128); arena, sums: (B, 2 * LR * 128) i32
+// scratch.
+int ct_exec_sum(const uint8_t* lit, const int32_t* pieces,
+                const int32_t* rstart, int nr, int P, int B, int LR,
+                int32_t* arena, int32_t* sums, uint8_t* out,
+                cudaStream_t stream) {
+  if (B <= 0) return 0;
+  if (LR <= 0 || LR % 512 || (long long)LR * 256 > (1 << 24) || nr < 0 ||
+      P < 0)
+    return (int)cudaErrorInvalidValue;
+  exec_sum_kernel<<<B, SUM_THREADS, 0, stream>>>(
+      lit, reinterpret_cast<const int2*>(pieces), rstart, nr, P, LR, arena,
+      sums, out);
   return (int)cudaGetLastError();
 }
 

@@ -49,7 +49,8 @@ __global__ void __launch_bounds__(EMIT_THREADS, 2)
     emit_kernel(const uint8_t* __restrict__ blocks,
                 const int32_t* __restrict__ offs,
                 const int32_t* __restrict__ lens, uint8_t* __restrict__ out0,
-                uint8_t* __restrict__ out1, int32_t* __restrict__ rowlens) {
+                uint8_t* __restrict__ out1, int32_t* __restrict__ rowlens,
+                int rcap) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const ParseSmem s = parse_smem(smem, warp);
@@ -63,7 +64,7 @@ __global__ void __launch_bounds__(EMIT_THREADS, 2)
   const uint8_t* blkg = blocks + b * BS;
   const int32_t* offb = offs + b * BS;
 
-  parse_tiles<false, CAP>(s, blkg, offb, lens + b * BS);
+  parse_tiles<false, CAP>(s, blkg, offb, lens + b * BS, rcap);
   if (warp == 0) merge_tiles(s, lane);
   __syncthreads();
 
@@ -165,13 +166,13 @@ __global__ void __launch_bounds__(EMIT_THREADS, 2)
 template <int CAP>
 int launch_emit(const uint8_t* blocks, const int32_t* off, const int32_t* len,
                 uint8_t* out0, uint8_t* out1, int32_t* rowlens, int nb,
-                cudaStream_t stream) {
+                int cap, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       emit_kernel<CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)EMIT_SMEM);
   if (e != cudaSuccess) return (int)e;
   emit_kernel<CAP><<<nb, EMIT_THREADS, EMIT_SMEM, stream>>>(
-      blocks, off, len, out0, out1, rowlens);
+      blocks, off, len, out0, out1, rowlens, cap);
   return (int)cudaGetLastError();
 }
 
@@ -180,17 +181,23 @@ int launch_emit(const uint8_t* blocks, const int32_t* off, const int32_t* len,
 extern "C" {
 
 // blocks: (nb, BS) u8, 16-byte aligned rows; off, len: (nb, BS) i32 from
-// the finder, cap 10 or 6 (slim); out0, out1: (nb, 512, 128) u8; rowlens:
-// (nb, 4, 128) i32.
+// the finder; cap in [1, BS] (the finder's 10 and 6 (slim) have their own
+// instantiations, any other takes the run-time one; a cap >= BS never
+// continues, so the caller cuts larger caps to BS); out0, out1: (nb, 512,
+// 128) u8; rowlens: (nb, 4, 128) i32.
 int ct_emit_blocks(const uint8_t* blocks, const int32_t* off,
                    const int32_t* len, uint8_t* out0, uint8_t* out1,
                    int32_t* rowlens, int nb, int cap, cudaStream_t stream) {
   if (nb <= 0) return 0;
   if (cap == 10)
-    return launch_emit<10>(blocks, off, len, out0, out1, rowlens, nb, stream);
+    return launch_emit<10>(blocks, off, len, out0, out1, rowlens, nb, cap,
+                           stream);
   if (cap == 6)
-    return launch_emit<6>(blocks, off, len, out0, out1, rowlens, nb, stream);
-  return (int)cudaErrorInvalidValue;
+    return launch_emit<6>(blocks, off, len, out0, out1, rowlens, nb, cap,
+                          stream);
+  if (cap < 1 || cap > BS) return (int)cudaErrorInvalidValue;
+  return launch_emit<0>(blocks, off, len, out0, out1, rowlens, nb, cap,
+                        stream);
 }
 
 // CTAs of the kernel at cap 10 resident on one SM (< 0: an error).

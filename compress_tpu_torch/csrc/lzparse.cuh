@@ -21,12 +21,14 @@
 // stay in device memory.
 //   load  each lane loads its 16 consecutive positions of (off, L) and
 //         bytes with 16-byte loads, all in flight together; the positions
-//         cap ahead come from the next lane by shuffles (cap is a template
-//         parameter, 6 or 10: the finder's two caps);
+//         cap ahead come from the next lane by shuffles (cap a template
+//         parameter, 6 or 10: the finder's two caps, on the main paths);
+//         CAP = 0 takes any positive cap at run time instead, loading the
+//         positions cap ahead from device memory where a chain can start;
 //   A0    the chain links of every position come from one backward pass
 //         per residue class mod cap over the tile's continuation bits (a
-//         lane per class), not a walk per position; a tile without a
-//         continuation bit skips it;
+//         lane per class, 32 classes at a time at a run-time cap), not a
+//         walk per position; a tile without a continuation bit skips it;
 //   A     equal bytes are compared 4 at a time (__vcmpeq4 on funnel-shifted
 //         words); run lengths come from find-first-zero on 16-position
 //         masks and, past a lane's end, the next lane with a mismatch (a
@@ -132,12 +134,20 @@ __device__ __forceinline__ int op_at(const ParseSmem& s, int g) {
 }
 
 // Stages A0-B for block b, a warp per tile; ends with a __syncthreads.
+// CAP = 0: the cap is rcap, in [1, BS] (a cap >= BS never continues).
 template <bool ZSTD_GATE, int CAP>
 __device__ __forceinline__ void parse_tiles(const ParseSmem& s,
                                             const uint8_t* __restrict__ blkg,
                                             const int32_t* __restrict__ offb,
-                                            const int32_t* __restrict__ lenb) {
-  static_assert(CAP >= 1 && CAP <= 16, "the next lane holds the cap ahead");
+                                            const int32_t* __restrict__ lenb,
+                                            int rcap = CAP) {
+  static_assert(CAP >= 0 && CAP <= 16, "the next lane holds the cap ahead");
+  const int cap = CAP ? CAP : rcap;
+  // chain runs along a residue class: 8 bits hold them at the finder's
+  // caps; a run-time cap down to 1 needs 16, in the tile's L_t slots,
+  // which are written only after the runs are read
+  uint8_t* const run8 = s.wrun;
+  uint16_t* const run16 = s.wlt;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int rt0 = lane * 16;
   for (int t = warp; t < NT; t += PARSE_WARPS) {
@@ -168,38 +178,60 @@ __device__ __forceinline__ void parse_tiles(const ParseSmem& s,
       by[0] = q.x, by[1] = q.y, by[2] = q.z, by[3] = q.w;
     }
     by[4] = bw.x, by[5] = bw.y, by[6] = bw.z, by[7] = bw.w;
-    // (off, L) cap positions ahead: the next lane's first, or past the tile
-    int offn[CAP], Ln[CAP];
-#pragma unroll
-    for (int k = 0; k < CAP; ++k) {
-      offn[k] = __shfl_down_sync(FULL, off[k], 1);
-      Ln[k] = __shfl_down_sync(FULL, L[k], 1);
-      if (lane == 31) {
-        const int g = T0 + TILE + k;
-        offn[k] = g < BS ? __ldg(offb + g) : 0;
-        Ln[k] = g < BS ? __ldg(lenb + g) : 0;
-      }
-    }
-
     // ---- A0: continuation bits, then one backward pass per residue ----
     uint32_t cm = 0;
+    if constexpr (CAP > 0) {
+      // (off, L) cap positions ahead: the next lane's first, or past the
+      // tile
+      int offn[CAP > 0 ? CAP : 1], Ln[CAP > 0 ? CAP : 1];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int on = j + CAP < 16 ? off[min(j + CAP, 15)]
-                                  : offn[max(j + CAP - 16, 0)];
-      const int ln = j + CAP < 16 ? L[min(j + CAP, 15)]
-                                  : Ln[max(j + CAP - 16, 0)];
-      if (L[j] == CAP && off[j] > 0 && on == off[j] && ln >= 4) cm |= 1u << j;
+      for (int k = 0; k < CAP; ++k) {
+        offn[k] = __shfl_down_sync(FULL, off[k], 1);
+        Ln[k] = __shfl_down_sync(FULL, L[k], 1);
+        if (lane == 31) {
+          const int g = T0 + TILE + k;
+          offn[k] = g < BS ? __ldg(offb + g) : 0;
+          Ln[k] = g < BS ? __ldg(lenb + g) : 0;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int on = j + CAP < 16 ? off[min(j + CAP, 15)]
+                                    : offn[max(j + CAP - 16, 0)];
+        const int ln = j + CAP < 16 ? L[min(j + CAP, 15)]
+                                    : Ln[max(j + CAP - 16, 0)];
+        if (L[j] == CAP && off[j] > 0 && on == off[j] && ln >= 4)
+          cm |= 1u << j;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int g = g0 + j;
+        if (L[j] == cap && off[j] > 0 && cap < BS - g &&
+            __ldg(offb + g + cap) == off[j] && __ldg(lenb + g + cap) >= 4)
+          cm |= 1u << j;
+      }
     }
     const bool chains = __any_sync(FULL, cm != 0);
     if (chains) {
       s.contm[lane] = (uint16_t)cm;
       __syncwarp();
-      if (lane < CAP) {
-        int run = 0;
-        for (int q = lane + (TILE - 1 - lane) / CAP * CAP; q >= 0; q -= CAP) {
-          run = ((s.contm[q >> 4] >> (q & 15)) & 1) ? run + 1 : 0;
-          s.wrun[q] = (uint8_t)run;
+      if constexpr (CAP > 0) {
+        if (lane < CAP) {
+          int run = 0;
+          for (int q = lane + (TILE - 1 - lane) / CAP * CAP; q >= 0;
+               q -= CAP) {
+            run = ((s.contm[q >> 4] >> (q & 15)) & 1) ? run + 1 : 0;
+            run8[q] = (uint8_t)run;
+          }
+        }
+      } else {
+        for (int c = lane; c < min(cap, TILE); c += 32) {
+          int run = 0;
+          for (int q = c + (TILE - 1 - c) / cap * cap; q >= 0; q -= cap) {
+            run = ((s.contm[q >> 4] >> (q & 15)) & 1) ? run + 1 : 0;
+            run16[q] = (uint16_t)run;
+          }
         }
       }
       __syncwarp();
@@ -213,8 +245,9 @@ __device__ __forceinline__ void parse_tiles(const ParseSmem& s,
       if ((cm >> j) & 1u) {
         // the links of the chain from r_t, cut at the tile end, which is
         // all min(L, TILE - r_t) below can see (a chain cut there already
-        // reaches past it), and the gate too (L >= CAP + 4 >= 10)
-        Lg = CAP * s.wrun[r_t] + 4;
+        // reaches past it, and past the gate's 8 wherever r_t <= 508; past
+        // that no op fits the tile)
+        Lg = cap * (CAP ? (int)run8[r_t] : (int)run16[r_t]) + 4;
       }
       Lu[j] = Lg;
       Lc[j] = min(Lg, TILE - r_t);

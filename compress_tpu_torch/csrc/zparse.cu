@@ -40,13 +40,16 @@ constexpr int MAXSEQ = 96 * LANES;  // 12288 sequence slots
 constexpr int ZCAP = 10;            // the finder's cap (L_CAP)
 constexpr size_t ZPARSE_SMEM = PARSE_SMEM + 16;  // + n_seqs, lit_cnt
 
+// CAP: 10, the finder's cap on the main path, or 0, any cap (rcap) at run
+// time
+template <int CAP>
 __global__ void __launch_bounds__(PARSE_THREADS, 2)
     zparse_kernel(const uint8_t* __restrict__ blocks,
                   const int32_t* __restrict__ offs,
                   const int32_t* __restrict__ lens, int32_t* __restrict__ ll_out,
                   int32_t* __restrict__ ml_out, int32_t* __restrict__ of_out,
                   uint8_t* __restrict__ lit_out, int32_t* __restrict__ n_seqs,
-                  int32_t* __restrict__ lit_cnt) {
+                  int32_t* __restrict__ lit_cnt, int rcap) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const ParseSmem s = parse_smem(smem, warp);
@@ -56,7 +59,7 @@ __global__ void __launch_bounds__(PARSE_THREADS, 2)
   const uint8_t* blkg = blocks + b * BS;
   const int32_t* offb = offs + b * BS;
 
-  parse_tiles<true, ZCAP>(s, blkg, offb, lens + b * BS);
+  parse_tiles<true, CAP>(s, blkg, offb, lens + b * BS, rcap);
   if (warp == 0) {
     merge_tiles(s, lane);
   } else if (warp == 1) {
@@ -174,37 +177,51 @@ __global__ void __launch_bounds__(PARSE_THREADS, 2)
   }
 }
 
+template <int CAP>
+int launch_parse(const uint8_t* blocks, const int32_t* off,
+                 const int32_t* len, int32_t* ll, int32_t* ml, int32_t* of,
+                 uint8_t* lits, int32_t* n_seqs, int32_t* lit_cnt, int nb,
+                 int cap, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      zparse_kernel<CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)ZPARSE_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  zparse_kernel<CAP><<<nb, PARSE_THREADS, ZPARSE_SMEM, stream>>>(
+      blocks, off, len, ll, ml, of, lits, n_seqs, lit_cnt, cap);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // blocks: (nb, BS) u8; off, len: (nb, BS) i32 (finder, merged with the
 // long-range channel); ll, ml, of: (nb, MAXSEQ) i32; lits: (nb, BS) u8;
-// n_seqs, lit_cnt: (nb,) i32; cap: the finder's cap, 10.
+// n_seqs, lit_cnt: (nb,) i32; cap in [1, BS]: the finder's cap 10 has its
+// own instantiation, any other takes the run-time one (a cap >= BS never
+// continues, so the caller cuts larger caps to BS).
 int ct_parse_blocks(const uint8_t* blocks, const int32_t* off,
                     const int32_t* len, int32_t* ll, int32_t* ml, int32_t* of,
                     uint8_t* lits, int32_t* n_seqs, int32_t* lit_cnt, int nb,
                     int cap, cudaStream_t stream) {
   if (nb <= 0) return 0;
-  if (cap != ZCAP) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      zparse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)ZPARSE_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  zparse_kernel<<<nb, PARSE_THREADS, ZPARSE_SMEM, stream>>>(
-      blocks, off, len, ll, ml, of, lits, n_seqs, lit_cnt);
-  return (int)cudaGetLastError();
+  if (cap == ZCAP)
+    return launch_parse<ZCAP>(blocks, off, len, ll, ml, of, lits, n_seqs,
+                              lit_cnt, nb, cap, stream);
+  if (cap < 1 || cap > BS) return (int)cudaErrorInvalidValue;
+  return launch_parse<0>(blocks, off, len, ll, ml, of, lits, n_seqs, lit_cnt,
+                         nb, cap, stream);
 }
 
 // CTAs of the kernel resident on one SM (< 0: an error).
 int ct_parse_occupancy() {
   int n = 0;
   cudaError_t e = cudaFuncSetAttribute(
-      zparse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      zparse_kernel<ZCAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)ZPARSE_SMEM);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, zparse_kernel, PARSE_THREADS, ZPARSE_SMEM);
+        &n, zparse_kernel<ZCAP>, PARSE_THREADS, ZPARSE_SMEM);
   return e == cudaSuccess ? n : -(int)e;
 }
 

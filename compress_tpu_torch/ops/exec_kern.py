@@ -14,8 +14,8 @@ outside the arena writes nothing.  The result is the output rows
 
 Two plan layouts:
 
-- the **compact plan** (``execute.pack_pieces``, ``compact_plan``), which
-  the decode paths send to the card: pieces (P, 2) int32, word 0 the
+- the **compact plan** (``execute.pack_pieces``), which the decode paths
+  send to the card: pieces (P, 2) int32, word 0 the
   source byte and word 1 ``dst | (n - 1) << 24`` (n in 1..128), block-major
   and each block's pieces sorted by round; rstart (B, nr + 1) int32.
   Round r of block b runs pieces [lo, hi), lo = clip(rstart[b, r], 0, P),
@@ -27,15 +27,19 @@ Two plan layouts:
   runs it.
 
 The reference sums each round's masked strips into the arena.  Plans
-from the planner cover every output byte exactly once and a round-r
-piece reads only bytes of earlier rounds, so the sum equals a plain
-store: the CUDA kernel (``csrc/exec.cu``) stores, with a CTA-wide barrier
-between rounds; the plain versions keep the reference's sum.
+from the planner write every output byte at most once, nothing of the
+literal half, and a round-r piece reads only bytes of earlier rounds, so
+the sum equals a plain store: the store kernel (``csrc/exec.cu``,
+``ct_exec_pieces``) stores, with a CTA-wide barrier between rounds.  The
+plain versions keep the reference's sum.
 
-Both entry points launch that one kernel on CUDA tensors
-(``execute_rounds`` compacts its padded plan on the card first, and
-raises where a live slot writes the literal half, which the kernel does
-not take) and run their plain versions on CPU tensors.
+``execute_pieces`` takes only such plans (the decode paths' planner makes
+no other) and launches the store kernel on CUDA tensors.
+``execute_rounds``, on no path of the decoders, takes every padded plan
+the reference takes: on CUDA tensors it compacts the plan on the card
+and launches the sum kernel (``ct_exec_sum``: an int32 arena in device
+memory, each round's bytes gathered before any lands).  On CPU tensors
+both run their plain versions.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ import torch
 from compress_tpu_torch import _cuda
 
 __all__ = ["execute_pieces", "execute_pieces_ref", "execute_rounds",
-           "execute_rounds_ref", "compact_pieces", "compact_plan"]
+           "execute_rounds_ref", "compact_pieces"]
 
 
 def _round_bounds(caps, total: int) -> list[int]:
@@ -176,21 +180,26 @@ def execute_pieces_ref(lit_rows: torch.Tensor, pieces: torch.Tensor,
 
 def compact_pieces(blk: torch.Tensor, rnd: torch.Tensor, src: torch.Tensor,
                    dst: torch.Tensor, length: torch.Tensor, B: int, nr: int,
-                   rows: int):
+                   rows: int, whole_arena: bool = False):
     """The compact plan of flattened pieces, on their device.
 
     blk, rnd, src, dst, length: (N,) int64 tensors, a piece's block in
     [0, B), round in [0, nr), source and destination arena bytes and
     length, for an arena of ``rows`` literal rows.  Returns (pieces (P, 2)
     int32, rstart (B, nr + 1) int32): the pieces that write something,
-    ordered by block and round, stably.  Raises ValueError on a piece that
-    writes the literal half (the compact plan has no room for it; the
-    check reads a flag back from the device)."""
+    ordered by block and round, stably.  The store kernel's plan
+    (``whole_arena`` False) keeps the pieces that write the output half
+    and raises ValueError on a piece that writes the literal half (the
+    check reads a flag back from the device); the sum kernel's keeps every
+    piece that writes the arena."""
     n = torch.minimum(length, 128 - (dst & 127))
     row = dst >> 7
-    if bool(((n > 0) & (row >= 0) & (row < rows)).any()):
-        raise ValueError("a piece writes the literal half of the arena")
-    live = (n > 0) & (row >= rows) & (row < 2 * rows)
+    if whole_arena:
+        live = (n > 0) & (row >= 0) & (row < 2 * rows)
+    else:
+        if bool(((n > 0) & (row >= 0) & (row < rows)).any()):
+            raise ValueError("a piece writes the literal half of the arena")
+        live = (n > 0) & (row >= rows) & (row < 2 * rows)
     key = (blk * nr + rnd)[live]
     order = torch.sort(key, stable=True).indices
     pieces = torch.stack([src, dst | (n - 1) << 24], dim=1)[live][order]
@@ -202,12 +211,11 @@ def compact_pieces(blk: torch.Tensor, rnd: torch.Tensor, src: torch.Tensor,
     return pieces.to(torch.int32).contiguous(), flat[at].to(torch.int32)
 
 
-def compact_plan(src: torch.Tensor, dst: torch.Tensor, length: torch.Tensor,
-                 round_caps, rows: int):
-    """``compact_pieces`` of a padded plan's slots, on the padded plan's
-    device: equal to ``execute.pack_pieces`` of the plans ``pack_plans``
-    packed, so ``execute_pieces`` of the result equals ``execute_rounds``
-    of the padded plan.  Raises ValueError on a negative cap too."""
+def _slots(src: torch.Tensor, dst: torch.Tensor, length: torch.Tensor,
+           round_caps):
+    """A padded plan's slots flattened block-major: (blk, rnd, src, dst,
+    length) int64 and the number of rounds.  Raises ValueError on a
+    negative cap."""
     total, B = src.shape
     bounds = _round_bounds(round_caps, total)
     counts = np.diff(bounds)
@@ -219,12 +227,12 @@ def compact_plan(src: torch.Tensor, dst: torch.Tensor, length: torch.Tensor,
     blk = torch.arange(B, device=dev).repeat_interleave(end)
     s, d, ln = (t[:end].T.reshape(-1).to(torch.int64)
                 for t in (src, dst, length))
-    return compact_pieces(blk, rnd.repeat(B), s, d, ln, B, len(counts), rows)
+    return (blk, rnd.repeat(B), s, d, ln), len(counts)
 
 
-def _launch(lit_rows, pieces, rstart) -> torch.Tensor:
-    """Launch ``csrc/exec.cu`` on checked CUDA inputs; returns the output
-    rows."""
+def _launch(lit_rows, pieces, rstart, sums: bool = False) -> torch.Tensor:
+    """Launch ``csrc/exec.cu``'s store kernel (or, with ``sums``, its sum
+    kernel) on checked CUDA inputs; returns the output rows."""
     B, LR = lit_rows.shape[0], lit_rows.shape[1]
     P, nr = pieces.shape[0], rstart.shape[1] - 1
     _cuda.require_cuda_input(lit_rows, "lit_rows", torch.uint8, (B, LR, 128))
@@ -235,10 +243,19 @@ def _launch(lit_rows, pieces, rstart) -> torch.Tensor:
     out = torch.empty((B, LR, 128), dtype=torch.uint8, device=dev)
     if B == 0:
         return out
+    lib = _cuda.library()
     with torch.cuda.device(dev):
-        rc = _cuda.library().ct_exec_pieces(
-            lit_rows.data_ptr(), pieces.data_ptr(), rstart.data_ptr(), nr, P,
-            B, LR, out.data_ptr(), _cuda.stream(dev))
+        if sums:
+            arena = torch.empty((2, B, 2 * LR * 128), dtype=torch.int32,
+                                device=dev)
+            rc = lib.ct_exec_sum(
+                lit_rows.data_ptr(), pieces.data_ptr(), rstart.data_ptr(), nr,
+                P, B, LR, arena[0].data_ptr(), arena[1].data_ptr(),
+                out.data_ptr(), _cuda.stream(dev))
+        else:
+            rc = lib.ct_exec_pieces(
+                lit_rows.data_ptr(), pieces.data_ptr(), rstart.data_ptr(), nr,
+                P, B, LR, out.data_ptr(), _cuda.stream(dev))
     _cuda.check(rc, "execute")
     return out
 
@@ -247,7 +264,12 @@ def execute_pieces(lit_rows: torch.Tensor, pieces: torch.Tensor,
                    rstart: torch.Tensor) -> torch.Tensor:
     """Run a compact plan: lit_rows (B, 512 * M, 128) uint8, pieces (P, 2)
     and rstart (B, nr + 1) int32 per ``execute.pack_pieces``.  Returns
-    (B, 512 * M, 128) uint8 output rows."""
+    (B, 512 * M, 128) uint8 output rows.
+
+    It takes the plans the decode paths' planner makes: each output byte
+    written at most once, and a round reads only bytes that earlier rounds
+    wrote (or none); on them the store kernel equals
+    ``execute_pieces_ref``, the reference's sum."""
     if lit_rows.device.type == "cpu":
         return execute_pieces_ref(lit_rows, pieces, rstart)
     _check_pieces(lit_rows, pieces, rstart)
@@ -262,15 +284,17 @@ def execute_rounds(lit_rows: torch.Tensor, src: torch.Tensor,
     """Run a padded plan: lit_rows (B, 512 * M, 128) uint8; src, dst,
     length (total, B) int32, round-major per ``pack_plans``; round_caps
     the per-round slot counts.  Returns (B, 512 * M, 128) uint8 output
-    rows."""
+    rows.  Every plan ``execute_rounds_ref`` takes, through the sum
+    kernel."""
     if lit_rows.device.type == "cpu":
         return execute_rounds_ref(lit_rows, src, dst, length, round_caps)
     _check_inputs(lit_rows, src, dst, length)
-    B = lit_rows.shape[0]
+    B, rows = lit_rows.shape[0], lit_rows.shape[1]
     for name, t in (("src", src), ("dst", dst), ("length", length)):
         _cuda.require_cuda_input(t, name, torch.int32, (src.shape[0], B))
-    out = _launch(lit_rows, *compact_plan(src, dst, length, round_caps,
-                                          lit_rows.shape[1]))
+    flat, nr = _slots(src, dst, length, round_caps)
+    out = _launch(lit_rows, *compact_pieces(*flat, B, nr, rows,
+                                            whole_arena=True), sums=True)
     execute_rounds.launches += 1
     return out
 

@@ -31,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from compress_tpu_torch.ops.exec_kern import (compact_pieces, compact_plan,
+from compress_tpu_torch.ops.exec_kern import (compact_pieces,
                                               execute_pieces,
                                               execute_pieces_ref,
                                               execute_rounds,
@@ -43,7 +43,7 @@ HIST_BASE = ARENA_ROWS * 128  # history address space (multi-block frames)
 BLOCK = 1 << 16
 
 __all__ = ["ARENA_ROWS", "OUT_BASE", "HIST_BASE", "BLOCK", "plan_ops",
-           "plan_block_ops", "pack_plans", "pack_pieces", "compact_plan",
+           "plan_block_ops", "pack_plans", "pack_pieces",
            "execute_pieces", "execute_pieces_ref", "execute_rounds",
            "execute_rounds_ref"]
 
@@ -234,7 +234,7 @@ def pack_pieces(plans, rows: int = 512):
     piece that writes nothing (n <= 0, or dst outside the arena) is left
     out; a piece that writes the literal half raises ValueError, as does
     a round outside [0, nr).  ``compact_pieces`` does the packing, as it
-    does for ``compact_plan`` of a padded plan."""
+    does for a padded plan's slots (``exec_kern._slots``)."""
     if rows <= 0 or rows * 256 > 1 << 24:
         raise ValueError(f"rows: expected 1..65536, got {rows}")
     B = len(plans)

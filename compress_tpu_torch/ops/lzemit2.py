@@ -17,9 +17,11 @@ From the finder's per-position (off, L), per 64 KiB block:
       up to 64 bytes plus a repeat tag for the rest) laid out in 256 slots
       per 128-position row, slots past the row's length 0.
 
-``emit_blocks`` launches the CUDA kernel (``csrc/lzemit.cu``) on CUDA
-tensors and runs ``emit_blocks_ref``, the plain PyTorch version, on CPU
-tensors.
+``emit_blocks`` launches the CUDA kernel (``csrc/lzemit.cu``: the
+finder's caps 10 and 6 have their own instantiations, any other positive
+cap the run-time one, whose launches ``emit_blocks.any_cap_launches``
+counts) on CUDA tensors and runs ``emit_blocks_ref``, the plain PyTorch
+version, on CPU tensors.
 """
 
 from __future__ import annotations
@@ -227,9 +229,9 @@ def emit_blocks(blocks_u8: torch.Tensor, off: torch.Tensor, L: torch.Tensor,
 
     b0, b1: (NB, 512, 128) u8, row-local slots 0-127 and 128-255;
     rowlens: (NB, 4, 128) int32, row r's length at [r >> 7, r & 127].
-    A CUDA tensor goes through the CUDA kernel (the finder's caps 10 and
-    6 only; an input that is not 16-byte aligned is copied first), a CPU
-    tensor through the plain version (any positive cap)."""
+    Any positive cap.  A CUDA tensor goes through the CUDA kernel (an
+    input that is not 16-byte aligned is copied first), a CPU tensor
+    through the plain version."""
     if blocks_u8.dim() != 2 or blocks_u8.shape[1] != BS:
         raise ValueError(f"expected (NB, {BS}) blocks, got "
                          f"{tuple(blocks_u8.shape)}")
@@ -241,9 +243,6 @@ def emit_blocks(blocks_u8: torch.Tensor, off: torch.Tensor, L: torch.Tensor,
         raise ValueError(f"cap must be positive, got {cap}")
     if blocks_u8.device.type == "cpu":
         return emit_blocks_ref(blocks_u8, off, L, cap)
-    if cap not in (10, 6):
-        raise ValueError(f"the CUDA kernel takes the finder's caps 10 and 6, "
-                         f"got {cap}")
     nb = blocks_u8.shape[0]
     _cuda.require_cuda_input(blocks_u8, "blocks", torch.uint8, (nb, BS))
     _cuda.require_cuda_input(off, "off", torch.int32, (nb, BS))
@@ -257,11 +256,13 @@ def emit_blocks(blocks_u8: torch.Tensor, off: torch.Tensor, L: torch.Tensor,
     with torch.cuda.device(dev):
         rc = lib.ct_emit_blocks(
             blocks_u8.data_ptr(), off.data_ptr(), L.data_ptr(),
-            b0.data_ptr(), b1.data_ptr(), rowlens.data_ptr(), nb, cap,
-            _cuda.stream(dev))
+            b0.data_ptr(), b1.data_ptr(), rowlens.data_ptr(), nb,
+            min(cap, BS), _cuda.stream(dev))  # a cap >= BS never continues
     _cuda.check(rc, "emit_blocks")
     emit_blocks.launches += 1
+    emit_blocks.any_cap_launches += cap not in (10, 6)
     return b0, b1, rowlens
 
 
 emit_blocks.launches = 0
+emit_blocks.any_cap_launches = 0

@@ -11,9 +11,12 @@ channel by the caller, per 64 KiB block:
   E.   (ll, ml, of) in position order in MAXSEQ slots, 0 past n_seqs;
   F.   the literal bytes in position order, 0 past lit_cnt.
 
-``parse_blocks`` launches the CUDA kernel (``csrc/zparse.cu``) on CUDA
-tensors and runs ``parse_blocks_ref``, the plain PyTorch version, on CPU
-tensors.
+The chain extension runs at the finder's suffix cap, 10 by default; any
+positive cap is taken, as by the reference.  ``parse_blocks`` launches
+the CUDA kernel (``csrc/zparse.cu``: cap 10 has its own instantiation,
+any other cap the run-time one, whose launches
+``parse_blocks.any_cap_launches`` counts) on CUDA tensors and runs
+``parse_blocks_ref``, the plain PyTorch version, on CPU tensors.
 """
 
 from __future__ import annotations
@@ -32,12 +35,18 @@ MAXSEQ = SEQ_ROWS * 128
 __all__ = ["parse_blocks", "parse_blocks_ref", "MAXSEQ"]
 
 
+def _check_cap(cap: int) -> None:
+    if cap < 1:
+        raise ValueError(f"cap must be positive, got {cap}")
+
+
 def parse_blocks_ref(blocks_u8: torch.Tensor, off: torch.Tensor,
-                     L: torch.Tensor):
+                     L: torch.Tensor, cap: int = L_CAP):
     """Plain PyTorch parse + extract: the stages in order."""
+    _check_cap(cap)
     i32 = torch.int32
     blk = blocks_u8.to(i32)
-    take, lit, L2, off = parse_stages(blk, off.to(i32), L.to(i32), L_CAP,
+    take, lit, L2, off = parse_stages(blk, off.to(i32), L.to(i32), cap,
                                       zstd_gate=True)
     # ---- D. literal run ending at each position, by doubling ------------
     e = lit.to(i32)
@@ -59,9 +68,10 @@ def parse_blocks_ref(blocks_u8: torch.Tensor, off: torch.Tensor,
             lit_cnt)
 
 
-def parse_blocks(blocks_u8: torch.Tensor, off: torch.Tensor, L: torch.Tensor):
+def parse_blocks(blocks_u8: torch.Tensor, off: torch.Tensor, L: torch.Tensor,
+                 cap: int = L_CAP):
     """(NB, 65536) u8 blocks + merged (off, L) -> per-block zstd parse
-    (the finder's suffix cap 10 for the chain extension):
+    (``cap``, the finder's suffix cap, for the chain extension):
 
     ll, ml, of: (NB, MAXSEQ) int32 sequence fields in sequence order;
     lits: (NB, 65536) u8 literals; n_seqs, lit_cnt: (NB,) int32.
@@ -75,9 +85,10 @@ def parse_blocks(blocks_u8: torch.Tensor, off: torch.Tensor, L: torch.Tensor):
         raise ValueError("off and L must have the blocks' shape")
     if off.device != blocks_u8.device or L.device != blocks_u8.device:
         raise ValueError("off and L must be on the blocks' device")
+    _check_cap(cap)
     dev = blocks_u8.device
     if dev.type == "cpu":
-        return parse_blocks_ref(blocks_u8, off, L)
+        return parse_blocks_ref(blocks_u8, off, L, cap)
     # The checks and the one allocation are kept lean: the kernel takes
     # about half a millisecond, so the wrapper's host work is a visible
     # share of a call.
@@ -101,10 +112,11 @@ def parse_blocks(blocks_u8: torch.Tensor, off: torch.Tensor, L: torch.Tensor):
     with torch.cuda.device(dev):
         rc = _cuda.library().ct_parse_blocks(
             *ptrs, p, p + n_f, p + 2 * n_f, p + 3 * n_f,
-            p + 3 * n_f + nb * BS, p + 3 * n_f + nb * BS + 4 * nb, nb, L_CAP,
-            _cuda.stream(dev))
+            p + 3 * n_f + nb * BS, p + 3 * n_f + nb * BS + 4 * nb, nb,
+            min(cap, BS), _cuda.stream(dev))  # a cap >= BS never continues
     _cuda.check(rc, "parse_blocks")
     parse_blocks.launches += 1
+    parse_blocks.any_cap_launches += cap != L_CAP
     ll, ml, of = buf[:3 * n_f].view(torch.int32).view(3, nb, MAXSEQ)
     n_seqs, lit_cnt = buf[3 * n_f + nb * BS:].view(torch.int32).view(2, nb)
     return ll, ml, of, buf[3 * n_f:3 * n_f + nb * BS].view(nb, BS), \
@@ -112,3 +124,4 @@ def parse_blocks(blocks_u8: torch.Tensor, off: torch.Tensor, L: torch.Tensor):
 
 
 parse_blocks.launches = 0
+parse_blocks.any_cap_launches = 0

@@ -30,9 +30,16 @@ __all__ = ["rep_scan", "rep_scan_ref", "fse_chain", "fse_chain_ref",
            "pack_deltas", "doped_tables", "FSE_LOG", "SIZE"]
 
 
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values as int32 arithmetic leaves them (two's complement)."""
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
 def rep_scan_ref(of_v: torch.Tensor, ll_v: torch.Tensor,
                  n_seqs: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch repeat-offset chain, all blocks in step."""
+    """Plain PyTorch repeat-offset chain, all blocks in step; int32
+    arithmetic as the reference's (off + 3 and r1 - 1 wrap, so an offset
+    within 3 of INT32_MAX gives a negative value and moves no state)."""
     R, MS = of_v.shape
     dev = of_v.device
     r1 = torch.full((R,), 1, dtype=torch.int64, device=dev)
@@ -43,16 +50,17 @@ def rep_scan_ref(of_v: torch.Tensor, ll_v: torch.Tensor,
     steps = int(n.max()) if R else 0
     for i in range(min(steps, MS)):
         off = of_v[:, i].to(torch.int64)
+        off3 = _wrap32(off + 3)
         ll0 = ll_v[:, i] == 0
         live = i < n
         val = torch.where(
             ~ll0, torch.where(off == r1, 1, torch.where(
-                off == r2, 2, torch.where(off == r3, 3, off + 3))),
+                off == r2, 2, torch.where(off == r3, 3, off3))),
             torch.where(off == r2, 1, torch.where(
-                off == r3, 2, torch.where((off == r1 - 1) & (off > 0), 3,
-                                          off + 3))))
+                off == r3, 2, torch.where(
+                    (off == _wrap32(r1 - 1)) & (off > 0), 3, off3))))
         if i < 3:
-            val = off + 3
+            val = off3
         swap = (~ll0 & (val == 2)) | (ll0 & (val == 1))
         rot = (~ll0 & (val == 3)) | (ll0 & (val == 2))
         push = (val > 3) | (ll0 & (val == 3))
@@ -67,6 +75,16 @@ def rep_scan_ref(of_v: torch.Tensor, ll_v: torch.Tensor,
     return out
 
 
+def _require(dev, tensors, what: str) -> None:
+    """CUDA, int32 and contiguous, each of ``tensors``."""
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: expected CUDA tensors, got {dev}")
+    for t in tensors:
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{what}: expected contiguous int32 tensors, "
+                             f"got {t.dtype}")
+
+
 def rep_scan(of_v: torch.Tensor, ll_v: torch.Tensor,
              n_seqs: torch.Tensor) -> torch.Tensor:
     """(R, MS) raw offsets + literal lengths + (R,) counts -> (R, MS) int32
@@ -76,17 +94,18 @@ def rep_scan(of_v: torch.Tensor, ll_v: torch.Tensor,
         raise ValueError("rep_scan: expected (R, MS) of, ll and (R,) n_seqs")
     if not (of_v.device == ll_v.device == n_seqs.device):
         raise ValueError("rep_scan: inputs on different devices")
-    if of_v.device.type == "cpu":
+    dev = of_v.device
+    if dev.type == "cpu":
         return rep_scan_ref(of_v, ll_v, n_seqs)
+    # lean checks: the kernel takes a few hundredths of a millisecond, so
+    # the wrapper's host work is a large share of a call
+    _require(dev, (of_v, ll_v, n_seqs), "rep_scan")
     R, MS = of_v.shape
-    _cuda.require_cuda_input(of_v, "of", torch.int32, (R, MS))
-    _cuda.require_cuda_input(ll_v, "ll", torch.int32, (R, MS))
-    _cuda.require_cuda_input(n_seqs, "n_seqs", torch.int32, (R,))
-    out = torch.empty((R, MS), dtype=torch.int32, device=of_v.device)
-    with torch.cuda.device(of_v.device):
+    out = torch.empty((R, MS), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
         rc = _cuda.library().ct_rep_scan(
             of_v.data_ptr(), ll_v.data_ptr(), n_seqs.data_ptr(),
-            out.data_ptr(), R, MS, _cuda.stream(of_v.device))
+            out.data_ptr(), R, MS, _cuda.stream(dev))
     _cuda.check(rc, "rep_scan")
     rep_scan.launches += 1
     return out
@@ -138,14 +157,17 @@ def fse_chain_ref(pk_ll, pk_of, pk_ml, n_seqs, tables):
     return val.to(torch.int32), nbs.to(torch.int32), fin.to(torch.int32)
 
 
-def fse_chain(pk_ll, pk_of, pk_ml, n_seqs, tables):
+def fse_chain(pk_ll, pk_of, pk_ml, n_seqs, tables, *,
+              clamped_only: bool = False):
     """Backward FSE encode chain over batch-shared log-7 tables.
 
     pk_*: (R, MS) int32 packed (dnb + 128) << 9 | (dfs + 128) per stream;
     tables: (3, 128) int32 state tables (ll, of, ml rows, RLE streams doped
     by the caller).  Returns (val, nb) each (R, MS) int32, the fused state
     write per sequence, and fin (R, 3) int32, the final states (ll, of, ml)
-    biased by -128."""
+    biased by -128.  ``clamped_only`` makes the kernel re-walk with the
+    step's clamps where it would step without them (the same results; it
+    times the route the kernel's check avoids)."""
     R, MS = pk_ll.shape
     ins = (pk_ll, pk_of, pk_ml)
     if any(t.shape != (R, MS) for t in ins) or n_seqs.shape != (R,) \
@@ -154,24 +176,22 @@ def fse_chain(pk_ll, pk_of, pk_ml, n_seqs, tables):
                          "and (3, 128) tables")
     if any(t.device != pk_ll.device for t in (*ins, n_seqs, tables)):
         raise ValueError("fse_chain: inputs on different devices")
-    if pk_ll.device.type == "cpu":
-        return fse_chain_ref(pk_ll, pk_of, pk_ml, n_seqs, tables)
-    for name, t in zip(("pk_ll", "pk_of", "pk_ml"), ins):
-        _cuda.require_cuda_input(t, name, torch.int32, (R, MS))
-    _cuda.require_cuda_input(n_seqs, "n_seqs", torch.int32, (R,))
-    _cuda.require_cuda_input(tables, "tables", torch.int32, (3, SIZE))
     dev = pk_ll.device
-    val = torch.empty((R, MS), dtype=torch.int32, device=dev)
-    nb = torch.empty((R, MS), dtype=torch.int32, device=dev)
-    fin = torch.empty((R, 3), dtype=torch.int32, device=dev)
+    if dev.type == "cpu":
+        return fse_chain_ref(pk_ll, pk_of, pk_ml, n_seqs, tables)
+    _require(dev, (*ins, n_seqs, tables), "fse_chain")
+    # one allocation: val, nb, then fin
+    buf = torch.empty(2 * R * MS + 3 * R, dtype=torch.int32, device=dev)
+    p = buf.data_ptr()
     with torch.cuda.device(dev):
         rc = _cuda.library().ct_fse_chain(
             pk_ll.data_ptr(), pk_of.data_ptr(), pk_ml.data_ptr(),
-            n_seqs.data_ptr(), tables.data_ptr(), val.data_ptr(),
-            nb.data_ptr(), fin.data_ptr(), R, MS, _cuda.stream(dev))
+            n_seqs.data_ptr(), tables.data_ptr(), p, p + 4 * R * MS,
+            p + 8 * R * MS, R, MS, int(clamped_only), _cuda.stream(dev))
     _cuda.check(rc, "fse_chain")
     fse_chain.launches += 1
-    return val, nb, fin
+    val, nb = buf[:2 * R * MS].view(2, R, MS)
+    return val, nb, buf[2 * R * MS:].view(R, 3)
 
 
 fse_chain.launches = 0

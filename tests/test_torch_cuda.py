@@ -7,8 +7,12 @@ long-range matches reach past the block), and the finder and the
 literal lookup also on hostile inputs (``corpus.finder_block``, batches of
 1, 133 and 512 blocks; odd row lengths, every byte value, misaligned
 rows), the parse kernels (zstd parse, S2 emit) on ``corpus.parse_inputs``
-and batches of 1, 133 and 512 blocks, and the LZ execute on compact and
-padded plans of every arena class and on ``corpus.exec_hostile_plans``.
+and batches of 1, 133 and 512 blocks, also at caps other than the
+finder's, the chain kernels (repeat scan, FSE chain) on batches of 1, 133
+and 512 blocks and on ``corpus.rep_inputs`` / ``corpus.fse_inputs``, and
+the LZ execute on compact and padded plans of every arena class, on
+``corpus.exec_hostile_plans`` and, through its sum kernel, on
+``corpus.exec_sum_plans``.
 Without a card every test here skips.
 
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -22,8 +26,8 @@ import torch
 from compress_tpu_torch import corpus, huff0
 from compress_tpu_torch.fse import core as fse_core
 from compress_tpu_torch.ops import (entropy_dec, entropy_kern, execute, lz2,
-                                    lzemit2, lzkern, zenc2, zparse, zseq_kern,
-                                    zseqenc)
+                                    lzemit2, lzkern, zenc2, zparse,
+                                    zseq_kern, zseqenc)
 from compress_tpu_torch.s2 import block as s2_block
 from compress_tpu_torch.s2.device_dec import decode_blocks_device as \
     s2_decode_blocks_device
@@ -169,6 +173,73 @@ def test_zstd_kernels_reject_bad_inputs(cuda_device, zstd_data):
             (lits.shape[0], 2, 128), dtype=torch.int32, device=cuda_device))
 
 
+# ---- the sequence-encode chains (repeat scan, FSE chain) -------------------
+
+def _on(dev, *arrays):
+    """numpy arrays or tensors as tensors on dev."""
+    return [torch.as_tensor(a).to(dev) for a in arrays]
+
+
+def _hold_rep(of, ll, n, dev):
+    t = _on(dev, of, ll, n)
+    before = zseqenc.rep_scan.launches
+    got = zseqenc.rep_scan(*t)
+    want = zseqenc.rep_scan_ref(*t)
+    torch.cuda.synchronize()
+    assert zseqenc.rep_scan.launches == before + 1
+    assert torch.equal(got, want)
+    return want
+
+
+def _hold_fse(chain, dev):
+    """The kernel, and the kernel with the clamped re-walk everywhere,
+    against the plain version."""
+    t = _on(dev, *chain)
+    before = zseqenc.fse_chain.launches
+    got = zseqenc.fse_chain(*t)
+    got_clamped = zseqenc.fse_chain(*t, clamped_only=True)
+    want = zseqenc.fse_chain_ref(*t)
+    torch.cuda.synchronize()
+    assert zseqenc.fse_chain.launches == before + 2
+    for k, (a, b, c) in enumerate(zip(got, got_clamped, want)):
+        assert torch.equal(a, c) and torch.equal(b, c), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 133, 512])
+def test_chain_kernels_batches(cuda_device, nb):
+    """One block, more blocks than the card has SMs, and the zstd launch's
+    512 blocks: the sequences of corpus blocks (the parse of the plain
+    finder's matches) through both chain kernels."""
+    blocks = np.resize(corpus.corpus_blocks(min(nb, 64), seed=nb + 1),
+                       (nb, lzkern.BS))
+    t = torch.from_numpy(blocks).to(cuda_device)
+    ll, ml, of, _, n, _ = zparse.parse_blocks(
+        t, *lzkern.find_matches_blocks_ref(t))
+    rep = _hold_rep(of, ll, n, cuda_device)
+    pk_ll, pk_of, pk_ml, tables, *_ = zenc2._codes_stage(ll, ml, rep, n)
+    _hold_fse((pk_ll, pk_of, pk_ml, n, tables), cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", corpus.REP_CLASSES)
+def test_rep_kernel_hostile(cuda_device, kind):
+    """Small offset alphabets with runs of ll = 0, n_seqs 0-4, MAXSEQ and
+    out of range, and blocks with a live offset of 0, -5, INT32_MIN or
+    within 3 of INT32_MAX (the serial route; off + 3 wraps as in int32)
+    or of INT32_MAX - 3 (the scan) among ordinary blocks."""
+    _hold_rep(*corpus.rep_inputs(kind), cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", corpus.FSE_CLASSES)
+def test_fse_kernel_hostile(cuda_device, kind):
+    """Random deltas and tables at n_seqs 0-4, MAXSEQ, past it and
+    negative; a doped RLE stream; a permutation table under which no two
+    trajectories meet (the re-walk goes fully serial)."""
+    _hold_fse(corpus.fse_inputs(kind), cuda_device)
+
+
 # ---- hostile inputs for the parse kernels (zparse, emit) -------------------
 
 def _hold_parse(blocks, off, L, dev):
@@ -239,30 +310,57 @@ def test_parse_kernels_take_unaligned_inputs(cuda_device, blocks_np):
 
 
 @pytest.mark.cuda
-def test_cuda_entry_points_refuse_what_only_plain_versions_take(cuda_device,
-                                                                blocks_np):
-    """The port's known departures from the reference: the plain versions
-    run a padded-plan slot that writes the literal half of the arena and
-    emit at any positive cap; on CUDA tensors ``execute_rounds`` and
-    ``emit_blocks`` raise on both instead of computing something else."""
-    out = execute.OUT_BASE
-    plan = dict(src=np.array([3, out + 5], np.int32),
-                dst=np.array([out, 7], np.int32),
-                len=np.array([9, 4], np.int32),
-                round=np.array([0, 1], np.int32), n_rounds=2)
-    src, dst, length, caps = execute.pack_plans([plan])
-    lit = np.random.default_rng(3).integers(0, 256, (1, 512, 128), np.uint8)
-    cpu = [torch.from_numpy(a) for a in (lit, src, dst, length)]
-    want = execute.execute_rounds(*cpu, caps)
-    assert want[0, 0, :9].tolist() == lit[0, 0, 3:12].tolist()
-    with pytest.raises(ValueError, match="literal half"):
-        execute.execute_rounds(*(a.to(cuda_device) for a in cpu), caps)
-    blk = torch.from_numpy(blocks_np[:2])
-    off, L = lzkern.find_matches_blocks(blk)
-    assert lzemit2.emit_blocks(blk, off, L, cap=8)[0].shape == (2, 512, 128)
-    with pytest.raises(ValueError, match="caps 10 and 6"):
-        lzemit2.emit_blocks(*(a.to(cuda_device) for a in (blk, off, L)),
-                            cap=8)
+@pytest.mark.parametrize("cap", [1, 8, 16, 17, 100, 600, 70000])
+def test_parse_kernels_any_cap(cuda_device, cap, blocks_np):
+    """zparse and emit at a cap other than the finder's (the run-time cap
+    instantiation) against their plain versions: the hostile parse inputs,
+    the chains and all-zeros inputs at this cap, and two corpus blocks with
+    the plain finder's (off, L)."""
+    ins = [corpus.parse_inputs(k) for k in corpus.PARSE_CLASSES]
+    ins += [corpus.parse_inputs(k, cap) for k in ("chains", "all_zeros")]
+    t = torch.from_numpy(blocks_np[:2])
+    off, L = lzkern.find_matches_blocks_ref(t)
+    ins += [(blocks_np[i], off[i].numpy(), L[i].numpy()) for i in range(2)]
+    blocks, off, L = (torch.from_numpy(np.stack(a)).to(cuda_device)
+                      for a in zip(*ins))
+    before = (zparse.parse_blocks.any_cap_launches,
+              lzemit2.emit_blocks.any_cap_launches)
+    got = [*zparse.parse_blocks(blocks, off, L, cap=cap),
+           *lzemit2.emit_blocks(blocks, off, L, cap=cap)]
+    want = [*zparse.parse_blocks_ref(blocks, off, L, cap=cap),
+            *lzemit2.emit_blocks_ref(blocks, off, L, cap=cap)]
+    torch.cuda.synchronize()
+    assert (zparse.parse_blocks.any_cap_launches,
+            lzemit2.emit_blocks.any_cap_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", corpus.EXEC_SUM_CLASSES)
+def test_exec_rounds_sums_where_a_store_differs(cuda_device, kind):
+    """execute_rounds on padded plans that only the reference's sum gets
+    right (a plain store would not): the sum kernel, equal to the plain
+    version, beside a planner block on the same launch."""
+    plan = corpus.exec_sum_plans()[kind]
+    planned = corpus.exec_hostile_plans(1)[1]
+    src, dst, length, caps = execute.pack_plans([plan, planned])
+    lit = np.random.default_rng(3).integers(0, 256, (2, 512, 128), np.uint8)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in (lit, src, dst, length)]
+    before = execute.execute_rounds.launches
+    got = execute.execute_rounds(*args, caps)
+    want = execute.execute_rounds_ref(*args, caps)
+    torch.cuda.synchronize()
+    assert execute.execute_rounds.launches == before + 1
+    assert torch.equal(got, want)
+    if kind == "literal_half":
+        # round 1 adds output bytes 5-8 (literal bytes 8-11) to literal
+        # bytes 7-10, which round 2 copies to output bytes 45-48
+        lb = lit[0, 0].astype(np.int64)
+        assert got[0, 0, 45:49].tolist() == ((lb[7:11] + lb[8:12])
+                                             & 255).tolist()
 
 
 # ---- hostile inputs for the finder and the literal lookup -----------------
@@ -411,7 +509,7 @@ def s2_dec_blocks(blocks_np):
 @pytest.mark.cuda
 def test_exec_kernel_matches_plain(cuda_device, s2_dec_blocks):
     """``execute_rounds`` of the padded plan: compacted on the card, then
-    the exec kernel."""
+    the sum kernel."""
     _, classes = plan_blocks(s2_dec_blocks)
     assert sorted(c["M"] for c in classes) == [1, 2, 4]
     for c in classes:

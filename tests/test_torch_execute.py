@@ -9,8 +9,8 @@
   4, and JAX ``execute_rounds_pallas(interpret=True)`` at M = 1, on the
   same packed plans, the hand plans of ``tests/test_exec_pallas.py``
   included.
-- The compact plan: ``pack_pieces`` equals ``compact_plan`` of
-  ``pack_plans`` of the same plans, and ``execute_pieces`` on CPU tensors
+- The compact plan: ``pack_pieces`` equals ``compact_pieces`` of the
+  slots of ``pack_plans`` of the same plans, and ``execute_pieces`` on CPU tensors
   (its plain version) equals ``execute_rounds_ref`` of the padded plan and
   the JAX XLA and Pallas executes, on seeded, text and rand4 plans at
   max_rounds 1, 2 and 4, every arena class, empty rounds, clipped caps and
@@ -28,6 +28,7 @@ from compress_tpu import s2 as jax_s2  # noqa: E402
 from compress_tpu.ops import exec_pallas as jax_xp  # noqa: E402
 from compress_tpu.ops import execute as jax_x  # noqa: E402
 from compress_tpu_torch import corpus  # noqa: E402
+from compress_tpu_torch.ops import exec_kern  # noqa: E402
 from compress_tpu_torch.ops import execute as X  # noqa: E402
 from compress_tpu_torch.s2 import plan as S2P  # noqa: E402
 from compress_tpu_torch.s2.device_dec import plan_blocks  # noqa: E402
@@ -203,6 +204,23 @@ def test_execute_rounds_matches_pallas_on_real_plans():
         assert got[k].reshape(-1)[:len(s)].tobytes() == s
 
 
+@pytest.mark.parametrize("kind", corpus.EXEC_SUM_CLASSES)
+def test_sum_plans_match_xla_and_need_the_sum(kind):
+    """The plans on which a store differs from the reference's sum (a
+    literal-half write, a byte written twice, a same-round read): the
+    plain execute equals JAX's XLA execute on them, beside a planner
+    block (``execute_rounds`` sends every padded plan to the sum kernel on
+    CUDA tensors).  The literal
+    bytes are below 64, so every sum stays below 256: the reference sums
+    in a bf16/float arena and converts to uint8, which is exact there (past
+    255 it saturates where the plain version wraps, ROADMAP.md queue 3)."""
+    plans = [corpus.exec_sum_plans()[kind], corpus.exec_hostile_plans(1)[1]]
+    rng = np.random.default_rng(4)
+    lit = rng.integers(0, 64, (2, 512, 128)).astype(np.uint8)
+    args = (lit, *X.pack_plans(plans))
+    assert np.array_equal(_run_port(*args), _run_xla(*args))
+
+
 def test_execute_rounds_rejects_bad_shapes():
     lit = torch.zeros((2, 500, 128), dtype=torch.uint8)
     z = torch.zeros((64, 2), dtype=torch.int32)
@@ -215,19 +233,27 @@ def test_execute_rounds_rejects_bad_shapes():
 
 # ---- the compact plan ------------------------------------------------------
 
+def _compact(src, dst, length, caps, rows):
+    """``compact_pieces`` of a padded plan's slots (numpy in, tensors
+    out)."""
+    flat, nr = exec_kern._slots(*(torch.from_numpy(a) for a in (
+        src, dst, length)), caps)
+    return exec_kern.compact_pieces(*flat, src.shape[1], nr, rows)
+
+
 def _run_pieces(lit, pieces, rstart):
     return X.execute_pieces(*(torch.from_numpy(np.ascontiguousarray(a))
                               for a in (lit, pieces, rstart))).numpy()
 
 
 def _hold_compact(lit, plans, pallas=False):
-    """pack_pieces == compact_plan(pack_plans); the compact execute equals
+    """pack_pieces == compact_pieces of pack_plans' slots; the compact
+    execute equals
     the padded plain execute and JAX's XLA (and Pallas) executes."""
     rows = lit.shape[1]
     pieces, rstart = X.pack_pieces(plans, rows)
     padded = X.pack_plans(plans)
-    cp, cr = X.compact_plan(*(torch.from_numpy(a) for a in padded[:3]),
-                            padded[3], rows)
+    cp, cr = _compact(*padded, rows)
     assert np.array_equal(pieces, cp.numpy())
     assert np.array_equal(rstart, cr.numpy())
     assert pieces.dtype == rstart.dtype == np.int32
@@ -270,7 +296,7 @@ def test_compact_plan_matches_xla_per_class(M, s2_classes):
 
 
 def test_compact_plan_of_empty_rounds_and_clipped_caps():
-    """compact_plan of a padded plan with a round of pads only, a cap of 0
+    """The compact plan of a padded plan with a round of pads only, a cap of 0
     and caps past the plan's rows equals the padded execute and XLA."""
     rng = np.random.default_rng(2)
     lit = rng.integers(0, 256, (2, 512, 128)).astype(np.uint8)
@@ -280,8 +306,7 @@ def test_compact_plan_of_empty_rounds_and_clipped_caps():
     dst = np.concatenate([dst[:64], pad + OUT, dst[64:]])
     length = np.concatenate([length[:64], pad, length[64:]])
     caps = (64, 64, 0) + caps[1:] + (100,)
-    pieces, rstart = X.compact_plan(*(torch.from_numpy(a) for a in (
-        src, dst, length)), caps, 512)
+    pieces, rstart = _compact(src, dst, length, caps, 512)
     assert rstart.shape == (2, len(caps) + 1)
     assert (rstart[:, 1] == rstart[:, 2]).all()        # the pads' round
     got = _run_pieces(lit, pieces.numpy(), rstart.numpy())
@@ -311,11 +336,11 @@ def test_compact_plan_rejects_literal_half_writes_and_bad_caps():
              n_rounds=1)
     with pytest.raises(ValueError, match="literal half"):
         X.pack_pieces([p])
-    padded = [torch.from_numpy(a) for a in X.pack_plans([p])[:3]]
+    padded = X.pack_plans([p])[:3]
     with pytest.raises(ValueError, match="literal half"):
-        X.compact_plan(*padded, (64,), 512)
+        _compact(*padded, (64,), 512)
     with pytest.raises(ValueError, match="negative"):
-        X.compact_plan(*padded, (64, -10, 64), 512)
+        _compact(*padded, (64, -10, 64), 512)
     with pytest.raises(ValueError, match="round"):
         X.pack_pieces([dict(p, dst=np.array([OUT], np.int32),
                             round=np.array([1], np.int32))])

@@ -21,8 +21,11 @@ CPU test can run; the model runs those steps on the CPU:
 Inputs: one seeded block per corpus class with the plain finder's (off,
 L), at cap 10 (and cap 6, the slim finder, for the S2 stages), and the
 hostile blocks of ``corpus.parse_inputs`` (all zeros, long chains, the
-most sequences the gate allows, no op at all).  Tolerance 0: every output
-is an integer or a byte."""
+most sequences the gate allows, no op at all); the chains and all-zeros
+inputs also at the caps the kernels take at run time (1, 8, 16, 17, 100,
+600 and 70000: shorter than the cap ahead a lane holds, 32 residue
+classes and more, caps past the tile and past the block).  Tolerance 0:
+every output is an integer or a byte."""
 
 import numpy as np
 import pytest
@@ -253,6 +256,20 @@ def test_model_stages_match_plain(name, cap, gate, inputs):
     take, lit, L2, offp = (a[0].numpy() for a in lzemit2.parse_stages(
         torch.from_numpy(blk).to(torch.int32), torch.from_numpy(off),
         torch.from_numpy(L), cap, zstd_gate=gate))
+    assert np.array_equal(got["take"], take)
+    assert np.array_equal(got["lit"], lit)
+    assert np.array_equal(got["L2"][take], L2[take])
+    assert np.array_equal(got["off"][take], offp[take])
+
+
+@pytest.mark.parametrize("kind", ["chains", "all_zeros"])
+@pytest.mark.parametrize("cap", [1, 8, 16, 17, 100, 600, 70000])
+def test_model_stages_match_plain_any_cap(kind, cap):
+    blk, off, L = (a[None] for a in corpus.parse_inputs(kind, cap))
+    got = model_parse(blk, off, L, cap, True)[0]
+    take, lit, L2, offp = (a[0].numpy() for a in lzemit2.parse_stages(
+        torch.from_numpy(blk).to(torch.int32), torch.from_numpy(off),
+        torch.from_numpy(L), cap, zstd_gate=True))
     assert np.array_equal(got["take"], take)
     assert np.array_equal(got["lit"], lit)
     assert np.array_equal(got["L2"][take], L2[take])

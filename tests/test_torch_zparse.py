@@ -5,8 +5,10 @@
 Inputs: one seeded block per corpus class with the JAX finder's (off, L),
 plus two blocks with a synthetic (off, L) channel whose offsets straddle
 1024 and 65536 and whose lengths straddle the gate's minimum (6, 7, 8),
-so both gate steps decide.  Tolerance 0: every output is an integer or a
-byte."""
+so both gate steps decide; at the other caps 6, 8 and 16 (the chain
+extension's cap is an argument of both), a text block, a period-7 block
+and a synthetic channel whose runs carry L = cap.  Tolerance 0: every
+output is an integer or a byte."""
 
 import numpy as np
 import pytest
@@ -103,6 +105,30 @@ def test_parse_shapes_and_padding(port_out):
         # the parse covers the block: matched bytes + literals
         assert int(ml[i].sum()) + int(lit_cnt[i]) == BS
         assert int(ll[i].sum()) <= int(lit_cnt[i])
+
+
+@pytest.mark.parametrize("cap", [6, 8, 16])
+def test_parse_matches_jax_at_other_caps(cap, inputs):
+    pick = [NAMES.index(k) for k in ("text", "period7", "gate_offsets_a")]
+    blocks, off, L = (a[pick].copy() for a in inputs)
+    L[2] = np.where(L[2] == 10, cap, L[2])      # chains at this cap
+    want = jax_zparse.parse_blocks(jnp.asarray(blocks), jnp.asarray(off),
+                                   jnp.asarray(L), interpret=True, cap=cap)
+    got = zparse.parse_blocks(*(torch.from_numpy(a) for a in (blocks, off,
+                                                              L)), cap=cap)
+    for field, a, b in zip(FIELDS, got, want):
+        assert np.array_equal(a.numpy(), np.asarray(b)), (cap, field)
+    # the chain extension changed the parse at this cap
+    base = zparse.parse_blocks_ref(*(torch.from_numpy(a) for a in (
+        blocks, off, L)), cap=cap + 1)
+    assert not torch.equal(got[1][2], base[1][2])
+
+
+def test_parse_rejects_cap_0(inputs):
+    blocks, off, L = (torch.from_numpy(x[:1]) for x in inputs)
+    for fn in (zparse.parse_blocks, zparse.parse_blocks_ref):
+        with pytest.raises(ValueError, match="cap"):
+            fn(blocks, off, L, cap=0)
 
 
 def test_parse_rejects_bad_inputs(inputs):

@@ -1,8 +1,10 @@
 """PyTorch port of the zstd sequence chains (compress_tpu_torch/ops/
 zseqenc.py) against the JAX package's ``rep_scan`` and ``fse_chain`` in
 interpret mode, on the sequences that the parse gives one block per corpus
-class, and on a launch whose offset stream is RLE (the doped tables: no
-bits, state 0).  Tolerance 0: all outputs are integers."""
+class, on a launch whose offset stream is RLE (the doped tables: no
+bits, state 0), and on the hostile chains of ``corpus.rep_inputs`` and
+``corpus.fse_inputs`` (the card tests and the chain model use them too).
+Tolerance 0: all outputs are integers."""
 
 import numpy as np
 import pytest
@@ -48,6 +50,33 @@ def test_rep_scan_matches_jax(name, rep):
     i = NAMES.index(name)
     assert got.dtype == want.dtype
     assert np.array_equal(got[i], want[i])
+
+
+@pytest.mark.parametrize("kind", corpus.REP_CLASSES)
+def test_rep_scan_hostile_matches_jax(kind):
+    """Offset alphabets with runs of ll = 0, n_seqs 0-4, MS and out of
+    range, live offsets of 0, -5 and INT32_MIN, and offsets within 3 of
+    INT32_MAX, where off + 3 wraps negative in int32 and the step moves no
+    state, as the reference's int32 arithmetic has it."""
+    of, ll, n = corpus.rep_inputs(kind)
+    got = zseqenc.rep_scan(*(torch.from_numpy(a) for a in (of, ll, n)))
+    want = jax_zseqenc.rep_scan(jnp.asarray(of), jnp.asarray(ll),
+                                jnp.asarray(n), interpret=True)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    if kind == "serial_route":
+        assert (got[4, 10:200:3] < 0).all() and (got[5, :40] < 0).all()
+
+
+@pytest.mark.parametrize("kind", corpus.FSE_CLASSES)
+def test_fse_chain_hostile_matches_jax(kind):
+    """Random deltas and tables at n_seqs 0-4, MS, past MS and negative,
+    a doped RLE stream, and tables that make every trajectory a
+    permutation."""
+    got, want = _both_chains([torch.from_numpy(a)
+                              for a in corpus.fse_inputs(kind)])
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        assert np.array_equal(a, b)
 
 
 def _chain_inputs(ll, ml, of_v2, n):
