@@ -11,8 +11,10 @@ mixing every class of ``compress_tpu_torch.corpus``):
 1. prints the device (name, count, ``nvidia-smi`` name and power limit);
 2. builds the kernels and prints the seconds it took, each kernel's
    registers and spills (ptxas), and the CTAs per SM of the exec, zstd
-   parse, emit, repeat-scan and FSE-chain kernels (the runtime's
-   occupancy query);
+   parse, emit, repeat-scan, FSE-chain, huff0 chunk and sequence kernels
+   (the runtime's occupancy query; huff0 at 52-byte windows with one
+   8-bit table and with 11-bit tables of 512 chunks, sequences at 96-byte
+   and 80-byte windows);
 3. makes the corpus;
 4. holds the finder kernel (cap 10 and the slim cap 6) against its plain
    PyTorch version on the card: (off, L) must be bit-identical;
@@ -70,7 +72,8 @@ Device batch decode of what the port encodes:
     16 KiB, ``compress_4x_batch(shared_table=True, max_log=8)``; holds the
     chunk kernel against its plain version on the prepared windows, runs
     ``decompress_4x_batch`` with the launch counter (one launch, every row
-    equal to its input) and times encode, prep, kernel and call;
+    equal to its input) and times encode, prep, kernel (also by device
+    time, and with no symbols to decode) and call;
 15. huff0 4X, table engine (one table per container): the phase-3 corpus
     as 1024 rows of 16 KiB at ``max_log=11``, the same checks and times.
 
@@ -92,9 +95,11 @@ Batched zstd frame decode (``zstd.device_dec.decompress_frames_device``):
     counters set to 0 just before and read just after (one launch each of
     the huff0 chunk, sequence and execute kernels; 3 host-decoded frames;
     every frame equal to its input), times each kernel and its plain
-    version on the path's own inputs with CUDA events (exec by device
-    time too, on the compact plan), the host stages and the whole call on
-    the host clock, and traces one call.
+    version on the path's own inputs with CUDA events (the huff0, both
+    sequence modes and exec by device time too, exec on the compact
+    plan, the per-item sequences also with no sequences to decode), the host stages and the whole call on the host clock, and
+    traces one call, listing every device item (no stack or cast kernel
+    beside the three decode kernels).
 
 The routes no path sends, which take the inputs the reference takes:
 
@@ -302,17 +307,19 @@ def _hold(name, got, want) -> int:
     return err
 
 
-def _say_trace(what: str, fn, warm: bool = True):
+def _say_trace(what: str, fn, warm: bool = True, every_name: bool = False):
     """Print one traced call's device busy time, idle share and largest
-    items; return the device ms of its copies to the card (None when the
-    profiler recorded no device time)."""
+    items (every item with ``every_name``); return the device ms of its
+    copies to the card (None when the profiler recorded no device
+    time)."""
     busy, wall, by_name = trace_path(fn, warm)
     if busy > 0:
         h2d = sum(v for k, v in by_name if "HtoD" in k)
         _say(f"{what} trace: device busy {busy:.4f} ms of {wall:.4f} ms wall, "
              f"idle share {1 - busy / wall:.4f}; copies to the card "
              f"{h2d:.4f} ms; by name (ms): " + ", ".join(
-                 f"{k[:60]} {v:.4f}" for k, v in by_name[:8]))
+                 f"{k[:60]} {v:.4f}"
+                 for k, v in (by_name if every_name else by_name[:8])))
         return h2d
     _say(f"{what} trace: the profiler recorded no device time "
          "(not measured)")
@@ -688,6 +695,7 @@ def huff0_path(dev, blocks_np) -> list:
         t_prep = (time.perf_counter() - t0) * 1e3
         windows, lbit, nsym, tables = (x.to(dev) for x in cpu_args)
         N, C, W = windows.shape
+        none = torch.zeros_like(nsym)
         if shared:
             packed, mb = hb.shared_packed_table(metas)
             table = torch.from_numpy(packed).to(dev)
@@ -697,6 +705,11 @@ def huff0_path(dev, blocks_np) -> list:
             def kern(kargs=kargs, mb=mb):
                 return EK.huff0_decode_chunks_shared(*kargs, max_bits=mb)
 
+            def empty(kargs=kargs, mb=mb):
+                return EK.huff0_decode_chunks_shared(
+                    kargs[0], kargs[1], none.reshape(-1), kargs[3],
+                    max_bits=mb)
+
             def plain(kargs=kargs, mb=mb):
                 return EK.huff0_decode_chunks_shared_ref(*kargs, max_bits=mb)
             counter = EK.huff0_decode_chunks_shared
@@ -705,6 +718,9 @@ def huff0_path(dev, blocks_np) -> list:
 
             def kern():
                 return ED.huff0_decode_chunks(windows, lbit, nsym, tables)
+
+            def empty():
+                return ED.huff0_decode_chunks(windows, lbit, none, tables)
 
             def plain():
                 return ED.huff0_decode_chunks_ref(windows, lbit, nsym, tables)
@@ -725,6 +741,10 @@ def huff0_path(dev, blocks_np) -> list:
             raise AssertionError(f"huff0 {engine}: rows {bad[:8]} differ from "
                                  "their input")
         t_kern = cuda_ms(kern, 20)
+        t_dev = cuda_ms(kern, 20, True)
+        # the same launch with no symbol to decode: the tiles' copies,
+        # table staging and stores alone
+        t_empty = cuda_ms(empty, 20, True)
         t_plain = cuda_ms(plain, 3)
         t_call = host_ms(lambda: huff0.decompress_4x_batch(
             conts, accel=accel, engine=engine), 2)
@@ -735,7 +755,8 @@ def huff0_path(dev, blocks_np) -> list:
                     8 * live)
         _say(f"huff0 {engine} decode: launches {launches}; all {len(kept)} "
              f"containers equal their input; {nc} chunks ({live} symbols); "
-             f"kernel {t_kern:.4f} ms (plain {t_plain:.4f}, CUDA events), "
+             f"kernel {t_kern:.4f} ms ({t_dev:.4f} device time, {t_empty:.4f}"
+             f" with no symbols; plain {t_plain:.4f}, CUDA events), "
              f"bound {bnd[0]:.4f} ({bnd[1]}); host prep {t_prep:.1f} ms; "
              f"whole call {t_call:.4f} ms on the host clock "
              f"({len(kept) * row / (t_call * 1e-3) / 1e9:.4f} GB/s; first "
@@ -747,7 +768,8 @@ def huff0_path(dev, blocks_np) -> list:
             "replaces": "compress_tpu/ops/entropy_pallas.py:36",
             "launches": launches, "max_abs_err": err, "equal_to_plain": True,
             "ms": t_kern, "plain_ms": t_plain, "bound_ms": bnd[0],
-            "bound_by": bnd[1], "library_ms": None, "peek_bits": mb,
+            "bound_by": bnd[1], "library_ms": None, "device_ms": t_dev,
+            "no_symbols_device_ms": t_empty, "peek_bits": mb,
             "chunks": nc, "encode_ms": t_enc, "prep_ms": t_prep,
             "call_ms": t_call, "none_rows": len(rows) - len(kept),
             "ratio": ratio})
@@ -764,12 +786,13 @@ def _host_seqs(item):
     return lls, mls, _resolve_reps(lls, mls, ofv)
 
 
-def _zseq_bound(nc: int, win: int, tables: int, live: int):
+def _zseq_bound(nc: int, win: int, tables: int, live: int, n_out: int):
     """Each chunk reads its window and 9 int32 of checkpoint (cursor, 3
     states, 3 repeat offsets, count, reload limit), the table sets are
-    read once, each chunk writes 4 x 8 int32 and its end cursor; a
-    generous 100 integer operations a decoded sequence."""
-    return bound(nc * (win + 36) + 4 * tables + nc * (4 * 8 * 4 + 4),
+    read once, each chunk writes n_out x 8 int32 (the function's outputs:
+    4 per item, 3 shared) and its end cursor; a generous 100 integer
+    operations a decoded sequence."""
+    return bound(nc * (win + 36) + 4 * tables + nc * (n_out * 8 * 4 + 4),
                  100 * live)
 
 
@@ -944,6 +967,17 @@ def zstd_decode_path(dev):
                  *sargs), 2),
              "exec": cuda_ms(lambda: X.execute_pieces_ref(*xargs), 2)}
     t_exec_dev = cuda_ms(lambda: X.execute_pieces(*xargs), 20, True)
+    t_dev = {"huff0": cuda_ms(lambda: ED.huff0_decode_chunks(*largs), 20,
+                              True),
+             "zseq": cuda_ms(lambda: ED.zseq_decode_chunks_rep(*targs), 20,
+                             True),
+             "shared": cuda_ms(lambda: ZK.zseq_decode_chunks_shared(*sargs),
+                               20, True)}
+    # the per-item launch with no sequence to decode: the tiles' copies,
+    # table staging and stores alone
+    no_seqs = [*targs[:5], torch.zeros_like(targs[5]), *targs[6:]]
+    t_dev["zseq_no_sequences"] = cuda_ms(
+        lambda: ED.zseq_decode_chunks_rep(*no_seqs), 20, True)
     stats = {}
     t0 = time.perf_counter()
     DD.decompress_frames_device(frames, stats=stats)
@@ -951,21 +985,24 @@ def zstd_decode_path(dev):
     t_call = (time.perf_counter() - t0) * 1e3
     _say("zstd decode kernel times (ms, CUDA events): " + ", ".join(
         f"{k} {v:.4f} (plain {plain[k]:.4f})" for k, v in t.items()))
+    _say("zstd decode kernel device times (ms): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in t_dev.items()))
     _say(f"zstd decode whole call (host clock): {t_call:.4f} ms, "
          f"{n_out / (t_call * 1e-3) / 1e9:.4f} GB/s of output; stages (s): "
          + ", ".join(f"{k} {v:.4f}" for k, v in stats["s"].items()))
     h2d_ms = _say_trace("zstd decode",
                         lambda: DD.decompress_frames_device(frames),
-                        warm=False)
+                        warm=False, every_name=True)
 
-    b_item = _zseq_bound(nc_i, ED.ZWIN, a["tables"].size, live_i)
-    b_sh = _zseq_bound(nc_s, ZK.WIN, ZK.ZTAB, live_s)
+    b_item = _zseq_bound(nc_i, ED.ZWIN, a["tables"].size, live_i, 4)
+    b_sh = _zseq_bound(nc_s, ZK.WIN, ZK.ZTAB, live_s, 3)
     nc_h = largs[0].shape[0] * largs[0].shape[1]
     b_h = bound(nc_h * (ED.WIN + 8) + largs[3].numel() * 4 + nc_h * 36,
                 8 * int(largs[2].sum()))
     n_dev_out = sum(int(np.sum(p["len"])) for p in plans)
     b_x, b_x_pad, _, _ = _exec_bounds(rows, pieces, rstart, n_dev_out)
-    _say(f"zstd decode bounds (ms): huff0 {b_h[0]:.4f}, zseq per-item "
+    _say(f"zstd decode bounds (ms): huff0 {b_h[0]:.4f} (literal chunks "
+         f"{tuple(largs[0].shape[:2])}), zseq per-item "
          f"{b_item[0]:.4f} ({b_item[1]}), shared {b_sh[0]:.4f}, exec "
          f"{b_x[0]:.4f} ({len(pieces)} live pieces; padded-plan bound "
          f"{b_x_pad[0]:.4f}); exec device time {t_exec_dev:.4f}; compact "
@@ -976,19 +1013,23 @@ def zstd_decode_path(dev):
     rows_out = [
         {"name": "zseq_decode_chunks_rep", "mode": "per_item", **common,
          "launches": launches["zseq"], "max_abs_err": err_item,
-         "ms": t["zseq"], "plain_ms": plain["zseq"], "bound_ms": b_item[0],
+         "ms": t["zseq"], "device_ms": t_dev["zseq"],
+         "no_sequences_device_ms": t_dev["zseq_no_sequences"],
+         "plain_ms": plain["zseq"], "bound_ms": b_item[0],
          "bound_by": b_item[1], "chunks": nc_i, "sequences": live_i,
          "also_serves": "compress_tpu/ops/entropy_dec.py:234"},
         {"name": "zseq_decode_chunks_shared", "mode": "shared", **common,
          "launches": shared_launches, "max_abs_err": err_sh,
-         "ms": t["shared"], "plain_ms": plain["shared"], "bound_ms": b_sh[0],
+         "ms": t["shared"], "device_ms": t_dev["shared"],
+         "plain_ms": plain["shared"], "bound_ms": b_sh[0],
          "bound_by": b_sh[1], "chunks": nc_s, "sequences": live_s,
          "path": "phase 17: the predefined frames' chunks"},
     ]
     extra = {
         "huff0": {"zdec_launches": launches["huff0"], "zdec_ms": t["huff0"],
                   "zdec_plain_ms": plain["huff0"], "zdec_bound_ms": b_h[0],
-                  "zdec_max_abs_err": err_h},
+                  "zdec_max_abs_err": err_h,
+                  "zdec_device_ms": t_dev["huff0"]},
         "exec": {"zdec_launches": launches["exec"], "zdec_ms": t["exec"],
                  "zdec_plain_ms": plain["exec"], "zdec_bound_ms": b_x[0],
                  "zdec_max_abs_err": err_x, "zdec_device_ms": t_exec_dev,
@@ -1132,7 +1173,12 @@ def main() -> int:
             "parse_blocks": lib.ct_parse_occupancy(),
             "emit_blocks": lib.ct_emit_occupancy(),
             "rep_scan": lib.ct_rep_occupancy(),
-            "fse_chain": lib.ct_fse_occupancy()}
+            "fse_chain": lib.ct_fse_occupancy(),
+            "huff0_decode": lib.ct_huff0_occupancy(0),
+            # the table engine's containers: 512 chunks of 32 symbols
+            "huff0_decode_per_row": lib.ct_huff0_occupancy(512),
+            "zseq_decode": lib.ct_zseq_occupancy(96),
+            "zseq_decode_shared": lib.ct_zseq_occupancy(80)}
     _say("CTAs per SM (occupancy query; exec at M = 1): " + ", ".join(
              f"{k} {v}" for k, v in ctas.items()))
     if min(ctas.values()) < 1:
@@ -1291,6 +1337,9 @@ def main() -> int:
                            "fse_chain"):
             row["ctas_per_sm"] = ctas[row["name"]]
     kernels += huff0_path(dev, blocks_np)
+    for row, key in zip(kernels[-2:], ("huff0_decode",
+                                       "huff0_decode_per_row")):
+        row["ctas_per_sm"] = ctas[key]
     zseq_rows, zdec = zstd_decode_path(dev)
     for row in kernels:
         if row["name"] == "execute_pieces":
@@ -1298,6 +1347,8 @@ def main() -> int:
         elif row.get("engine") == "table":
             row.update(zdec["huff0"])
     zseq_rows[0].update(zdec["call"])
+    for row, key in zip(zseq_rows, ("zseq_decode", "zseq_decode_shared")):
+        row["ctas_per_sm"] = ctas[key]
     kernels += zseq_rows
     kernels += other_routes(dev, blocks_np, route_counts())
 

@@ -45,7 +45,9 @@ _SIGNATURES = {
     "ct_parse_occupancy": [],
     "ct_emit_occupancy": [],
     "ct_huff0_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
-    "ct_zseq_decode": [_P] * 7 + [_I] * 5 + [_P] * 6,
+    "ct_zseq_decode": [_P] * 11 + [_I] * 8 + [_P] * 6,
+    "ct_huff0_occupancy": [_I],
+    "ct_zseq_occupancy": [_I],
 }
 
 _lib = None

@@ -393,3 +393,235 @@ def fse_inputs(kind: str):
         pks[1][:] = pack(np.int64(-128), np.int64(-128))
         tables[1] = 128
     return (*pks, n.astype(np.int32), tables.astype(np.int32))
+
+
+HUFF0_CLASSES = ("cursor_edges", "nsym_edges", "mb1", "all_11bit",
+                 "all_1bit", "nb_zero", "random_table", "wide_entries",
+                 "k20", "per_row_3", "per_row_100", "per_row_256",
+                 "per_row_300", "k7", "k64")
+
+
+def prefix_table(rng: np.random.Generator, mb: int, split: float = 0.6,
+                 nb0: float = 0.0) -> np.ndarray:
+    """A (2^mb,) int32 table sym | nb << 8 of a random prefix code of at
+    most mb bits, as ``expand_table`` lays out a Huffman table: the space
+    cut into aligned blocks by random halvings (each block halves with
+    probability ``split``), a block of 2^s entries holding one symbol of
+    mb - s bits; a share ``nb0`` of the blocks gets nb = 0."""
+    size = 1 << mb
+    tab = np.zeros(size, np.int64)
+    stack = [(0, size)]
+    while stack:
+        lo, n = stack.pop()
+        if n > 1 and (n == size or rng.random() < split):
+            stack += [(lo, n // 2), (lo + n // 2, n // 2)]
+            continue
+        nb = 0 if rng.random() < nb0 else mb - (n.bit_length() - 1)
+        tab[lo:lo + n] = int(rng.integers(0, 256)) | nb << 8
+    return tab.astype(np.int32)
+
+
+def huff0_inputs(kind: str) -> dict:
+    """Chunk-decode inputs that stress the huff0 chunk kernel's steps (the
+    bit container, the tile and table-row staging, the symbol stores), as a
+    dict: windows (NC, win) uint8, lbit and nsym (NC,) int32, tables
+    (rows, 2^max_bits) int32, per_row (0: one shared table), k, max_bits.
+
+    - ``cursor_edges``: cursors 0, 1, below and at the peek width, at the
+      window's top, just past it and far past it, and negative;
+    - ``nsym_edges``: nsym 0, 1, odd, k, above k and negative;
+    - ``mb1``: a 1-bit table; ``all_11bit``: every code 11 bits;
+      ``all_1bit``: two 1-bit codes in an 11-bit table; ``nb_zero``:
+      prefix tables with nb = 0 blocks;
+    - ``random_table``: random symbols and nb from 0 to 20 with no prefix
+      structure;
+    - ``wide_entries``: a prefix table with entries of 2^16 and more (nb
+      above 255);
+    - ``k20``: k = 20, not a multiple of 16; ``k7``: k = 7, not a
+      multiple of 4 (the symbols leave the kernel as bytes); ``k64``: k =
+      64, above what the kernel stages (symbols go straight to device
+      memory);
+    - ``per_row_C``: one 11-bit prefix table per row of C chunks, C below,
+      at and above a 256-chunk tile (several rows a tile at C = 3 and
+      100).  The per-row classes keep the cursors inside the 52-byte
+      window, as the reference's per-container scan reads them."""
+    rng = np.random.default_rng(HUFF0_CLASSES.index(kind) + 71)
+    win, k, mb, per_row, rows = 52, 32, 11, 0, 1
+    nc = 1500
+    if kind.startswith("per_row_"):
+        per_row = int(kind[len("per_row_"):])
+        rows = max(3, -(-1200 // per_row))
+        nc = rows * per_row
+    windows = rng.integers(0, 256, (nc, win)).astype(np.uint8)
+    lbit = rng.integers(8 * win - 7, 8 * win + 1, nc)
+    low = rng.random(nc) < 0.3
+    lbit[low] = rng.integers(0, 8 * win + 1, int(low.sum()))
+    nsym = rng.integers(0, k + 1, nc)
+    tabs = None
+    if kind == "cursor_edges":
+        edges = [0, 1, 5, mb - 1, mb, mb + 1, 8 * win - 1, 8 * win,
+                 8 * win + 1, 8 * win + 5, 8 * win + 40, 1 << 20, -1, -7,
+                 -200]
+        lbit[:len(edges) * 20] = np.repeat(edges, 20)
+    elif kind == "nsym_edges":
+        mb = 8
+        edges = [0, 1, 2, 3, 15, 17, 31, 32, 33, 1000, -1, -5]
+        nsym[:len(edges) * 20] = np.repeat(edges, 20)
+    elif kind == "mb1":
+        mb = 1
+        tabs = np.array([[int(rng.integers(0, 256)) | 1 << 8,
+                          int(rng.integers(0, 256)) | 1 << 8]], np.int32)
+    elif kind == "all_11bit":
+        tabs = (rng.integers(0, 256, (1, 2048)) | 11 << 8).astype(np.int32)
+    elif kind == "all_1bit":
+        tabs = np.repeat([[0x141, 0x1aa]], 1024, axis=1).astype(np.int32)
+    elif kind == "nb_zero":
+        mb = 9
+        tabs = prefix_table(rng, mb, nb0=0.15)[None]
+    elif kind == "random_table":
+        tabs = (rng.integers(0, 256, (1, 2048))
+                | rng.integers(0, 21, (1, 2048)) << 8).astype(np.int32)
+        tabs[0, 512:1024] = tabs[0, 512]          # a constant stretch
+    elif kind == "wide_entries":
+        mb = 10
+        tabs = prefix_table(rng, mb)[None].astype(np.int64)
+        tabs[0, rng.integers(0, 1 << mb, 20)] = (
+            rng.integers(0, 256, 20) | rng.integers(256, 5000, 20) << 8)
+        tabs = tabs.astype(np.int32)
+    elif kind == "k20":
+        k, mb = 20, 8
+        nsym = rng.integers(0, k + 1, nc)
+    elif kind in ("k7", "k64"):
+        k = int(kind[1:])
+        nsym = rng.integers(0, k + 1, nc)
+    if tabs is None:
+        tabs = np.stack([prefix_table(rng, mb) for _ in range(rows)])
+    return dict(windows=windows, lbit=lbit.astype(np.int32),
+                nsym=nsym.astype(np.int32), tables=tabs, per_row=per_row,
+                k=k, max_bits=mb)
+
+
+ZSEQ_CLASSES = ("cursor_edges", "shared_random", "nsym_edges", "of31_ones",
+                "rep3_r0_1", "carried_nonpositive", "per_row_3",
+                "per_row_100", "per_row_256", "per_row_300")
+_ZSEQ_SHARED = ("cursor_edges", "shared_random")
+
+
+def fse_table_set(rng: np.random.Generator, logs=(9, 8, 9),
+                  max_syms=(35, 31, 52)) -> np.ndarray:
+    """A (ZTAB,) int32 table set of FSE tables normalised from random
+    histograms (``zseq_kern.table_set``)."""
+    from compress_tpu_torch.fse import core as fse_core
+    from compress_tpu_torch.ops import zseq_kern
+
+    rows = []
+    for max_sym, log in zip(max_syms, logs):
+        hist = rng.integers(1, 50, max_sym + 1)
+        norm = fse_core.normalize_count(hist, log, int(hist.sum()), max_sym)
+        rows.append(zseq_kern.state_row(*fse_core.build_dtable(norm, log)))
+    return zseq_kern.table_set(*rows)
+
+
+def _raw_table_set(rng: np.random.Generator, syms, log: int = 9,
+                   nb_max: int = 15) -> np.ndarray:
+    """A table set of random state rows (sym from ``syms`` per stream, nb
+    up to nb_max, a new state from which every nb-bit read stays below
+    2^log, as in an FSE table)."""
+    from compress_tpu_torch.ops import zseq_kern
+
+    rows = []
+    for sy in syms:
+        nb = rng.integers(0, nb_max + 1, 1 << log)
+        rows.append(zseq_kern.state_row(
+            rng.choice(sy, 1 << log), nb,
+            rng.integers(0, (1 << log) - (1 << nb) + 1)))
+    return zseq_kern.table_set(*rows)
+
+
+def zseq_inputs(kind: str) -> dict:
+    """Sequence-decode inputs that stress the sequence kernel's steps (the
+    bit container, the 32-bit carry and its exact comparisons, the tile
+    and table-row staging), as a dict: windows (NC, win) uint8; lbit,
+    nsym (NC,) int32; nore (NC,) int32 (per-item mode) or last (NC,)
+    int32 (shared mode, ``shared`` True: win 80, k 8, one predefined-log
+    table set); states, reps (NC, 3) int32; tables (rows, ZTAB) int32;
+    per_row (0 in shared mode); k.
+
+    - ``cursor_edges`` (shared): cursors 0, small, at the window's top,
+      just and far past it, and negative;
+    - ``shared_random``: random predefined-log tables and states;
+    - ``nsym_edges``: nsym and nore 0, odd, 8, above 8 and negative;
+    - ``of31_ones``: offset codes 30, 31 and above (up to 63) with windows
+      of all ones (offset code 31 with its extra bits all ones: of_val
+      2^32 - 1), beside repeat codes;
+    - ``rep3_r0_1``: one-state tables (offset code 1, literal length 0)
+      whose every sequence is repeat code 2 or 3, at r0 = 1, 0, 2, -5,
+      INT32_MIN and INT32_MAX (the floor of repeat code 3 matters at 1
+      and below);
+    - ``carried_nonpositive``: carried offsets <= 0, INT32_MIN and
+      INT32_MAX under tables rich in repeat codes;
+    - ``per_row_C``: FSE table sets per row of C chunks, C below, at and
+      above a 256-chunk tile (several rows a tile at C = 3 and 100).
+    The per-item classes keep the cursors inside the 96-byte window."""
+    rng = np.random.default_rng(ZSEQ_CLASSES.index(kind) + 97)
+    shared = kind in _ZSEQ_SHARED
+    win, k = (80, 8) if shared else (96, 8)
+    per_row = 0 if shared else 256
+    if kind.startswith("per_row_"):
+        per_row = int(kind[len("per_row_"):])
+    rows = 1 if shared else max(3, -(-1000 // per_row))
+    nc = 1500 if shared else rows * per_row
+    windows = rng.integers(0, 256, (nc, win)).astype(np.uint8)
+    lbit = rng.integers(8 * win - 7, 8 * win + 1, nc)
+    nsym = rng.integers(0, k + 1, nc)
+    nsym[rng.random(nc) < 0.5] = k
+    logs = (6, 5, 6) if shared else (9, 8, 9)
+    states = np.stack([rng.integers(0, 1 << lg, nc) for lg in logs], 1)
+    reps = rng.integers(1, 1 << 17, (nc, 3))
+    reps[rng.random(nc) < 0.3, 0] = 1
+    tabs = None
+    if kind == "cursor_edges":
+        edges = [0, 1, 5, 31, 32, 33, 8 * win - 1, 8 * win, 8 * win + 1,
+                 8 * win + 30, 1 << 20, -1, -40]
+        lbit[:len(edges) * 20] = np.repeat(edges, 20)
+    elif kind == "nsym_edges":
+        edges = [0, 1, 3, 5, 7, 8, 9, 100, -1]
+        nsym[:len(edges) * 30] = np.repeat(edges, 30)
+    elif kind == "of31_ones":
+        tabs = np.stack([_raw_table_set(
+            rng, (np.arange(36), [0, 1, 2, 3, 30, 31, 31, 31, 40, 63],
+                  np.arange(53)), nb_max=9) for _ in range(rows)])
+        ones = rng.random(nc) < 0.5
+        windows[ones] = 255
+    elif kind == "rep3_r0_1":
+        from compress_tpu_torch.ops import zseq_kern
+
+        one = [zseq_kern.state_row([s], [0], [0]) for s in (0, 1, 0)]
+        tabs = np.stack([zseq_kern.table_set(*one)] * rows)
+        states[:] = 0
+        reps[:, 0] = rng.choice([1, 0, 2, -5, -(1 << 31), (1 << 31) - 1],
+                                nc)
+    elif kind == "carried_nonpositive":
+        tabs = np.stack([_raw_table_set(
+            rng, ([0, 0, 0, 1, 5], [0, 1, 1, 2, 3, 7], [0, 3, 9]), nb_max=9)
+            for _ in range(rows)])
+        reps = rng.choice([-3, -1, 0, 1, 2, -(1 << 31), (1 << 31) - 1],
+                          (nc, 3))
+    if tabs is None:
+        tabs = np.stack([fse_table_set(rng, logs, (35, 23, 52))
+                         for _ in range(rows)])
+    out = dict(windows=windows, lbit=lbit.astype(np.int32),
+               nsym=nsym.astype(np.int32), states=states.astype(np.int32),
+               reps=reps.astype(np.int32), tables=tabs.astype(np.int32),
+               per_row=per_row, k=k, shared=shared)
+    if shared:
+        out["last"] = (rng.random(nc) < 0.3).astype(np.int32)
+    else:
+        nore = np.minimum(nsym, rng.integers(0, k + 1, nc))
+        last = rng.random(nc) < 0.5
+        nore[last] = np.maximum(nsym - 1, 0)[last]
+        if kind == "nsym_edges":
+            nore[:len(edges) * 30] = rng.choice([0, 1, 8, 9, -2, 100],
+                                                len(edges) * 30)
+        out["nore"] = nore.astype(np.int32)
+    return out

@@ -20,9 +20,10 @@ offset, 3 FSE states and 3 repeat offsets every ZSEQ_K sequences, from
 ``zstd/seqdev.seq_accel``): 96-byte windows and one table set per item in
 the integer layout of ``ops/zseq_kern.py`` (the reference packs (16, 192)
 float32 planes for its one-hot lookups), decoded by the kernel of
-``csrc/zseqdec.cu`` with a table stride on CUDA tensors and by its plain
-version on CPU tensors.  ``zseq_decode_chunks_rep`` also resolves the
-repeat offsets in the carry.
+``csrc/zseqdec.cu`` with a table stride on CUDA tensors (one launch that
+reads the (N, C) arrays in place: no stack, cast or copy) and by its
+plain version on CPU tensors.  ``zseq_decode_chunks_rep`` also resolves
+the repeat offsets in the carry.
 """
 
 from __future__ import annotations
@@ -103,41 +104,53 @@ def huff0_decode_chunks(windows: torch.Tensor, lbit: torch.Tensor,
     if windows.device.type == "cpu":
         return huff0_decode_chunks_ref(windows, lbit, nsym, tables, k)
     _check(windows, lbit, nsym, tables)
-    N, C, win = windows.shape
-    syms, endl = launch(windows.reshape(N * C, win), lbit.reshape(-1),
-                        nsym.reshape(-1), tables, C, k, 11)
+    out = launch(windows, lbit, nsym, tables, windows.shape[1], k, 11)
     huff0_decode_chunks.launches += 1
-    return syms.view(N, C, k), endl.view(N, C)
+    return out
 
 
 huff0_decode_chunks.launches = 0
 
 
-def _zseq_args(windows, lbit, sll, sof, sml, nseq, nore, reps, tables, k):
+def _zseq_check(windows, lbit, sll, sof, sml, nseq, nore, reps, tables):
     N, C = lbit.shape
     if windows.dim() != 3 or windows.shape[:2] != (N, C) or any(
             t.shape != (N, C) for t in (sll, sof, sml, nseq, nore, *reps)) \
             or tables.shape != (N, ZK.ZTAB):
         raise ValueError("expected (N, C, win) windows, (N, C) cursors, "
                          f"states, counts and reps, (N, {ZK.ZTAB}) tables")
-    if any(t.device != windows.device
+    if any(t.get_device() != windows.get_device()
            for t in (lbit, sll, sof, sml, nseq, nore, tables, *reps)):
         raise ValueError("zseq decode: inputs on different devices")
+    return N, C
+
+
+def _zseq_plain(windows, lbit, sll, sof, sml, nseq, nore, reps, tables, k):
+    """``decode_plain`` on the per-item inputs: ((ll, ml, ofv, off) each
+    (N, C, k), end cursors (N, C))."""
+    N, C = _zseq_check(windows, lbit, sll, sof, sml, nseq, nore, reps,
+                       tables)
     states = torch.stack([sll, sof, sml], -1).reshape(N * C, 3)
     reps = torch.stack(reps, -1).reshape(N * C, 3).to(torch.int32)
-    return (windows.reshape(N * C, -1), lbit.reshape(-1), nseq.reshape(-1),
-            nore.reshape(-1), states.to(torch.int32).contiguous(),
-            reps.contiguous(), tables, C, k, True)
+    out = ZK.decode_plain(
+        windows.reshape(N * C, -1), lbit.reshape(-1), nseq.reshape(-1),
+        nore.reshape(-1), states.to(torch.int32).contiguous(),
+        reps.contiguous(), tables, C, k, True)
+    return tuple(o.view(N, C, -1) for o in out[:4]), out[4].view(N, C)
 
 
-def _zseq_run(args, plain: bool, counter):
-    C = args[7]
-    out = ZK.decode_plain(*args) if plain else ZK.launch(*args)
-    if not plain:
-        counter.launches += 1
-    nc = args[0].shape[0]
-    return (tuple(o.view(nc // C, C, -1) for o in out[:4]),
-            out[4].view(nc // C, C))
+def _zseq_launch(windows, lbit, sll, sof, sml, nseq, nore, reps, tables, k,
+                 want_off: bool):
+    """One launch of the sequence kernel on the per-item inputs as the
+    callers hold them (no stack, cast or copy for contiguous int32
+    arrays): ((ll, ml, ofv, off) each (N, C, k), off None unless
+    ``want_off``; end cursors (N, C))."""
+    N, C = _zseq_check(windows, lbit, sll, sof, sml, nseq, nore, reps or (),
+                       tables)
+    ll, ml, ofv, off, endl = ZK.launch(
+        windows, lbit, nseq, nore, (sll, sof, sml), reps, tables, C, k,
+        True, want_off=want_off)
+    return (ll, ml, ofv, off), endl
 
 
 def _initial_reps(lbit):
@@ -147,9 +160,9 @@ def _initial_reps(lbit):
 def zseq_decode_chunks_ref(windows, lbit, sll, sof, sml, nseq, nore, tables,
                            k: int = ZSEQ_K):
     """Plain version of ``zseq_decode_chunks``."""
-    args = _zseq_args(windows, lbit, sll, sof, sml, nseq, nore,
-                      _initial_reps(lbit), tables, k)
-    (ll, ml, ofv, _off), endl = _zseq_run(args, True, None)
+    (ll, ml, ofv, _off), endl = _zseq_plain(
+        windows, lbit, sll, sof, sml, nseq, nore, _initial_reps(lbit),
+        tables, k)
     return (ll, ml, ofv), endl
 
 
@@ -165,19 +178,20 @@ def zseq_decode_chunks(windows: torch.Tensor, lbit: torch.Tensor,
     reloading (the block's last sequence); tables (N, ZTAB) int32, one
     table set per item (``zseq_kern.table_set``).  Returns ((ll, ml, ofv)
     each (N, C, k) int32, end cursors (N, C) int32)."""
-    args = _zseq_args(windows, lbit, sll, sof, sml, nseq, nore,
-                      _initial_reps(lbit), tables, k)
-    (ll, ml, ofv, _off), endl = _zseq_run(
-        args, windows.device.type == "cpu", zseq_decode_chunks)
+    if windows.device.type == "cpu":
+        return zseq_decode_chunks_ref(windows, lbit, sll, sof, sml, nseq,
+                                      nore, tables, k)
+    (ll, ml, ofv, _off), endl = _zseq_launch(
+        windows, lbit, sll, sof, sml, nseq, nore, None, tables, k, False)
+    zseq_decode_chunks.launches += 1
     return (ll, ml, ofv), endl
 
 
 def zseq_decode_chunks_rep_ref(windows, lbit, sll, sof, sml, nseq, nore, r1,
                                r2, r3, tables, k: int = ZSEQ_K):
     """Plain version of ``zseq_decode_chunks_rep``."""
-    args = _zseq_args(windows, lbit, sll, sof, sml, nseq, nore, (r1, r2, r3),
-                      tables, k)
-    return _zseq_run(args, True, None)
+    return _zseq_plain(windows, lbit, sll, sof, sml, nseq, nore, (r1, r2, r3),
+                       tables, k)
 
 
 def zseq_decode_chunks_rep(windows: torch.Tensor, lbit: torch.Tensor,
@@ -190,11 +204,15 @@ def zseq_decode_chunks_rep(windows: torch.Tensor, lbit: torch.Tensor,
     carry: r1, r2, r3 (N, C) int32 are the repeat offsets at each chunk's
     entry.  Returns ((ll, ml, ofv, off) each (N, C, k) int32, end cursors
     (N, C)), off the absolute offset (RFC 8878 §3.1.1.5; repeat code 3 at
-    r1 = 1 gives 1, as the reference's scan does)."""
-    args = _zseq_args(windows, lbit, sll, sof, sml, nseq, nore, (r1, r2, r3),
-                      tables, k)
-    return _zseq_run(args, windows.device.type == "cpu",
-                     zseq_decode_chunks_rep)
+    r1 = 1 gives 1, as the reference's scan does).  On CUDA tensors one
+    launch reads the arrays in place."""
+    if windows.device.type == "cpu":
+        return zseq_decode_chunks_rep_ref(windows, lbit, sll, sof, sml, nseq,
+                                          nore, r1, r2, r3, tables, k)
+    out = _zseq_launch(windows, lbit, sll, sof, sml, nseq, nore,
+                       (r1, r2, r3), tables, k, True)
+    zseq_decode_chunks_rep.launches += 1
+    return out
 
 
 zseq_decode_chunks.launches = 0

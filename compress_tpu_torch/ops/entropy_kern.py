@@ -11,7 +11,9 @@ Inactive steps emit 0 and keep the cursor.
 ``huff0_decode_chunks_shared`` launches the CUDA kernel
 (``csrc/huff0dec.cu``) on CUDA tensors and runs
 ``huff0_decode_chunks_shared_ref`` on CPU tensors.  The same kernel, with
-one 2048-entry table per container, serves ``ops/entropy_dec.py``.
+one 2048-entry table per container, serves ``ops/entropy_dec.py``.  On
+CUDA tensors a call is one launch and one allocation (symbols and end
+cursors are views of it).
 """
 
 from __future__ import annotations
@@ -68,28 +70,46 @@ def decode_chunks_plain(windows, lbit, nsym, tabs, per_row: int, k: int,
 
 def launch(windows, lbit, nsym, tabs, per_row: int, k: int, max_bits: int):
     """Run ``csrc/huff0dec.cu`` on CUDA tensors (arguments as for
-    ``decode_chunks_plain``); returns (syms, end cursors)."""
-    nc, win = windows.shape
+    ``decode_chunks_plain``, the windows (..., win) with NC rows and lbit,
+    nsym NC contiguous int32); returns (syms (..., k), end cursors (...))
+    shaped like the windows' leading dimensions, views of one allocation.
+    Its checks read only shapes, types and devices."""
+    win = windows.shape[-1]
+    lead = windows.shape[:-1]
+    nc = windows.numel() // win if win else 0
     rows = -(-nc // per_row) if per_row else 1
-    _cuda.require_cuda_input(windows, "windows", torch.uint8, (nc, win))
-    _cuda.require_cuda_input(lbit, "lbit", torch.int32, (nc,))
-    _cuda.require_cuda_input(nsym, "nsym", torch.int32, (nc,))
-    _cuda.require_cuda_input(tabs, "tables", torch.int32,
-                             (rows, 1 << max_bits))
-    if win % 4 or win > 64 or windows.data_ptr() % 4:
-        raise ValueError("windows: expected a 4-byte aligned width, a "
-                         f"multiple of 4 up to 64 bytes, got {win}")
+    gd = windows.get_device()
+    if gd < 0 or windows.dtype != torch.uint8 \
+            or not windows.is_contiguous():
+        raise ValueError("windows: expected a contiguous CUDA uint8 tensor")
+    for name, t, n in (("lbit", lbit, nc), ("nsym", nsym, nc),
+                       ("tables", tabs, rows << max_bits)):
+        if t.dtype != torch.int32 or t.numel() != n \
+                or t.get_device() != gd or not t.is_contiguous():
+            raise ValueError(f"{name}: expected {n} contiguous int32 on "
+                             f"cuda:{gd}, got {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}")
+    if win % 4 or win > 64 or win < 4:
+        raise ValueError("windows: expected a width that is a multiple of "
+                         f"4 up to 64 bytes, got {win}")
     if not 1 <= max_bits <= 11 or k < 1:
         raise ValueError(f"expected 1 <= max_bits <= 11 and k >= 1, got "
                          f"{max_bits}, {k}")
-    dev = windows.device
-    syms = torch.empty((nc, k), dtype=torch.uint8, device=dev)
-    endl = torch.empty((nc,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = _cuda.library().ct_huff0_decode(
-            windows.data_ptr(), lbit.data_ptr(), nsym.data_ptr(),
+    windows = _cuda.aligned(windows)
+    sym_bytes = -(-nc * k // 16) * 16
+    buf = torch.empty(sym_bytes + 4 * nc, dtype=torch.uint8,
+                      device=windows.device)
+    syms = buf[:nc * k].view(*lead, k)
+    endl = buf[sym_bytes:].view(torch.int32).view(lead)
+    args = (windows.data_ptr(), lbit.data_ptr(), nsym.data_ptr(),
             tabs.data_ptr(), per_row, nc, win, k, max_bits, syms.data_ptr(),
-            endl.data_ptr(), _cuda.stream(dev))
+            endl.data_ptr(), torch._C._cuda_getCurrentRawStream(gd))
+    lib = _cuda.library()
+    if gd == torch.cuda.current_device():
+        rc = lib.ct_huff0_decode(*args)
+    else:
+        with torch.cuda.device(gd):
+            rc = lib.ct_huff0_decode(*args)
     _cuda.check(rc, "huff0 decode")
     return syms, endl
 

@@ -18,7 +18,13 @@ extra bits are the code and its value 1 << code plus them.
 
 ``zseq_decode_chunks_shared`` launches the CUDA kernel
 (``csrc/zseqdec.cu``) on CUDA tensors and runs
-``zseq_decode_chunks_shared_ref`` on CPU tensors.  ``prep_frames`` builds
+``zseq_decode_chunks_shared_ref`` on CPU tensors.  ``launch`` is the one
+entry to the kernel for both modes: it reads the states and repeat
+offsets as the callers hold them (three arrays, or strided views of an
+(NC, 3) array), takes ``last`` in place of the reload limit where asked,
+writes of_val and the resolved offset only where wanted, and returns
+views of one allocation; for int32 inputs it does no device work but the
+launch.  ``prep_frames`` builds
 its inputs from single-block predefined-table frames that carry a sidecar
 with sequence checkpoints.
 """
@@ -181,38 +187,113 @@ def decode_plain(windows, lbit, nsym, nore, states, reps, tabs,
     return (*outs, lbp.to(torch.int32))
 
 
+def _rows_of(t: torch.Tensor, nc: int, gd: int, name: str):
+    """(tensor, element stride) of a per-chunk int32 array on card gd
+    that the kernel reads at chunk * stride: ``t`` itself where it is
+    int32 and either contiguous or 1-D (a column of an (NC, 3) array),
+    else a contiguous int32 copy (other integer types)."""
+    if t.get_device() != gd:
+        raise ValueError(f"{name}: expected a tensor on cuda:{gd}, got "
+                         f"{t.device}")
+    if t.numel() != nc:
+        raise ValueError(f"{name}: expected {nc} elements, got "
+                         f"{tuple(t.shape)}")
+    if t.dtype == torch.int32:
+        if t.is_contiguous():
+            return t, 1
+        if t.dim() == 1 and t.stride(0) > 0:
+            return t, t.stride(0)
+    return t.reshape(-1).to(torch.int32).contiguous(), 1
+
+
+def _three(cols, nc: int, gd: int, names):
+    """Three per-chunk arrays read with one stride (copied to contiguous
+    int32 where their strides differ) and that stride."""
+    got = [_rows_of(t, nc, gd, n) for t, n in zip(cols, names)]
+    stride = got[0][1]
+    if any(st != stride for _t, st in got):
+        got = [(t.reshape(-1).to(torch.int32).contiguous(), 1)
+               for t, _st in got]
+        stride = 1
+    return [t for t, _st in got], stride
+
+
 def launch(windows, lbit, nsym, nore, states, reps, tabs, per_row: int,
-           k: int, rep3_floor: bool):
-    """Run ``csrc/zseqdec.cu`` on CUDA tensors (arguments as for
-    ``decode_plain``); returns (ll, ml, of_val, off, end cursors)."""
-    nc, win = windows.shape
-    rows = -(-nc // per_row) if per_row else 1
-    _cuda.require_cuda_input(windows, "windows", torch.uint8, (nc, win))
-    for name, t in (("lbit", lbit), ("nsym", nsym), ("nore", nore)):
-        _cuda.require_cuda_input(t, name, torch.int32, (nc,))
-    _cuda.require_cuda_input(states, "states", torch.int32, (nc, 3))
-    _cuda.require_cuda_input(reps, "reps", torch.int32, (nc, 3))
-    _cuda.require_cuda_input(tabs, "tables", torch.int32, (rows, ZTAB))
-    if win % 4 or win > 96 or windows.data_ptr() % 4:
-        raise ValueError("windows: expected a 4-byte aligned width, a "
-                         f"multiple of 4 up to 96 bytes, got {win}")
+           k: int, rep3_floor: bool, nore_is_last: bool = False,
+           want_ofv: bool = True, want_off: bool = True):
+    """Run ``csrc/zseqdec.cu`` on CUDA tensors: windows (..., win) uint8
+    with NC rows ((NC, win), or (N, C, win) for NC = N * C); lbit, nsym
+    NC int32 (any shape, contiguous); nore NC integers, or ``last`` with
+    ``nore_is_last`` (nore = nsym - (last > 0)); states (sll, sof, sml)
+    and reps (r1, r2, r3) three NC-element integer arrays each, read in
+    place where int32 and contiguous or 1-D (the columns of an (NC, 3)
+    array), reps None for 1, 4, 8; tabs (rows, ZTAB) int32 as for
+    ``decode_plain``.  One launch and no other device work for int32
+    inputs; every output comes from one allocation.  Returns (ll, ml,
+    of_val, off) shaped (..., k) like the windows' leading dimensions
+    (of_val and off None where not wanted) and the end cursors shaped
+    like them."""
+    win = windows.shape[-1]
+    lead = windows.shape[:-1]
+    nc = windows.numel() // win if win else 0
+    gd = windows.get_device()
+    if gd < 0 or windows.dtype != torch.uint8 \
+            or not windows.is_contiguous():
+        raise ValueError("windows: expected a contiguous CUDA uint8 tensor")
+    if win % 4 or win > 96 or win < 4:
+        raise ValueError("windows: expected a width that is a multiple of "
+                         f"4 up to 96 bytes, got {win}")
     if not 1 <= k <= 8:
         raise ValueError(f"expected 1 <= k <= 8, got {k}")
-    dev = windows.device
-    outs = [torch.empty((nc, k), dtype=torch.int32, device=dev)
-            for _ in range(4)]
-    endl = torch.empty((nc,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = _cuda.library().ct_zseq_decode(
-            windows.data_ptr(), lbit.data_ptr(), nsym.data_ptr(),
-            nore.data_ptr(), states.data_ptr(), reps.data_ptr(),
-            tabs.data_ptr(), per_row, nc, win, k, int(rep3_floor),
-            *(o.data_ptr() for o in outs), endl.data_ptr(), _cuda.stream(dev))
+    rows = -(-nc // per_row) if per_row else 1
+    if tabs.dtype != torch.int32 or tabs.shape != (rows, ZTAB) \
+            or tabs.get_device() != gd or not tabs.is_contiguous():
+        raise ValueError(f"tables: expected contiguous ({rows}, {ZTAB}) "
+                         "int32 on the windows' device")
+    for name, t in (("lbit", lbit), ("nsym", nsym)):
+        if t.dtype != torch.int32 or t.numel() != nc \
+                or t.get_device() != gd or not t.is_contiguous():
+            raise ValueError(f"{name}: expected {nc} contiguous int32 on "
+                             "the windows' device")
+    nore, nstride = _rows_of(nore, nc, gd, "last" if nore_is_last
+                             else "nore")
+    if nstride != 1:
+        nore = nore.contiguous()
+    st, st_stride = _three(states, nc, gd, ("sll", "sof", "sml"))
+    if reps is None:
+        rp, rp_stride = (None, None, None), 0
+    else:
+        rp, rp_stride = _three(reps, nc, gd, ("r1", "r2", "r3"))
+    windows = _cuda.aligned(windows)
+    tabs = _cuda.aligned(tabs)
+    n_out = 2 + want_ofv + want_off
+    buf = torch.empty(n_out * nc * k + nc, dtype=torch.int32,
+                      device=windows.device)
+    outs = buf[:n_out * nc * k].view(n_out, *lead, k).unbind(0)
+    endl = buf[n_out * nc * k:].view(lead)
+    ll, ml = outs[0], outs[1]
+    ofv = outs[2] if want_ofv else None
+    off = outs[-1] if want_off else None
+    cur = torch.cuda.current_device()
+    args = (windows.data_ptr(), lbit.data_ptr(), nsym.data_ptr(),
+            nore.data_ptr(), *(t.data_ptr() for t in st),
+            *(None if t is None else t.data_ptr() for t in rp),
+            tabs.data_ptr(), win, int(nore_is_last), st_stride, rp_stride,
+            per_row, nc, k, int(rep3_floor), ll.data_ptr(), ml.data_ptr(),
+            None if ofv is None else ofv.data_ptr(),
+            None if off is None else off.data_ptr(), endl.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(gd))
+    lib = _cuda.library()
+    if gd == cur:
+        rc = lib.ct_zseq_decode(*args)
+    else:
+        with torch.cuda.device(gd):
+            rc = lib.ct_zseq_decode(*args)
     _cuda.check(rc, "zseq decode")
-    return (*outs, endl)
+    return ll, ml, ofv, off, endl
 
 
-def _shared_args(windows, lbit, nsym, states, reps, last, tables):
+def _shared_check(windows, lbit, nsym, states, reps, last, tables):
     nc = windows.shape[0]
     if windows.dim() != 2 \
             or any(t.shape != (nc,) for t in (lbit, nsym, last)) \
@@ -225,6 +306,10 @@ def _shared_args(windows, lbit, nsym, states, reps, last, tables):
     if any(t.device != windows.device
            for t in (lbit, nsym, states, reps, last, tables)):
         raise ValueError("zseq decode: inputs on different devices")
+
+
+def _shared_args(windows, lbit, nsym, states, reps, last, tables):
+    _shared_check(windows, lbit, nsym, states, reps, last, tables)
     # no reload after the block's last sequence
     nore = (nsym - (last > 0).to(nsym.dtype)).to(torch.int32)
     return (windows, lbit, nsym, nore, states, reps, tables.reshape(1, -1),
@@ -246,12 +331,17 @@ def zseq_decode_chunks_shared(windows: torch.Tensor, lbit: torch.Tensor,
     """windows (NC, WIN) uint8; lbit, nsym, last (NC,) int32 (last > 0 on
     a block's final chunk); states (NC, 3) int32 in ll, of, ml order;
     reps (NC, 3) int32; tables (ZTAB,) int32 (``pack_tables``).  Returns
-    (ll, ml, off) each (NC, K) int32 and the end cursors (NC,) int32."""
-    args = _shared_args(windows, lbit, nsym, states, reps, last, tables)
+    (ll, ml, off) each (NC, K) int32 and the end cursors (NC,) int32.  On
+    CUDA tensors one launch reads every input in place: the kernel takes
+    ``last`` and applies the reload rule itself, and writes no of_val."""
     if windows.device.type == "cpu":
-        ll, ml, _ofv, off, endl = decode_plain(*args)
-        return ll, ml, off, endl
-    ll, ml, _ofv, off, endl = launch(*args)
+        return zseq_decode_chunks_shared_ref(windows, lbit, nsym, states,
+                                             reps, last, tables)
+    _shared_check(windows, lbit, nsym, states, reps, last, tables)
+    ll, ml, _ofv, off, endl = launch(
+        windows, lbit, nsym, last, states.unbind(1), reps.unbind(1),
+        tables.reshape(1, -1), 0, K, False, nore_is_last=True,
+        want_ofv=False)
     zseq_decode_chunks_shared.launches += 1
     return ll, ml, off, endl
 

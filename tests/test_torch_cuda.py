@@ -12,7 +12,12 @@ finder's, the chain kernels (repeat scan, FSE chain) on batches of 1, 133
 and 512 blocks and on ``corpus.rep_inputs`` / ``corpus.fse_inputs``, and
 the LZ execute on compact and padded plans of every arena class, on
 ``corpus.exec_hostile_plans`` and, through its sum kernel, on
-``corpus.exec_sum_plans``.
+``corpus.exec_sum_plans``, and the huff0 chunk and sequence decoders on
+every class of ``corpus.huff0_inputs`` / ``corpus.zseq_inputs`` in every
+mode (shared table, a table per row, the per-container and per-item
+entries; every k from 1 to 8 and both repeat-code-3 rules for the
+sequences), with a profiler trace that shows each entry launching its
+kernel and nothing else.
 Without a card every test here skips.
 
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -652,7 +657,7 @@ def _table(max_bits: int, seed: int) -> np.ndarray:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [32, 20])
+@pytest.mark.parametrize("k", [32, 20, 7, 64])
 @pytest.mark.parametrize("max_bits", [1, 8, 11])
 def test_huff0_kernel_shared_matches_plain(cuda_device, k, max_bits):
     chunks = _chunks(1000, entropy_dec.WIN, k, seed=max_bits + k)
@@ -856,3 +861,177 @@ def test_zseq_kernel_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         zseq_kern.zseq_decode_chunks_shared(w, lb, ns, st, rp, last,
                                             tab.cpu())
+
+
+def _huff0_rows(d, per_row: int):
+    """The class's tables as one row per ``per_row`` chunks (its own rows
+    where it has them, else its table repeated)."""
+    nc = d["windows"].shape[0]
+    rows = -(-nc // per_row)
+    tabs = d["tables"]
+    return tabs if len(tabs) == rows else np.repeat(tabs[:1], rows, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", corpus.HUFF0_CLASSES)
+def test_huff0_kernel_hostile(cuda_device, kind):
+    """Every hostile class through the shared-table entry, the kernel
+    with a table per 100 chunks (and per the class's own rows), and,
+    where the peek is 11 bits, the per-container entry (the table engine
+    and the zstd literals)."""
+    d = corpus.huff0_inputs(kind)
+    k, mb = d["k"], d["max_bits"]
+    w, lb, ns = (torch.from_numpy(d[key]).to(cuda_device)
+                 for key in ("windows", "lbit", "nsym"))
+    tab0 = torch.from_numpy(d["tables"][0]).to(cuda_device)
+    before = entropy_kern.huff0_decode_chunks_shared.launches
+    got = entropy_kern.huff0_decode_chunks_shared(w, lb, ns, tab0, k=k,
+                                                  max_bits=mb)
+    want = entropy_kern.huff0_decode_chunks_shared_ref(w, lb, ns, tab0, k=k,
+                                                       max_bits=mb)
+    torch.cuda.synchronize()
+    assert entropy_kern.huff0_decode_chunks_shared.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for per_row in sorted({100, d["per_row"]} - {0}):
+        tabs = torch.from_numpy(_huff0_rows(d, per_row)).to(cuda_device)
+        got = entropy_kern.launch(w, lb, ns, tabs, per_row, k, mb)
+        want = entropy_kern.decode_chunks_plain(w, lb, ns, tabs, per_row, k,
+                                                mb)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), per_row
+        nc = w.shape[0]
+        if mb == 11 and nc % per_row == 0:
+            N = nc // per_row
+            args = (w.view(N, per_row, -1), lb.view(N, per_row),
+                    ns.view(N, per_row), tabs)
+            before = entropy_dec.huff0_decode_chunks.launches
+            got = entropy_dec.huff0_decode_chunks(*args, k=k)
+            want = entropy_dec.huff0_decode_chunks_ref(*args, k=k)
+            torch.cuda.synchronize()
+            assert entropy_dec.huff0_decode_chunks.launches == before + 1
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", corpus.ZSEQ_CLASSES)
+def test_zseq_kernel_hostile(cuda_device, kind):
+    """Every hostile class through its entry point (shared, or per item
+    with and without the repeat offsets), then the kernel itself at every
+    k from 1 to 8, under both repeat-code-3 rules, with one table set and
+    with the class's per-row sets, against ``decode_plain``."""
+    d = corpus.zseq_inputs(kind)
+    t = {key: torch.from_numpy(d[key]).to(cuda_device)
+         for key in ("windows", "lbit", "nsym", "states", "reps", "tables")}
+    if d["shared"]:
+        last = torch.from_numpy(d["last"]).to(cuda_device)
+        args = (t["windows"], t["lbit"], t["nsym"], t["states"], t["reps"],
+                last, t["tables"][0])
+        before = zseq_kern.zseq_decode_chunks_shared.launches
+        got = zseq_kern.zseq_decode_chunks_shared(*args)
+        want = zseq_kern.zseq_decode_chunks_shared_ref(*args)
+        torch.cuda.synchronize()
+        assert zseq_kern.zseq_decode_chunks_shared.launches == before + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        nore = t["nsym"] - (last > 0).to(torch.int32)
+    else:
+        nore = torch.from_numpy(d["nore"]).to(cuda_device)
+        C = d["per_row"]
+        N = t["lbit"].shape[0] // C
+        cols = [x.view(N, C) for x in (t["lbit"], *t["states"].unbind(1),
+                                       t["nsym"], nore)]
+        cols = [c.contiguous() for c in cols]
+        reps = [x.contiguous().view(N, C) for x in t["reps"].unbind(1)]
+        wv = t["windows"].view(N, C, -1)
+        for fn, ref, extra in (
+                (entropy_dec.zseq_decode_chunks_rep,
+                 entropy_dec.zseq_decode_chunks_rep_ref, reps),
+                (entropy_dec.zseq_decode_chunks,
+                 entropy_dec.zseq_decode_chunks_ref, [])):
+            before = fn.launches
+            (got, got_e) = fn(wv, *cols, *extra, t["tables"])
+            (want, want_e) = ref(wv, *cols, *extra, t["tables"])
+            torch.cuda.synchronize()
+            assert fn.launches == before + 1
+            assert torch.equal(got_e, want_e)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+    nore = nore.to(torch.int32).contiguous()
+    for per_row, tabs in ((0, t["tables"][:1]),
+                          (d["per_row"], t["tables"])):
+        for k in range(1, 9):
+            for floor in (False, True):
+                got = zseq_kern.launch(
+                    t["windows"], t["lbit"], t["nsym"], nore,
+                    t["states"].unbind(1), t["reps"].unbind(1), tabs,
+                    per_row, k, floor)
+                want = zseq_kern.decode_plain(
+                    t["windows"], t["lbit"], t["nsym"], nore, t["states"],
+                    t["reps"], tabs, per_row, k, floor)
+                torch.cuda.synchronize()
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b), (per_row, k, floor)
+
+
+@pytest.mark.cuda
+def test_decode_kernels_one_launch_no_other_work(cuda_device):
+    """On int32 inputs the sequence and huff0 entries launch their kernel
+    and nothing else (no stack, cast or copy kernel in a profiler trace),
+    and their outputs are views of one allocation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    d = corpus.zseq_inputs("per_row_300")
+    t = {key: torch.from_numpy(d[key]).to(cuda_device)
+         for key in ("windows", "lbit", "nsym", "nore", "tables")}
+    N, C = len(d["tables"]), d["per_row"]
+    cols = [torch.from_numpy(np.ascontiguousarray(x.reshape(N, C))).to(
+        cuda_device) for x in (d["lbit"], *d["states"].T, d["nsym"],
+                               d["nore"], *d["reps"].T)]
+    h = corpus.huff0_inputs("per_row_300")
+    hw = [torch.from_numpy(h[key]).to(cuda_device)
+          for key in ("windows", "lbit", "nsym", "tables")]
+    hn = hw[0].shape[0] // 300
+    calls = [lambda: entropy_dec.zseq_decode_chunks_rep(
+        t["windows"].view(N, C, -1), *cols, t["tables"]),
+        lambda: entropy_dec.huff0_decode_chunks(
+            hw[0].view(hn, 300, -1), hw[1].view(hn, 300),
+            hw[2].view(hn, 300), hw[3])]
+    for call in calls:
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = call()
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        assert len(names) == 1 and "decode_kernel" in names.pop()
+        flat = [x for x in (*out[0], out[1]) if x is not None] \
+            if isinstance(out[0], tuple) else list(out)
+        bases = {x.untyped_storage().data_ptr() for x in flat}
+        assert len(bases) == 1
+
+
+@pytest.mark.cuda
+def test_zseq_kernel_repeatable(cuda_device):
+    """Tiles that span two table sets and CTAs that keep a set staged for
+    their next tile: twenty launches give the plain version's outputs
+    each time (a slot restaged while another warp still read it would
+    show here)."""
+    d = corpus.zseq_inputs("per_row_300")
+    reps = 12
+    t = {key: torch.from_numpy(np.concatenate([d[key]] * reps)).to(
+        cuda_device) for key in ("windows", "lbit", "nsym", "nore", "states",
+                                  "reps", "tables")}
+    args = (t["windows"], t["lbit"], t["nsym"], t["nore"],
+            t["states"].unbind(1), t["reps"].unbind(1), t["tables"], 300, 8,
+            True)
+    want = zseq_kern.decode_plain(
+        t["windows"], t["lbit"], t["nsym"], t["nore"], t["states"],
+        t["reps"], t["tables"], 300, 8, True)
+    for _ in range(20):
+        got = zseq_kern.launch(*args)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)

@@ -253,3 +253,53 @@ def test_no_device_raises_without_cuda(monkeypatch):
     conts, accel = H.compress_4x_batch(arr, return_accel=True, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         H.decompress_4x_batch(conts, accel=accel)
+
+
+def _xla_holds(d) -> bool:
+    """Whether the reference's per-container scan reads the class as the
+    plain version does: 52-byte windows, an 11-bit peek, nb below 16 (its
+    float table packs sym * 16 + nb) and cursors up to the window's top
+    (above it the scan reads its last halfword again)."""
+    nb = d["tables"] >> 8
+    return (d["windows"].shape[1] == ED.WIN and d["max_bits"] == 11
+            and nb.max() < 16 and d["lbit"].max() <= 8 * ED.WIN)
+
+
+@pytest.mark.parametrize("kind", corpus.HUFF0_CLASSES)
+def test_hostile_chunks_match_jax(kind):
+    """Each ``corpus.huff0_inputs`` class: the shared-table plain decode
+    (its first table) equals JAX ``huff0_decode_chunks_shared(interpret=
+    True)``, and where the reference's scan reads the class as the plain
+    version does, the per-container plain decode (100 chunks a table, or
+    the class's own rows) equals JAX ``huff0_decode_chunks``."""
+    d = corpus.huff0_inputs(kind)
+    k, mb = d["k"], d["max_bits"]
+    flat = (d["windows"], d["lbit"], d["nsym"])
+    got = EK.huff0_decode_chunks_shared(
+        *map(torch.from_numpy, flat), torch.from_numpy(d["tables"][0]), k=k,
+        max_bits=mb)
+    want = jax_ep.huff0_decode_chunks_shared(
+        *map(jnp.asarray, flat), jnp.asarray(d["tables"][0]), k=k,
+        max_bits=mb, interpret=True)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    if not _xla_holds(d):
+        return
+    C = d["per_row"] or 100
+    N = len(d["lbit"]) // C
+    tabs = d["tables"] if len(d["tables"]) == N else np.repeat(
+        d["tables"][:1], N, 0)
+    args = (d["windows"].reshape(N, C, -1), d["lbit"].reshape(N, C),
+            d["nsym"].reshape(N, C), tabs)
+    syms, endl = ED.huff0_decode_chunks(*map(torch.from_numpy, args), k=k)
+    want_s, want_e = jax_ed.huff0_decode_chunks(
+        *map(jnp.asarray, args[:3] + (_jax_tables(tabs),)), k=k)
+    # the scan's zero fill below bit 0 multiplies by a float power of two
+    # built from the exponent field, which holds down to a cursor of about
+    # -116: compare the chunks whose cursor stays above -100 (the cursor
+    # only falls, so the end cursor is the lowest)
+    held = endl.numpy() >= -100
+    assert held.mean() > 0.5
+    assert np.array_equal(syms.numpy().astype(np.int32)[held],
+                          np.asarray(want_s)[held])
+    assert np.array_equal(endl.numpy()[held], np.asarray(want_e)[held])

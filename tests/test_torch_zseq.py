@@ -376,3 +376,67 @@ def test_offset_code_gate(code):
     want = jax_sd.decode_sequences_device(_jax_items([item]))[0]
     for g, w, x in zip(got, want, (lls, mls, ofv)):
         assert np.array_equal(g, w) and np.array_equal(g, x)
+
+
+_I32_MIN = -(1 << 31)
+
+
+@pytest.mark.parametrize("kind", [c for c in corpus.ZSEQ_CLASSES
+                                  if c != "of31_ones"])
+def test_hostile_chunks_match_jax(kind):
+    """Each ``corpus.zseq_inputs`` class against the reference its mode
+    follows (``of31_ones``, with offset codes beyond 23, the XLA scan's
+    exact range, is held against the plain version alone: in the model
+    and on the card).
+
+    Shared-mode classes: the plain shared decode against JAX
+    ``zseq_decode_chunks_shared(interpret=True)`` (repeat code 3 at r1 = 1
+    gives 0) on every chunk whose cursor stays at or above bit 0: the
+    Pallas kernel takes each sequence's 64 bits below the cursor with a
+    zero-fill shift it keeps in [0, 64), which holds only there.
+
+    Per-item classes: the plain decodes with and without the repeat
+    offsets against the XLA ``zseq_decode_chunks(_rep)`` (repeat code 3
+    floored at 1), every output of every chunk, except the resolved
+    offsets of chunks that enter with a repeat offset of INT32_MIN: there
+    the scan floors r1 - 1 after an int32 wrap (INT32_MAX) where the plain
+    version floors the 64-bit value (1), a departure that ROADMAP.md
+    queue 3 records; its repair adds those chunks to the comparison."""
+    d = corpus.zseq_inputs(kind)
+    if d["shared"]:
+        args = (d["windows"], d["lbit"], d["nsym"], d["states"], d["reps"],
+                d["last"])
+        tst, xb = _pallas_tables(d["tables"][0])
+        want = jax_zp.zseq_decode_chunks_shared(
+            *map(jnp.asarray, args), tst, xb, interpret=True)
+        got = ZK.zseq_decode_chunks_shared(*map(torch.from_numpy, (
+            *args, d["tables"][0])))
+        held = got[3].numpy() >= 0
+        assert held.mean() > 0.8
+        for g, w in zip(got, want):
+            assert np.array_equal(g.numpy()[held], np.asarray(w)[held])
+        return
+    C = d["per_row"]
+    N = len(d["lbit"]) // C
+    cols = [np.ascontiguousarray(x).reshape(N, C) for x in (
+        d["lbit"], *d["states"].T, d["nsym"], d["nore"])]
+    reps = [np.ascontiguousarray(x).reshape(N, C) for x in d["reps"].T]
+    wj = d["windows"].reshape(N, C, -1)
+    jt = [np.stack(p) for p in zip(*(_xla_tables(t) for t in d["tables"]))]
+    got, got_e = ED.zseq_decode_chunks_rep(
+        *map(torch.from_numpy, [wj, *cols, *reps, d["tables"]]))
+    want, want_e = jax_ed.zseq_decode_chunks_rep(
+        *map(jnp.asarray, [wj, *cols, *reps]), *map(jnp.asarray, jt))
+    assert np.array_equal(got_e.numpy(), np.asarray(want_e))
+    for g, x in zip(got[:3], want[:3]):
+        assert np.array_equal(g.numpy(), np.asarray(x))
+    wraps = np.any([r == _I32_MIN for r in reps], axis=0)
+    off, want_off = got[3].numpy(), np.asarray(want[3])
+    assert np.array_equal(off[~wraps], want_off[~wraps])
+    got, got_e = ED.zseq_decode_chunks(
+        *map(torch.from_numpy, [wj, *cols, d["tables"]]))
+    want, want_e = jax_ed.zseq_decode_chunks(
+        *map(jnp.asarray, [wj, *cols]), *map(jnp.asarray, jt))
+    assert np.array_equal(got_e.numpy(), np.asarray(want_e))
+    for g, x in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(x))
