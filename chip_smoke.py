@@ -11,10 +11,10 @@ mixing every class of ``compress_tpu_torch.corpus``):
 1. prints the device (name, count, ``nvidia-smi`` name and power limit);
 2. builds the kernels and prints the seconds it took, each kernel's
    registers and spills (ptxas), and the CTAs per SM of the exec, zstd
-   parse, emit, repeat-scan, FSE-chain, huff0 chunk and sequence kernels
-   (the runtime's occupancy query; huff0 at 52-byte windows with one
-   8-bit table and with 11-bit tables of 512 chunks, sequences at 96-byte
-   and 80-byte windows);
+   parse, emit, repeat-scan, FSE-chain, huff0 chunk, sequence and
+   history-execute kernels (the runtime's occupancy query; huff0 at
+   52-byte windows with one 8-bit table and with 11-bit tables of 512
+   chunks, sequences at 96-byte and 80-byte windows);
 3. makes the corpus;
 4. holds the finder kernel (cap 10 and the slim cap 6) against its plain
    PyTorch version on the card: (off, L) must be bit-identical;
@@ -101,7 +101,32 @@ Batched zstd frame decode (``zstd.device_dec.decompress_frames_device``):
     traces one call, listing every device item (no stack or cast kernel
     beside the three decode kernels).
 
-The routes no path sends, which take the inputs the reference takes:
+20. the accel route: the 128 text blocks of phase 16, each through the
+    port's ``zstd.accel.compress_accel(level=1)`` (one frame of one block
+    and its sidecar; encoded in a pool of worker processes, the seconds
+    of the calls and of ``build_sidecar`` alone printed with the sidecar
+    bytes as a share of the frame bytes); runs
+    ``decompress_frames_device`` on the split items with the launch
+    counters set to 0 just before and read just after: every route
+    ``accel``, no call of the host walks (``_hwalk``, ``seq_accel``),
+    launches {huff0 1, exec 1, sequences 0}, every item equal to its
+    input; times the whole call on the host clock (median of 2), prints
+    its stages and traces one call;
+21. the multi-block accel route: ``corpus.history_streams`` (8 streams of
+    1 MiB, 4 if their encode takes over ``ENCODE_CUT_S``), each through
+    ``compress_accel(level=1, multi_block=True, hist_blocks=8)``: one
+    frame of 16 blocks of 64 KiB with 512 KiB of history; runs
+    ``decompress_frames_device`` with the counters: every route
+    ``accel_mb``, no host walk, no host frame, one launch each of the
+    huff0 kernel and the history execute (``execute_blocks_hist``), every
+    stream equal to its input; holds the history kernel against its
+    plain version on the path's own packed plan, times both (the kernel
+    by device time too), prints the history pieces and bytes, the
+    kernel's bound and the whole call's GB/s of output (median of 2),
+    and traces one call.
+
+The routes no path sends, which take the inputs the reference takes
+(run after every main path):
 
 19. holds the zstd parse and the S2 emit at a cap other than the
     finder's (the run-time cap instantiation) on the hostile parse inputs
@@ -120,7 +145,10 @@ of standard output is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
+import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
@@ -132,6 +160,8 @@ import torch
 N_BLOCKS = 256      # 16 MiB: one launch of MAX_LAUNCH_BLOCKS
 TEXT_FRAMES = 128   # 64 KiB text frames for the zstd frame decode
 ENCODE_CUT_S = 90   # half the frames encoded slower than this: keep half
+HIST_STREAMS = 8    # 1 MiB streams of the multi-block accel route
+HIST_BLOCKS = 8     # their history: compress_accel's default
 SEED = 0
 ZSTD_JOB = 4 << 20  # the v2 encoder's default job
 ZSTD_JOBS = 8       # one launch of the default max_launch_jobs
@@ -1038,7 +1068,267 @@ def zstd_decode_path(dev):
                  "host_decode_s": hdec_s, "stages_s": stats["s"],
                  "h2d_ms": h2d_ms},
     }
-    return rows_out, extra
+    return rows_out, extra, text_data
+
+
+def _encode_accel(job):
+    """Pool worker: one input through ``compress_accel(level=1)``.
+    Returns (the stream, the call's seconds, the seconds of its
+    ``build_sidecar`` calls, sidecar bytes, frame bytes)."""
+    from compress_tpu_torch.zstd import accel as AC
+
+    data, multi_block = job
+    build, spent = AC.build_sidecar, [0.0]
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return build(*a, **kw)
+        finally:
+            spent[0] += time.perf_counter() - t
+
+    AC.build_sidecar = timed   # this worker's module only
+    try:
+        t0 = time.perf_counter()
+        blob = AC.compress_accel(data, level=1, multi_block=multi_block,
+                                 hist_blocks=HIST_BLOCKS)
+        t_call = time.perf_counter() - t0
+    finally:
+        AC.build_sidecar = build
+    items = AC.split_stream_accel(blob)
+    payload, frame = AC.split_sidecar(items[0])
+    if len(items) != 1 or payload is None:
+        raise AssertionError("compress_accel did not give one frame after "
+                             "its sidecar")
+    return blob, t_call, spent[0], len(blob) - len(frame), len(frame)
+
+
+def _encode_pool(pool, workers: int, jobs):
+    """``_encode_accel`` of every job in the pool of ``workers``
+    processes: the results in order and the wall seconds."""
+    t0 = time.perf_counter()
+    out = list(pool.map(_encode_accel, jobs,
+                        chunksize=max(1, len(jobs) // (4 * workers))))
+    return out, time.perf_counter() - t0
+
+
+class _Walks:
+    """Counts the calls of the host checkpoint walks while it is entered
+    (the decode routes of phases 20-21 must make none)."""
+
+    def __enter__(self):
+        from compress_tpu_torch.zstd import device_dec as DD
+        from compress_tpu_torch.zstd import seqdev
+
+        self.n = 0
+        self.saved = [(DD, "_hwalk", DD._hwalk),
+                      (seqdev, "seq_accel", seqdev.seq_accel)]
+        for mod, name, fn in self.saved:
+            def counted(*a, _fn=fn, **kw):
+                self.n += 1
+                return _fn(*a, **kw)
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def _accel_counters():
+    from compress_tpu_torch.ops import entropy_dec as ED
+    from compress_tpu_torch.ops import execute as X
+    from compress_tpu_torch.ops import zseq_kern as ZK
+
+    return {"huff0": ED.huff0_decode_chunks, "exec": X.execute_pieces,
+            "exec_hist": X.execute_blocks_hist,
+            "zseq": ED.zseq_decode_chunks_rep,
+            "zseq_ofv": ED.zseq_decode_chunks,
+            "zseq_shared": ZK.zseq_decode_chunks_shared}
+
+
+def _decode_counted(items, want_routes: set):
+    """One ``decompress_frames_device`` call of items with every launch
+    counter set to 0 just before and the host walks counted: (outputs,
+    launches, stats, first-call seconds); raises unless every route is
+    in want_routes, no walk ran and no frame went to the host."""
+    from compress_tpu_torch.zstd import device_dec as DD
+
+    counted = _accel_counters()
+    for f in counted.values():
+        f.launches = 0
+    DD.decompress_frames_device.host_frames = 0
+    stats = {}
+    with _Walks() as walks:
+        t0 = time.perf_counter()
+        out = DD.decompress_frames_device(items, stats=stats)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counted.items()}
+    host = DD.decompress_frames_device.host_frames
+    _say(f"  routes {stats['routes']}, host walks {walks.n}, host frames "
+         f"{host}, launches {launches} (first call {first_s:.2f} s)")
+    if set(stats["routes"]) != want_routes or walks.n or host:
+        raise AssertionError(f"routes {stats['routes']}, walks {walks.n}, "
+                             f"host frames {host}")
+    return out, launches, stats, first_s
+
+
+def _call_times(items, n_out: int, what: str):
+    """The whole call on the host clock (median of 2), its stages and one
+    traced call."""
+    from compress_tpu_torch.zstd import device_dec as DD
+
+    times, stats = [], {}
+    for _ in range(2):
+        st = {}
+        t0 = time.perf_counter()
+        DD.decompress_frames_device(items, stats=st)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        stats = st
+    t_call = statistics.median(times)
+    _say(f"{what} whole call (host clock): {t_call:.4f} ms (calls "
+         f"{', '.join(f'{t:.4f}' for t in times)}), "
+         f"{n_out / (t_call * 1e-3) / 1e9:.4f} GB/s of output; stages (s): "
+         + ", ".join(f"{k} {v:.4f}" for k, v in stats["s"].items()))
+    for _ in range(2):   # a second try where the profiler saw no device
+        h2d = _say_trace(what, lambda: DD.decompress_frames_device(items),
+                         warm=False, every_name=True)
+        if h2d is not None:
+            break
+    return {"call_ms": t_call, "calls_ms": times, "stages_s": stats["s"],
+            "h2d_ms": h2d}
+
+
+def accel_paths(dev, texts, ctas: int) -> tuple:
+    """Phases 20-21: the accel and multi-block accel routes (``ctas``: the
+    history kernel's CTAs per SM, from phase 2).  Returns the history
+    kernel's JSON entry and the launches and call numbers of both
+    routes."""
+    from compress_tpu_torch import corpus
+    from compress_tpu_torch.ops import execute as X
+    from compress_tpu_torch.zstd import accel as AC
+    from compress_tpu_torch.zstd import device_dec as DD
+
+    # the encodes run in a pool of spawned worker processes (one per core,
+    # at most 8), closed before the decodes
+    workers = min(8, os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=workers,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        enc20, wall20 = _encode_pool(pool, workers,
+                                     [(t, False) for t in texts])
+        streams = corpus.history_streams(HIST_STREAMS, 1 << 20, SEED)
+        enc21, wall21 = _encode_pool(pool, workers,
+                                     [(d, True) for d in streams])
+    _say(f"accel encodes: a pool of {workers} worker processes, "
+         f"{time.perf_counter() - t0:.2f} s from its start to its close")
+
+    # ---- 20. the accel route ------------------------------------------------
+    enc, wall = enc20, wall20
+    blobs = [e[0] for e in enc]
+    side_b, frame_b = sum(e[3] for e in enc), sum(e[4] for e in enc)
+    _say(f"accel encode: {len(texts)} text frames of 64 KiB through "
+         f"compress_accel(level=1): {wall:.2f} s wall in the pool, "
+         f"{sum(e[1] for e in enc):.2f} s of calls, of which its "
+         f"build_sidecar {sum(e[2] for e in enc):.2f} s; sidecars "
+         f"{side_b} bytes, frames {frame_b} bytes (sidecar share "
+         f"{side_b / frame_b:.4f} of the frame bytes)")
+    items = [it for b in blobs for it in AC.split_stream_accel(b)]
+    out, l20, _st, first20 = _decode_counted(items, {"accel"})
+    if out != texts:
+        raise AssertionError("accel route: an item differs from its input")
+    if (l20["huff0"], l20["exec"], l20["exec_hist"]) != (1, 1, 0)             or l20["zseq"] + l20["zseq_ofv"] + l20["zseq_shared"]:
+        raise AssertionError(f"accel route launches {l20}")
+    _say(f"accel route: all {len(items)} items equal their input")
+    call20 = _call_times(items, sum(len(t) for t in texts), "accel decode")
+
+    # ---- 21. the multi-block accel route -------------------------------------
+    enc, wall = enc21, wall21
+    if wall > ENCODE_CUT_S:
+        _say(f"multi-block encode took {wall:.2f} s, over {ENCODE_CUT_S} s: "
+             f"the run keeps {HIST_STREAMS // 2} streams")
+        streams, enc = streams[:HIST_STREAMS // 2], enc[:HIST_STREAMS // 2]
+    side_b, frame_b = sum(e[3] for e in enc), sum(e[4] for e in enc)
+    n_out = sum(len(d) for d in streams)
+    _say(f"multi-block encode: {len(streams)} streams of 1 MiB through "
+         f"compress_accel(level=1, multi_block=True, "
+         f"hist_blocks={HIST_BLOCKS}): {wall:.2f} s wall in the pool, "
+         f"{sum(e[1] for e in enc):.2f} s of calls, of which its "
+         f"build_sidecar "
+         f"{sum(e[2] for e in enc):.2f} s; sidecars {side_b} bytes, frames "
+         f"{frame_b} bytes (ratio {frame_b / n_out:.6f}, sidecar share "
+         f"{side_b / frame_b:.4f})")
+    items = [it for e in enc for it in AC.split_stream_accel(e[0])]
+    out, l21, _st, first21 = _decode_counted(items, {"accel_mb"})
+    if out != streams:
+        raise AssertionError("multi-block route: a stream differs from its "
+                             "input")
+    if (l21["huff0"], l21["exec"], l21["exec_hist"]) != (1, 0, 1):
+        raise AssertionError(f"multi-block route launches {l21}")
+    _say(f"multi-block route: all {len(items)} streams equal their input")
+
+    # the path's own history execute inputs, rebuilt by its host halves
+    metas = [DD._route(f) for f in items]
+    scratch = dict.fromkeys(("lit_walk", "lit_prep", "lit_kernel"), 0.0)
+    lit_dec = DD._literals(metas, dev, scratch)
+    groups, host = DD._mb_groups(metas, lit_dec)
+    if host or len(groups) != 1:
+        raise AssertionError(f"multi-block groups {list(groups)}, host "
+                             f"{host}")
+    (hb, (_idx, plans_kb, rows, pieces, gstart)), = groups.items()
+    hargs = [torch.from_numpy(a).to(dev) for a in (rows, pieces, gstart)]
+    err = _hold("execute_blocks_hist",
+                [X.execute_blocks_hist(*hargs, hb * 512)],
+                [X.execute_blocks_hist_ref(*hargs, hb * 512)])
+    t_k = cuda_ms(lambda: X.execute_blocks_hist(*hargs, hb * 512), 20)
+    t_dev = cuda_ms(lambda: X.execute_blocks_hist(*hargs, hb * 512), 20,
+                    True)
+    t_plain = cuda_ms(lambda: X.execute_blocks_hist_ref(*hargs, hb * 512),
+                      1)
+    hist = pieces[:, 0] >= X.HIST_BASE
+    w1 = pieces[:, 1].astype(np.int64) & 0xFFFFFFFF
+    n = np.minimum((w1 >> 24) + 1, 128 - (w1 & 127))
+    hist_bytes = int(n[hist].sum())
+    # the literal bytes the local pieces read: each step's distinct
+    # sources below the output half, counted as in _exec_bounds
+    B_, K_ = gstart.shape[:2]
+    step = np.repeat(np.arange(B_ * K_), np.diff(np.append(
+        gstart[:, :, 0].reshape(-1), len(pieces))))
+    s, lo_loc = pieces[:, 0].astype(np.int64), ~hist
+    half = 512 * 128
+    lo = step[lo_loc] * half + np.minimum(s[lo_loc], half)
+    hi = step[lo_loc] * half + np.minimum(s[lo_loc] + n[lo_loc], half)
+    edge = (np.bincount(lo, minlength=B_ * K_ * half + 1)
+            - np.bincount(hi, minlength=B_ * K_ * half + 1))
+    lit_read = int(np.count_nonzero(np.cumsum(edge[:-1])))
+    b = bound(pieces.nbytes + gstart.nbytes + lit_read + hist_bytes
+              + rows.size, 8 * rows.size)
+    _say(f"history execute: {len(pieces)} live pieces, {int(hist.sum())} "
+         f"history pieces reading {hist_bytes} bytes, {lit_read} literal "
+         f"bytes read, {B_} frames x {K_} blocks; kernel {t_k:.4f} ms "
+         f"(device time {t_dev:.4f}), plain {t_plain:.4f} ms, bound "
+         f"{b[0]:.4f} ms ({b[1]}), CTAs per SM {ctas}, launches on the path "
+         f"{l21['exec_hist']}")
+    call21 = _call_times(items, n_out, "multi-block decode")
+    row = {"name": "execute_blocks_hist", "route": "cuda",
+           "source": "compress_tpu_torch/csrc/exec.cu",
+           "replaces": "compress_tpu/ops/execute.py:414",
+           "replaces_kind": "XLA lax.scan (no Pallas site)",
+           "launches": l21["exec_hist"], "max_abs_err": err,
+           "equal_to_plain": True, "ms": t_k, "device_ms": t_dev,
+           "plain_ms": t_plain, "bound_ms": b[0], "bound_by": b[1],
+           "library_ms": None, "ctas_per_sm": ctas,
+           "pieces": int(len(pieces)), "history_pieces": int(hist.sum()),
+           "history_bytes": hist_bytes, "frames": B_, "blocks": K_,
+           "hist_blocks": hb, "call": call21, "first_s": first21}
+    extra = {"huff0": {"accel_launches": l20["huff0"],
+                       "accel_mb_launches": l21["huff0"]},
+             "exec": {"accel_launches": l20["exec"]},
+             "accel_call": {**call20, "first_s": first20}}
+    return row, extra
 
 
 def _route_counters():
@@ -1178,7 +1468,8 @@ def main() -> int:
             # the table engine's containers: 512 chunks of 32 symbols
             "huff0_decode_per_row": lib.ct_huff0_occupancy(512),
             "zseq_decode": lib.ct_zseq_occupancy(96),
-            "zseq_decode_shared": lib.ct_zseq_occupancy(80)}
+            "zseq_decode_shared": lib.ct_zseq_occupancy(80),
+            "execute_blocks_hist": lib.ct_exec_hist_occupancy()}
     _say("CTAs per SM (occupancy query; exec at M = 1): " + ", ".join(
              f"{k} {v}" for k, v in ctas.items()))
     if min(ctas.values()) < 1:
@@ -1340,16 +1631,19 @@ def main() -> int:
     for row, key in zip(kernels[-2:], ("huff0_decode",
                                        "huff0_decode_per_row")):
         row["ctas_per_sm"] = ctas[key]
-    zseq_rows, zdec = zstd_decode_path(dev)
+    zseq_rows, zdec, texts = zstd_decode_path(dev)
+    hist_row, acc = accel_paths(dev, texts, ctas["execute_blocks_hist"])
     for row in kernels:
         if row["name"] == "execute_pieces":
-            row.update(zdec["exec"])
+            row.update(zdec["exec"], **acc["exec"])
         elif row.get("engine") == "table":
-            row.update(zdec["huff0"])
+            row.update(zdec["huff0"], **acc["huff0"])
     zseq_rows[0].update(zdec["call"])
     for row, key in zip(zseq_rows, ("zseq_decode", "zseq_decode_shared")):
         row["ctas_per_sm"] = ctas[key]
     kernels += zseq_rows
+    hist_row["accel_call"] = acc["accel_call"]
+    kernels.append(hist_row)
     kernels += other_routes(dev, blocks_np, route_counts())
 
     _say(smi)

@@ -39,7 +39,9 @@ _SIGNATURES = {
     "ct_litlut": [_P, _P, _P, _P, _I, _I, _P],
     "ct_exec_pieces": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "ct_exec_sum": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "ct_exec_hist": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "ct_exec_occupancy": [_I],
+    "ct_exec_hist_occupancy": [],
     "ct_rep_occupancy": [],
     "ct_fse_occupancy": [],
     "ct_parse_occupancy": [],

@@ -259,6 +259,72 @@ def exec_sum_plans() -> dict:
     }
 
 
+def history_streams(n: int, size: int = 1 << 20, seed: int = 0) -> list:
+    """n streams of ``size`` bytes (a whole number of 64 KiB blocks) for
+    the multi-block accel route: each block is seeded text in which, from
+    the second block on, stretches of 512 bytes to 8 KiB repeat the stream
+    1 to 7 blocks back (as far as the stream reaches) at odd shifts, so
+    the matches of a frame that keeps 8 blocks of history reach every
+    distance it holds, from before and across block boundaries."""
+    if size % BS:
+        raise ValueError(f"size must be a multiple of {BS}, got {size}")
+    out = []
+    for j in range(n):
+        rng = np.random.default_rng([seed, 21, j])
+        buf = np.empty(size, np.uint8)
+        for i in range(size // BS):
+            lo = i * BS
+            buf[lo:lo + BS] = _text(rng)
+            for _ in range(6 if i else 0):
+                back = int(rng.integers(1, min(7, i) + 1))
+                n_rep = int(rng.integers(512, 8192))
+                at = lo + int(rng.integers(0, BS - n_rep))
+                src = at - back * BS + 2 * int(rng.integers(0, 64)) + 1
+                buf[at:at + n_rep] = buf[src:src + n_rep]
+        out.append(buf.tobytes())
+    return out
+
+
+def hist_plans(hb: int) -> list:
+    """Per-frame lists of execute plans (``ops/execute`` plan dicts) of
+    64 KiB blocks with a history of ``hb`` blocks that stress the history
+    executor: history pieces that read before the frame's first byte
+    (zeros), across it, at the history's first and last bytes and into
+    the zero tail of a short non-final block (its whole 512-row output
+    shifts into the history), beside literal pieces and output reads of
+    later rounds; frames of 3, 2 and 1 blocks."""
+    from compress_tpu_torch.ops.execute import HIST_BASE, OUT_BASE
+
+    top = HIST_BASE + (hb << 16)    # block position 0 of the history
+
+    def plan(*pieces):              # (src, output position, len, round)
+        src, pos, ln, rnd = (np.array(c, np.int64) for c in zip(*pieces))
+        return dict(src=src.astype(np.int32),
+                    dst=(OUT_BASE + pos).astype(np.int32),
+                    len=ln.astype(np.int32), round=rnd.astype(np.int32),
+                    n_rounds=int(rnd.max()) + 1)
+
+    deep = [(top - 2 * BS + 256, 5120, 100, 0)] if hb >= 2 else []
+    three = [
+        plan((top - 1000, 0, 100, 0), (HIST_BASE, 128, 128, 0),
+             (5, 256, 100, 0), (OUT_BASE + 256, 512, 50, 1),
+             (OUT_BASE + 512, 640, 20, 2)),
+        plan((top - BS + 300, 0, 60, 0), (top - BS - 20, 1024, 40, 0),
+             (top - 1, 2000, 1, 0), (7, 3072, 128, 0),
+             (OUT_BASE + 3072, 3200, 100, 1)),
+        plan((top - BS + 2000, 4000, 1, 0), (top - BS + 1024, 4096, 40, 0),
+             (HIST_BASE, 4224, 16, 0), (11, 4352, 64, 0), *deep),
+    ]
+    short = [
+        plan((0, 0, 128, 0), (128, 128, 128, 0), (OUT_BASE, 1000, 24, 1)),
+        plan((top - BS + 900, 0, 100, 0), (top - BS + 1000, 128, 100, 0),
+             (3, 256, 8, 0)),
+    ]
+    one = [plan((top - 64, 64, 64, 0), (9, 0, 64, 0),
+                (OUT_BASE + 64, 128, 64, 1))]
+    return [three, short, one]
+
+
 PARSE_CLASSES = ("all_zeros", "chains", "most_seqs", "no_match")
 
 

@@ -17,7 +17,9 @@
 //   ll are their code's baseline plus extras (code entries xbits | base <<
 //   5);
 //   resolve the repeat offset in the carry (RFC 8878 §3.1.1.5; repeat
-//   code 3 gives r0 - 1, floored at 1 when rep3_floor is set);
+//   code 3 gives r0 - 1, floored at 1 when rep3_floor is set, where an
+//   r0 of INT32_MIN wraps to INT32_MAX first, as the XLA scan's int32
+//   arithmetic does);
 //   unless i >= nore, reload the states, ll then ml then of.
 // Steps past nsym write 0 and keep the carry.  nore is nore[c], or
 // nsym[c] - (last[c] > 0) where the caller passes last (no reload after a
@@ -174,7 +176,8 @@ __device__ __forceinline__ void decode_chunk(const Params& p, int c,
           off = r0 - 1u;
           b_off = r0 != BIG;
         } else {
-          off = (int)r0 >= 2 ? r0 - 1u : 1u;
+          // r0 - 1 in int32, floored at 1: INT32_MIN wraps to INT32_MAX
+          off = (int)r0 >= 2 || r0 == 0x80000000u ? r0 - 1u : 1u;
           b_off = false;
         }
         r2 = r1;

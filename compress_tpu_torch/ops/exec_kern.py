@@ -35,11 +35,27 @@ plain versions keep the reference's sum.
 
 ``execute_pieces`` takes only such plans (the decode paths' planner makes
 no other) and launches the store kernel on CUDA tensors.
+
 ``execute_rounds``, on no path of the decoders, takes every padded plan
 the reference takes: on CUDA tensors it compacts the plan on the card
 and launches the sum kernel (``ct_exec_sum``: an int32 arena in device
 memory, each round's bytes gathered before any lands).  On CPU tensors
 both run their plain versions.
+
+``execute_blocks_hist`` runs the blocks of multi-block frames in order,
+each with the frame's history (the function of the reference's XLA scan
+``ops/execute.py`` ``execute_blocks_hist``): lit_rows (B, K, 512, 128),
+frame b's block k in [b, k]; the compact plan of
+``execute.pack_pieces_mb``, whose step (b, k) has a group of history
+pieces and then a group per round.  A history piece (src = HIST_BASE + x)
+reads byte x' of the last hist_rows * 128 output bytes of the frame
+before the step, x' = row x >> 7 clipped to [0, hist_rows), lane x & 127;
+bytes before the frame's start read 0.  Every step's whole output half
+(zeros past the plan's end) counts as output, so the history equals the
+reference's carried tensor, shifted by a step's 512 rows after every step
+of a frame's plan.  The plain version sums as the reference does; the
+kernel (``ct_exec_hist``) stores, and takes the planner's kind of plan,
+as ``execute_pieces``.
 """
 
 from __future__ import annotations
@@ -50,7 +66,10 @@ import torch
 from compress_tpu_torch import _cuda
 
 __all__ = ["execute_pieces", "execute_pieces_ref", "execute_rounds",
-           "execute_rounds_ref", "compact_pieces"]
+           "execute_rounds_ref", "execute_blocks_hist",
+           "execute_blocks_hist_ref", "compact_pieces"]
+
+HIST_BASE = 1024 * 128   # first history address (ops/execute.HIST_BASE)
 
 
 def _round_bounds(caps, total: int) -> list[int]:
@@ -299,5 +318,105 @@ def execute_rounds(lit_rows: torch.Tensor, src: torch.Tensor,
     return out
 
 
+def _check_hist(lit_rows, pieces, gstart, hist_rows: int):
+    if lit_rows.dim() != 4 or tuple(lit_rows.shape[2:]) != (512, 128):
+        raise ValueError(f"lit_rows: expected (B, K, 512, 128), got "
+                         f"{tuple(lit_rows.shape)}")
+    if pieces.dim() != 2 or pieces.shape[1] != 2:
+        raise ValueError(f"pieces: expected (P, 2), got "
+                         f"{tuple(pieces.shape)}")
+    if gstart.dim() != 3 or tuple(gstart.shape[:2]) != tuple(
+            lit_rows.shape[:2]) or gstart.shape[2] < 2:
+        raise ValueError(f"gstart: expected (B, K, G + 1), G >= 1, got "
+                         f"{tuple(gstart.shape)}")
+    if not 512 <= hist_rows <= 128 * 512:
+        raise ValueError(f"hist_rows: expected 512 .. 65536, got "
+                         f"{hist_rows}")
+    if pieces.device != lit_rows.device or gstart.device != lit_rows.device:
+        raise ValueError("execute_blocks_hist: inputs on different devices")
+
+
+def execute_blocks_hist_ref(lit_rows: torch.Tensor, pieces: torch.Tensor,
+                            gstart: torch.Tensor,
+                            hist_rows: int) -> torch.Tensor:
+    """Plain PyTorch version of ``execute_blocks_hist``: step k of every
+    frame at once, step after step, with the reference's sums."""
+    _check_hist(lit_rows, pieces, gstart, hist_rows)
+    B, K = lit_rows.shape[0], lit_rows.shape[1]
+    dev = lit_rows.device
+    half = 512 * 128
+    hist_cap = hist_rows * 128
+    # every frame's output so far, after hist_cap zero bytes
+    done = torch.zeros((B, hist_cap + K * half), dtype=torch.int32,
+                       device=dev)
+    P = pieces.shape[0]
+    gs = gstart.to(torch.int64)
+    blk = torch.arange(B, device=dev, dtype=torch.int64)
+    for k in range(K):
+        arena = _arena(lit_rows[:, k])
+        for g in range(gs.shape[2] - 1):
+            lo = gs[:, k, g].clamp(0, P)
+            hi = torch.maximum(gs[:, k, g + 1].clamp(max=P), lo)
+            cnt = hi - lo
+            owner = blk.repeat_interleave(cnt)
+            idx = lo[owner] + torch.arange(owner.numel(), device=dev) \
+                - (torch.cumsum(cnt, 0) - cnt)[owner]
+            w = pieces[idx].to(torch.int64)
+            s, w1 = w[:, 0], w[:, 1] & 0xFFFFFFFF
+            d = w1 & 0xFFFFFF
+            n = torch.minimum(((w1 >> 24) & 127) + 1, 128 - (d & 127))
+            n = torch.where((d >= half) & (d < 2 * half), n, 0)
+            if g:
+                _run_round(arena.view(-1), owner, s, d, n, 512)
+                continue
+            # history: byte x of the last hist_cap output bytes of the
+            # frame, which start at done[hist_cap + k * half - hist_cap]
+            piece = torch.repeat_interleave(
+                torch.arange(n.numel(), device=dev), n)
+            j = torch.arange(piece.numel(), device=dev) \
+                - (torch.cumsum(n, 0) - n)[piece]
+            x = s[piece] - HIST_BASE + j
+            x = (x >> 7).clamp(0, hist_rows - 1) * 128 + (x & 127)
+            vals = done.view(-1)[owner[piece] * done.shape[1] + k * half + x]
+            arena.view(-1).index_put_(
+                (owner[piece] * 2 * half + d[piece] + j,), vals,
+                accumulate=True)
+        done[:, hist_cap + k * half:hist_cap + (k + 1) * half] = \
+            arena[:, half:] & 255
+    return done[:, hist_cap:].to(torch.uint8).view(B, K, 512, 128)
+
+
+def execute_blocks_hist(lit_rows: torch.Tensor, pieces: torch.Tensor,
+                        gstart: torch.Tensor, hist_rows: int) -> torch.Tensor:
+    """Run multi-block frames with their history: lit_rows (B, K, 512,
+    128) uint8; pieces (P, 2) and gstart (B, K, G + 1) int32 per
+    ``execute.pack_pieces_mb``; hist_rows the rows of history (512 per
+    block the frames keep).  Returns (B, K, 512, 128) uint8 output rows,
+    frame b's block k in [b, k].  A CTA of ``csrc/exec.cu``'s history
+    kernel walks a frame's blocks in order on CUDA tensors; CPU tensors
+    run ``execute_blocks_hist_ref``."""
+    if lit_rows.device.type == "cpu":
+        return execute_blocks_hist_ref(lit_rows, pieces, gstart, hist_rows)
+    _check_hist(lit_rows, pieces, gstart, hist_rows)
+    B, K = lit_rows.shape[0], lit_rows.shape[1]
+    P, G = pieces.shape[0], gstart.shape[2] - 1
+    _cuda.require_cuda_input(lit_rows, "lit_rows", torch.uint8,
+                             (B, K, 512, 128))
+    _cuda.require_cuda_input(pieces, "pieces", torch.int32, (P, 2))
+    _cuda.require_cuda_input(gstart, "gstart", torch.int32, (B, K, G + 1))
+    lit_rows, pieces = _cuda.aligned(lit_rows), _cuda.aligned(pieces, 8)
+    dev = lit_rows.device
+    out = torch.empty((B, K, 512, 128), dtype=torch.uint8, device=dev)
+    if B and K:
+        with torch.cuda.device(dev):
+            rc = _cuda.library().ct_exec_hist(
+                lit_rows.data_ptr(), pieces.data_ptr(), gstart.data_ptr(),
+                G, P, B, K, hist_rows, out.data_ptr(), _cuda.stream(dev))
+        _cuda.check(rc, "execute_blocks_hist")
+        execute_blocks_hist.launches += 1
+    return out
+
+
 execute_pieces.launches = 0
 execute_rounds.launches = 0
+execute_blocks_hist.launches = 0

@@ -21,9 +21,13 @@ padded (total, B) slot tensors with per-round capacities (pad slots have
 length 0); ``execute_rounds`` runs those (on the card by compacting them
 first), for the tests that hold the port against the JAX package.
 
-The multi-block history executor of the reference (``pack_plans_mb``,
-``execute_blocks_hist``, the pieces that read ``HIST_BASE`` addresses)
-belongs to multi-block zstd decode and is not ported yet.
+Multi-block zstd frames (64 KiB blocks) decode block after block with a
+history: a piece whose source is HIST_BASE + x reads byte x of the
+frame's last ``hist_rows`` * 128 output bytes before the block (zeros
+before the frame's start).  ``pack_plans_mb`` is the reference's padded
+layout of such plans (the JAX ``execute_blocks_hist`` reads it);
+``pack_pieces_mb`` the compact plan of ``exec_kern.execute_blocks_hist``,
+which the decode path sends to the card.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ import numpy as np
 import torch
 
 from compress_tpu_torch.ops.exec_kern import (compact_pieces,
+                                              execute_blocks_hist,
+                                              execute_blocks_hist_ref,
                                               execute_pieces,
                                               execute_pieces_ref,
                                               execute_rounds,
@@ -43,9 +49,10 @@ HIST_BASE = ARENA_ROWS * 128  # history address space (multi-block frames)
 BLOCK = 1 << 16
 
 __all__ = ["ARENA_ROWS", "OUT_BASE", "HIST_BASE", "BLOCK", "plan_ops",
-           "plan_block_ops", "pack_plans", "pack_pieces",
-           "execute_pieces", "execute_pieces_ref", "execute_rounds",
-           "execute_rounds_ref"]
+           "plan_block_ops", "pack_plans", "pack_pieces", "pack_plans_mb",
+           "pack_pieces_mb", "execute_pieces", "execute_pieces_ref",
+           "execute_rounds", "execute_rounds_ref", "execute_blocks_hist",
+           "execute_blocks_hist_ref"]
 
 
 def _pieces(runs: np.ndarray):
@@ -64,23 +71,31 @@ def _pieces(runs: np.ndarray):
 
 
 def plan_ops(kinds, lens, offs, max_rounds: int = 4,
-             out_base: int = OUT_BASE):
-    """The planner, over Python sequences of ints (``plan_block_ops`` and
-    the S2 planner ``s2/plan.py`` both run it).
+             out_base: int = OUT_BASE, hist_avail: int = 0,
+             hist_cap: int = 0):
+    """The planner, over Python sequences of ints (``plan_block_ops``, the
+    S2 planner ``s2/plan.py`` and the zstd sidecar builder
+    ``zstd/sidecar.py`` run it).
 
     kinds: 0 = literal run (the next ``len`` literal bytes), 1 = copy at
     offset ``off`` into the output written so far.  A copy reads its
     transitive sources while they form one run of one round; otherwise it
     reads the output bytes themselves one round later; past ``max_rounds``
     it is flattened through its transitive sources (more pieces instead of
-    more depth).  Returns (dst, src, len, round) int64 arrays in emission
-    order, every piece inside one 128-byte output row (dst = out_base +
-    output position), or None on an offset of 0 or past the output."""
+    more depth).  ``hist_avail`` bytes of an earlier block's output lie
+    before the block (multi-block frames): a source byte at block position
+    sp < 0 is history, resolved before the block starts (round 0), at
+    arena address HIST_BASE + hist_cap + sp, and keeps that address and
+    round where a copy reads the output directly.  Returns (dst, src, len,
+    round) int64 arrays in emission order, every piece inside one 128-byte
+    output row (dst = out_base + output position), or None on an offset of
+    0 or past the output and its history."""
     total = sum(lens)
     esrc = [0] * total      # per output byte: arena byte holding its value
     ernd = [0] * total      # ... and the round that writes it
     chunks = []             # (n, 4) run arrays, in emission order
     pend = []               # runs not yet in a chunk
+    hist_top = HIST_BASE + hist_cap
 
     def flush():
         if pend:
@@ -117,15 +132,22 @@ def plan_ops(kinds, lens, offs, max_rounds: int = 4,
                 lit_pos += L
                 pos += L
             continue
-        if off <= 0 or off > pos:
+        if off <= 0 or off > pos + hist_avail:
             return None
-        if off >= L:
+        h = off - pos       # history bytes before the source's block part
+        hb = hist_top - h   # arena address of the first of them
+        reps = -(-L // off)
+        if h <= 0 and off >= L:
             sl = esrc[pos - off:pos - off + L]
             rl = ernd[pos - off:pos - off + L]
-        else:
-            reps = -(-L // off)
+        elif h <= 0:
             sl = (esrc[pos - off:pos] * reps)[:L]
             rl = (ernd[pos - off:pos] * reps)[:L]
+        else:               # a period: h history bytes, then the block's
+            n_h = min(h, L)
+            sl = (list(range(hb, hb + n_h)) + esrc[:min(pos, L - n_h)]) * reps
+            rl = ([0] * n_h + ernd[:min(pos, L - n_h)]) * reps
+            del sl[L:], rl[L:]
         rnd_direct = max(rl) + 1
         if rnd_direct > max_rounds:
             # too deep: flatten through the transitive sources
@@ -138,6 +160,27 @@ def plan_ops(kinds, lens, offs, max_rounds: int = 4,
             pend.append((pos, sl[0], L, rl[0]))
             esrc[pos:pos + L] = sl
             ernd[pos:pos + L] = rl
+        elif h > 0:
+            # read the output bytes themselves, one round later; history
+            # bytes keep their round-0 address: per period a history run
+            # and a run of the block's output
+            q = np.arange(0, L, off, dtype=np.int64)
+            q_h = np.minimum(h, L - q)
+            q_o = np.minimum(pos, L - q - q_h)
+            rows = [np.stack([pos + q, np.full_like(q, hb), q_h,
+                              np.zeros_like(q)], axis=1)]
+            if pos:
+                rows.append(np.stack([pos + q + h, np.full_like(q, out_base),
+                                      q_o, np.full_like(q, rnd_direct)],
+                                     axis=1))
+            r = np.stack(rows, axis=1).reshape(-1, 4)
+            flush()
+            chunks.append(r[r[:, 2] > 0])
+            k = min(pos, L - n_h)
+            esrc[pos:pos + L] = ((list(range(hb, hb + n_h))
+                                  + list(range(out_base, out_base + k)))
+                                 * reps)[:L]
+            ernd[pos:pos + L] = (([0] * n_h + [rnd_direct] * k) * reps)[:L]
         else:
             # read the output bytes themselves, one round later: one run,
             # or one per period of an overlapping copy
@@ -252,3 +295,109 @@ def pack_pieces(plans, rows: int = 512):
         *(torch.from_numpy(a) for a in (blk, rnd, cat("src"), cat("dst"),
                                         cat("len"))), B, nr, rows)
     return pieces.numpy(), rstart.numpy()
+
+
+def _check_mb(plans_kb, hist_cap_bytes: int):
+    """The reference's checks of multi-block plans: every history piece
+    (src >= HIST_BASE) in round 0 and inside the history."""
+    for pb in plans_kb:
+        for p in pb:
+            hist = p["src"] >= HIST_BASE
+            if not hist.any():
+                continue
+            if int(p["round"][hist].max()) != 0:
+                raise ValueError("history piece beyond round 0")
+            hs = p["src"][hist].astype(np.int64) - HIST_BASE
+            if hs.min() < 0 or int(
+                    (hs + p["len"][hist]).max()) > hist_cap_bytes:
+                raise ValueError("history source out of range")
+
+
+def pack_plans_mb(plans_kb, hist_cap_bytes: int):
+    """Stack per-frame lists of per-block plans into the padded layout of
+    the reference's ``execute_blocks_hist`` (frames may have different
+    block counts; shorter frames pad with steps that do not advance).
+    Pieces with src >= HIST_BASE go to the round-0 history stage, their
+    sources rebased into the history (0 .. hist_cap_bytes).
+
+    Returns (hsrc, hdst, hlen, src, dst, length, advance, round_caps,
+    hcap) numpy arrays: h* (K, hcap, B), src/dst/length (K, total, B)
+    round-major, advance (K, B) float32.  Raises ValueError on a history
+    piece beyond round 0 or outside the history."""
+    Bn = len(plans_kb)
+    K = max(len(pb) for pb in plans_kb)
+    _check_mb(plans_kb, hist_cap_bytes)
+    n_rounds, hmax = 1, 1
+    for pb in plans_kb:
+        for p in pb:
+            n_rounds = max(n_rounds, p["n_rounds"])
+            hmax = max(hmax, int((p["src"] >= HIST_BASE).sum()))
+    hcap = max(64, 1 << int(np.ceil(np.log2(hmax))))
+    round_caps = default_round_caps(
+        max([1] + [int(((p["src"] < HIST_BASE) & (p["round"] == r)).sum())
+                   for pb in plans_kb for p in pb])
+        for r in range(n_rounds))
+    total = sum(round_caps)
+    hsrc = np.zeros((K, hcap, Bn), np.int32)
+    hdst = np.full((K, hcap, Bn), OUT_BASE, np.int32)
+    hlen = np.zeros((K, hcap, Bn), np.int32)
+    src = np.zeros((K, total, Bn), np.int32)
+    dst = np.full((K, total, Bn), OUT_BASE, np.int32)
+    length = np.zeros((K, total, Bn), np.int32)
+    advance = np.zeros((K, Bn), np.float32)
+    for b, pb in enumerate(plans_kb):
+        for k, p in enumerate(pb):
+            advance[k, b] = 1.0
+            hist = p["src"] >= HIST_BASE
+            hn = int(hist.sum())
+            hsrc[k, :hn, b] = p["src"][hist] - HIST_BASE
+            hdst[k, :hn, b] = p["dst"][hist]
+            hlen[k, :hn, b] = p["len"][hist]
+            base = 0
+            for r, cap in enumerate(round_caps):
+                m = ~hist & (p["round"] == r)
+                cnt = int(m.sum())
+                src[k, base:base + cnt, b] = p["src"][m]
+                dst[k, base:base + cnt, b] = p["dst"][m]
+                length[k, base:base + cnt, b] = p["len"][m]
+                base += cap
+    return (hsrc, hdst, hlen, src, dst, length, advance, tuple(round_caps),
+            hcap)
+
+
+def pack_pieces_mb(plans_kb, hist_cap_bytes: int):
+    """Pack per-frame lists of per-block plans (64 KiB blocks, arena class
+    M = 1) into the compact plan of ``execute_blocks_hist``.
+
+    Returns (pieces (P, 2) int32, gstart (B, K, nr + 2) int32) numpy
+    arrays, K the most blocks of a frame and nr the largest
+    ``n_rounds``.  Each step (a frame's block) has nr + 1 groups of
+    pieces: group 0 its history pieces (src >= HIST_BASE, the sources
+    kept), group r + 1 its other pieces of round r; pieces are frame-major,
+    then step, then group, each step's in their plan's order within a
+    group; gstart[b, k, g] is where group g of frame b's step k starts.
+    Pieces are (src, dst | (n - 1) << 24) as ``pack_pieces`` packs them,
+    live pieces only.  Raises ValueError where ``pack_plans_mb`` does, on
+    a piece that writes the literal half and on a round outside
+    [0, nr)."""
+    _check_mb(plans_kb, hist_cap_bytes)
+    B = len(plans_kb)
+    K = max((len(pb) for pb in plans_kb), default=1)
+    flat = [(b * K + k, p) for b, pb in enumerate(plans_kb)
+            for k, p in enumerate(pb)]
+    nr = max((int(p["n_rounds"]) for _s, p in flat), default=1)
+
+    def cat(key):
+        return (np.concatenate([np.asarray(p[key], np.int64)
+                                for _s, p in flat])
+                if flat else np.zeros(0, np.int64))
+
+    src, rnd = cat("src"), cat("round")
+    if ((rnd < 0) | (rnd >= nr)).any():
+        raise ValueError(f"a piece's round is outside [0, {nr})")
+    grp = np.where(src >= HIST_BASE, 0, rnd + 1)
+    step = np.repeat([s for s, _p in flat], [len(p["len"]) for _s, p in flat])
+    pieces, gstart = compact_pieces(
+        *(torch.from_numpy(a) for a in (step, grp, src, cat("dst"),
+                                        cat("len"))), B * K, nr + 1, 512)
+    return pieces.numpy(), gstart.numpy().reshape(B, K, nr + 2)

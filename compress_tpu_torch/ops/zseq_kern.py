@@ -47,6 +47,7 @@ __all__ = ["K", "WIN", "ZTAB", "state_row", "table_set", "pack_tables",
            "seq_section", "prep_frames"]
 
 _I64 = torch.int64
+_I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
 
 
 def _pow2(n: torch.Tensor) -> torch.Tensor:
@@ -156,7 +157,10 @@ def decode_plain(windows, lbit, nsym, nore, states, reps, tabs,
         # repeat-offset resolution in the carry
         is_long = of_val > 3
         code = of_val - 1 + (ll == 0).to(_I64)
-        rep3 = (r0 - 1).clamp(min=1) if rep3_floor else r0 - 1
+        # the floor of the XLA scan: r0 - 1 in int32 (INT32_MIN wraps to
+        # INT32_MAX), then at least 1
+        rep3 = (torch.where(r0 == _I32_MIN, _I32_MAX, (r0 - 1).clamp(min=1))
+                if rep3_floor else r0 - 1)
         off = torch.where(is_long, of_val - 3, torch.where(
             code == 0, r0, torch.where(code == 1, r1, torch.where(
                 code == 2, r2, rep3))))

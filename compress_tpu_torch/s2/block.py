@@ -1,15 +1,22 @@
-"""S2/Snappy block decoder (pure Python).
+"""S2/Snappy block codec on the host (pure Python).
 
-A copy of the JAX package's host decoder (``s2/block.py``: ``decode``,
-``_decode_block_py``, ``CorruptError``) without its native branch, so that
-users of the port and ``chip_smoke.py`` can check the device encoder's
-bodies without importing that package.  Format: the reference's
-s2/s2.go tag spec and its repeat-offset extension.
+A copy of the JAX package's host codec (``s2/block.py``): the decoder
+(``decode``, ``_decode_block_py``, ``CorruptError``), so that users of the
+port and ``chip_smoke.py`` can check the device encoder's bodies, and the
+fast-tier S2 encoder (``encode``: the emitters and ``_encode_block_py``),
+which packs the zstd accel sidecar (``zstd/accel.py``).  The reference
+specifies its Python path and its native core to give the same bytes, so
+``encode`` equals the reference's ``s2.encode``.  Without its native
+branch; the ``better`` and ``best`` tiers and snappy mode are not copied.
+Format: the reference's s2/s2.go tag spec and its repeat-offset
+extension.
 """
 
 from __future__ import annotations
 
-from compress_tpu_torch.utils.varint import read_uvarint
+import numpy as np
+
+from compress_tpu_torch.utils.varint import put_uvarint, read_uvarint
 
 _MODE_S2 = 0
 _MODE_SNAPPY = 1
@@ -109,3 +116,189 @@ def decode(block, *, allow_repeat: bool = True) -> bytes:
         raise CorruptError("decoded length too large")
     mode = _MODE_S2 if allow_repeat else _MODE_SNAPPY
     return _decode_block_py(dlen, block[pos:], mode)
+
+
+# ---------------------------------------------------------------------------
+# Encoder: the reference's pure-Python fast tier, S2 mode
+# ---------------------------------------------------------------------------
+
+_MUL = 0x9E3779B185EBCA87
+
+
+def _emit_literal(out: bytearray, lit) -> None:
+    n = len(lit)
+    if n == 0:
+        return
+    x = n - 1
+    if x < 60:
+        out.append(x << 2)
+    elif x < 1 << 8:
+        out.append(60 << 2)
+        out.append(x)
+    elif x < 1 << 16:
+        out.append(61 << 2)
+        out += x.to_bytes(2, "little")
+    elif x < 1 << 24:
+        out.append(62 << 2)
+        out += x.to_bytes(3, "little")
+    else:
+        out.append(63 << 2)
+        out += x.to_bytes(4, "little")
+    out += lit
+
+
+def _emit_repeat(out: bytearray, length: int) -> None:
+    while True:
+        if length <= 8:
+            out.append(((length - 4) << 2) | 1)
+            out.append(0)
+            return
+        if length <= 263:
+            out.append((5 << 2) | 1)
+            out.append(0)
+            out.append(length - 8)
+            return
+        if length <= 65795:
+            out.append((6 << 2) | 1)
+            out.append(0)
+            out += (length - 260).to_bytes(2, "little")
+            return
+        maxl = 65539 + (1 << 24) - 1
+        take = min(length, maxl)
+        if length - take != 0 and length - take < 4:
+            take = length - 4
+        out.append((7 << 2) | 1)
+        out.append(0)
+        out += (take - 65540).to_bytes(3, "little")
+        length -= take
+        if length == 0:
+            return
+
+
+def _emit_copy(out: bytearray, offset: int, length: int) -> None:
+    if offset >= 65536:
+        if length > 64:
+            first = 64 if length - 64 >= 4 else 60
+            out.append(((first - 1) << 2) | 3)
+            out += offset.to_bytes(4, "little")
+            _emit_repeat(out, length - first)
+            return
+        out.append(((length - 1) << 2) | 3)
+        out += offset.to_bytes(4, "little")
+        return
+    if length > 64:
+        first = 64 if length - 64 >= 4 else 60
+        out.append(((first - 1) << 2) | 2)
+        out += offset.to_bytes(2, "little")
+        _emit_repeat(out, length - first)
+        return
+    if offset < 2048 and length <= 11:
+        out.append(((offset >> 8) << 5) | ((length - 4) << 2) | 1)
+        out.append(offset & 0xFF)
+        return
+    out.append(((length - 1) << 2) | 2)
+    out += offset.to_bytes(2, "little")
+
+
+def _table_bits(n: int) -> int:
+    b = 8
+    while (1 << b) < n and b < 16:
+        b += 1
+    return b
+
+
+def match_len(buf: bytes, a: int, b: int, maxlen: int) -> int:
+    """Length of the common prefix of buf[a:] and buf[b:], at most maxlen:
+    slices compared in growing steps, the first differing byte found by
+    halving the step that differs."""
+    n, step = 0, 16
+    while n < maxlen:
+        m = min(step, maxlen - n)
+        if buf[a + n:a + n + m] != buf[b + n:b + n + m]:
+            while m > 1:   # the first difference lies in [n, n + m)
+                h = m >> 1
+                if buf[a + n:a + n + h] == buf[b + n:b + n + h]:
+                    n += h
+                    m -= h
+                else:
+                    m = h
+            return n
+        n += m
+        step *= 4
+    return max(maxlen, 0)
+
+
+def _encode_block_py(src: bytes) -> bytes:
+    """The reference's repeat-aware greedy S2 block encoder (its scan reads
+    Python lists where the reference indexes numpy arrays; the values are
+    the same)."""
+    n = len(src)
+    out = bytearray()
+    if n == 0:
+        return b""
+    if n < 16:
+        _emit_literal(out, src)
+        return bytes(out)
+    shift = 64 - _table_bits(n)
+    table = [-1] * (1 << (64 - shift))
+    buf = np.frombuffer(src, dtype=np.uint8)
+    b8 = np.concatenate([buf, np.zeros(8, np.uint8)])
+    v32_64 = (b8[:n].astype(np.uint64)
+              | (b8[1:n + 1].astype(np.uint64) << np.uint64(8))
+              | (b8[2:n + 2].astype(np.uint64) << np.uint64(16))
+              | (b8[3:n + 3].astype(np.uint64) << np.uint64(24)))
+    hashes = (((v32_64 << np.uint64(32)) * np.uint64(_MUL))
+              >> np.uint64(shift)).tolist()
+    v32 = v32_64.tolist()
+    s = 1
+    next_emit = 0
+    repeat = 0
+    mv = memoryview(src)
+    while True:
+        while True:   # probe
+            if s + 16 > n:
+                if next_emit < n:
+                    _emit_literal(out, mv[next_emit:n])
+                return bytes(out)
+            h = hashes[s]
+            c = table[h]
+            table[h] = s
+            if repeat > 0 and v32[s] == v32[s - repeat]:
+                cand = s - repeat
+                is_rep = True
+                break
+            # c < s: after backward extension a short match can leave the
+            # scan behind a stale table entry
+            if 0 <= c < s and v32[c] == v32[s]:
+                cand = c
+                is_rep = False
+                break
+            s += 1 + ((s - next_emit) >> 6)
+        while s > next_emit and cand > 0 and src[s - 1] == src[cand - 1]:
+            s -= 1
+            cand -= 1
+        _emit_literal(out, mv[next_emit:s])
+        offset = s - cand
+        length = 4 + match_len(src, cand + 4, s + 4, n - s - 4)
+        if is_rep:
+            _emit_repeat(out, length)
+        else:
+            _emit_copy(out, offset, length)
+        repeat = offset
+        s += length
+        next_emit = s
+        if s + 16 > n:
+            if next_emit < n:
+                _emit_literal(out, mv[next_emit:n])
+            return bytes(out)
+        for d in (1, 2, 3, 4):   # the native core's write order
+            table[hashes[s - d]] = s - d
+
+
+def encode(src) -> bytes:
+    """S2 block encode (repeat offsets allowed): the uvarint length, then
+    the body.  Reference: s2.Encode."""
+    src = bytes(src)
+    out = bytearray()
+    put_uvarint(out, len(src))
+    return bytes(out) + _encode_block_py(src)

@@ -1,7 +1,9 @@
-"""The decode side of the accel sidecar: a copy of the JAX package's
-``zstd/accel.py`` ``split_sidecar``, ``BlockAccel``, ``parse_sidecar`` and
-``accel_plan``.  (``build_sidecar``, which writes it, is not in the port
-yet.)
+"""The accel sidecar: a copy of the JAX package's ``zstd/accel.py``.
+``build_sidecar`` writes it (its payload from ``zstd/sidecar.py``, the
+port's copy of the reference's native builder), ``compress_accel`` and
+``split_stream_accel`` encode a stream with sidecars and cut it into the
+items of the batched device decode, and ``split_sidecar``,
+``parse_sidecar`` and ``accel_plan`` read it back.
 
 An encoder may write, before a zstd frame, a skippable frame whose
 payload carries the frame's decode checkpoints: per block the huff0
@@ -27,9 +29,87 @@ import numpy as np
 from compress_tpu_torch.ops.execute import ARENA_ROWS, HIST_BASE, OUT_BASE
 from compress_tpu_torch.s2 import block as s2block
 from compress_tpu_torch.utils.crc import crc32c
+from compress_tpu_torch.zstd import _frame_extent, sidecar
+from compress_tpu_torch.zstd.encoder import compress, compress_frame_bs
+from compress_tpu_torch.zstd.frame import parse_frame_header
 
 SKIP_MAGIC = 0x184D2A50  # first of the 16 skippable magics
 ACCEL_MAGIC = b"CTA3"
+SEG = 1 << 16  # one 64 KiB block per execute step
+
+
+def build_sidecar(frame: bytes, max_rounds: int = 4, seq_cks: bool = False,
+                  hist_blocks: int = 0) -> bytes | None:
+    """The accel sidecar of one zstd frame, as a whole skippable frame, or
+    None where the frame is not eligible (``zstd/sidecar.py``).  A
+    multi-block frame is eligible when every block but the last decodes
+    to exactly 64 KiB and every offset reaches back at most
+    ``hist_blocks`` blocks; ``seq_cks`` also writes the sequence
+    checkpoints.  The payload is S2-packed ('CTA2') where that is shorter,
+    then CRC-32C wrapped ('CTAC'): a corrupt sidecar is ignored, never
+    planned."""
+    h = parse_frame_header(frame)
+    payload = sidecar.build_payload(frame[h.header_size:], max_rounds,
+                                    seq_cks, hist_blocks)
+    if payload is None:
+        return None
+    packed = b"CTA2" + s2block.encode(payload)
+    if len(packed) < len(payload):
+        payload = packed
+    payload = (b"CTAC" + (crc32c(payload) & 0xFFFFFFFF).to_bytes(4, "little")
+               + payload)
+    return ((SKIP_MAGIC | 0xA).to_bytes(4, "little")
+            + len(payload).to_bytes(4, "little") + payload)
+
+
+def compress_accel(data, level: int = 1, max_rounds: int = 4,
+                   multi_block: bool = False, hist_blocks: int = 8) -> bytes:
+    """One-shot encode with the device-decode sidecars before the frames:
+    a standard zstd stream (the sidecars are skippable frames).
+
+    By default an input over 64 KiB is cut into independent single-block
+    frames, each with its sidecar.  ``multi_block`` instead writes one
+    frame of 64 KiB blocks whose matches reach back ``hist_blocks`` blocks
+    (at most the frame's blocks less one), which the device decodes with a
+    carried history; where that frame has no sidecar the input is cut as
+    by default.  The frames come from the port's encoder, so they differ
+    from the reference's native ones; each sidecar equals the reference's
+    sidecar of the same frame."""
+    data = bytes(data)
+    if multi_block and len(data) > SEG:
+        n_blocks = -(-len(data) // SEG)
+        hist_blocks = max(1, min(int(hist_blocks), n_blocks - 1))
+        frame = compress_frame_bs(data, level, 16, hist_blocks << 16)
+        side = build_sidecar(frame, max_rounds, hist_blocks=hist_blocks)
+        if side is not None:
+            return side + frame
+    out = bytearray()
+    for lo in range(0, max(len(data), 1), SEG):
+        frame = compress(data[lo:lo + SEG], level=level)
+        out += (build_sidecar(frame, max_rounds) or b"") + frame
+    return bytes(out)
+
+
+def split_stream_accel(blob: bytes) -> list:
+    """Cut a ``compress_accel`` stream into items of
+    ``decompress_frames_device``: each frame with the skippable frames
+    before it (its sidecar); trailing skippable frames join the last item.
+    A structural walk of the block headers, no decoding."""
+    blob = bytes(blob)
+    items = []
+    pos = cur = 0
+    while pos < len(blob):
+        end, skippable = _frame_extent(blob, pos)
+        if not skippable:
+            items.append(blob[cur:end])
+            cur = end
+        pos = end
+    if cur < len(blob):
+        if items:
+            items[-1] += blob[cur:]
+        else:
+            items.append(blob[cur:])
+    return items
 
 
 def split_sidecar(blob: bytes):

@@ -1,6 +1,5 @@
 """Batched device decode of zstd frames (counterpart of the JAX package's
-``zstd/device_dec.py`` ``decompress_frames_device`` for single-block
-frames).
+``zstd/device_dec.py`` ``decompress_frames_device``).
 
 Every heavy stage of a single-block frame (content up to 64 KiB) runs on
 the device, one launch each for the whole batch:
@@ -15,14 +14,16 @@ The host parses the sections (byte work).  A frame that carries an accel
 sidecar (``zstd/accel.py``) takes its literal checkpoints and execute plan
 from it ("accel" route: no per-symbol host work, no sequence decode); a
 plain frame walks every literal stream (``_hwalk``) and sequence section
-(``seqdev.seq_accel``) on the host for its checkpoints ("dev" route).
-Other frames go to the port's host decoder (``zstd.decompress``, "host"
-route), as in the reference: raw or RLE blocks, more than one block, raw,
-RLE, 1X or treeless literals without a sidecar, a literal section of
-fewer than 6 bytes, no sequences, trailing non-skippable data, anything
-malformed.  Multi-block frames with a sidecar, which the reference runs
-through its history executor (``execute_blocks_hist``, not in the port
-yet), go to the host decoder here too.
+(``seqdev.seq_accel``) on the host for its checkpoints ("dev" route).  A
+frame of 64 KiB blocks whose sidecar covers every block ("accel_mb"
+route) decodes its blocks' literals in the same literal launch and runs
+its plans through the history executor (``execute_blocks_hist``), one
+launch per history size.  Other frames go to the port's host decoder
+(``zstd.decompress``, "host" route), as in the reference: raw or RLE
+blocks, more than one block without a sidecar, raw, RLE, 1X or treeless
+literals without a sidecar, a literal section of fewer than 6 bytes, no
+sequences, trailing non-skippable data, anything malformed, and a
+sidecar whose plans ``accel_plan`` or ``pack_pieces_mb`` refuse.
 ``decompress_frames_device.host_frames`` counts the frames decoded on the
 host.
 """
@@ -244,9 +245,10 @@ def _accel_lit_ok(lit, acc) -> bool:
 
 
 def _hwalk(stream: bytes, sym_t, nb_t, max_bits: int, out_len: int,
-           k: int):
+           k: int, strict: bool = False):
     """Host walk of one huff0 stream recording the remaining bits every k
-    symbols."""
+    symbols.  With ``strict`` (the sidecar builder's rule) it returns None
+    where a symbol remains to decode at bit 0."""
     br = fse_core.BitReaderReverse(stream)
     bitpos = br.bitpos
     data = stream
@@ -258,6 +260,8 @@ def _hwalk(stream: bytes, sym_t, nb_t, max_bits: int, out_len: int,
             chunk = int.from_bytes(data[b0:b0 + 9], "little")
             w = (chunk >> (bp & 7)) & ((1 << max_bits) - 1)
         else:
+            if strict and bitpos <= 0:
+                return None
             chunk = int.from_bytes(data[0:9], "little")
             w = (chunk << -bp) & ((1 << max_bits) - 1)
         nb = int(nb_t[w])
@@ -269,18 +273,20 @@ def _hwalk(stream: bytes, sym_t, nb_t, max_bits: int, out_len: int,
     return cks
 
 
-def _multiblock_ok(frame: bytes, accs, hist_blocks: int) -> bool:
-    """Whether a multi-block frame and its sidecar pass the reference's
-    checks for its carried-history route (``_prep_multiblock``)."""
+def _prep_multiblock(frame: bytes, accs, hist_blocks: int):
+    """Check a multi-block frame against its sidecar as the reference
+    does and describe each block's literals (``_parse_literals_any``'s
+    tuples): (lits, accs, hist_blocks), or None for the host decoder."""
     if hist_blocks < 1 or hist_blocks > 128:
-        return False
+        return None
     blocks = _parse_blocks(frame)
     if blocks is None or len(blocks) != len(accs):
-        return False
+        return None
+    lits = []
     prev_table = None   # the Huffman table carried to treeless sections
     for (btype, bsize, body), acc in zip(blocks, accs):
         if acc is None:
-            return False
+            return None
         if btype == B.BLOCK_RAW:
             lit = (1, len(body), None, body, None, len(body))
         elif btype == B.BLOCK_RLE:
@@ -288,13 +294,14 @@ def _multiblock_ok(frame: bytes, accs, hist_blocks: int) -> bool:
         else:
             lit = _parse_literals_any(body, prev_table)
             if lit is None:
-                return False
+                return None
             if lit[4] is not None:
                 prev_table = lit[4]
         if lit[0] != acc.lit_kind or lit[1] != acc.regen \
                 or not _accel_lit_ok(lit, acc):
-            return False
-    return True
+            return None
+        lits.append(lit)
+    return lits, accs, hist_blocks
 
 
 def _route(frame: bytes):
@@ -309,10 +316,10 @@ def _route(frame: bytes):
             hist_blocks, ab = 0, None
         if ab is not None and len(ab) == 1:
             acc = ab[0]
-        elif ab is not None and len(ab) > 1 \
-                and _multiblock_ok(frame, ab, hist_blocks):
-            # the reference's carried-history route: the host decoder here
-            return "accel_mb", frame
+        elif ab is not None and len(ab) > 1:
+            mb = _prep_multiblock(frame, ab, hist_blocks)
+            if mb is not None:
+                return "accel_mb", (*mb, frame)
     body = _parse_single_block(frame)
     if body is None:
         return "host", frame
@@ -353,12 +360,25 @@ def _route(frame: bytes):
 
 def _literal_batch(metas, times):
     """Host half of the literal stage: the literals that need no decode
-    ({meta index: bytes}), the queued items and their chunks, and the
-    numpy inputs of ``huff0_decode_chunks`` (windows (N, C, WIN) uint8,
-    lbit and nsym (N, C) int32, tables (N, 2048) int32), None when no
-    item needs a decode."""
+    ({key: bytes}; the key of a block of an "accel_mb" item is (meta
+    index, block), of any other item its meta index), the queued items and
+    their chunks, and the numpy inputs of ``huff0_decode_chunks`` (windows
+    (N, C, WIN) uint8, lbit and nsym (N, C) int32, tables (N, 2048)
+    int32), None when no item needs a decode."""
     decoded = {}
-    items = []   # (index, [(stream, checkpoints, n_syms)], table)
+    items = []   # (key, [(stream, checkpoints, n_syms)], table)
+
+    def from_sidecar(key, lit, acc):
+        lkind, regen, lens, streams, table, _s = lit
+        if lkind == 1:      # raw literals: the bytes ship in the frame
+            decoded[key] = streams
+        elif lkind == 2:    # RLE
+            decoded[key] = streams * regen
+        else:
+            items.append((key, [(streams[q], acc.lit_cks[q], lens[q])
+                                for q in range(len(streams))],
+                          ED.expand_table(*table)))
+
     t0 = time.perf_counter()
     for i, (kind, m) in enumerate(metas):
         if kind == "dev":
@@ -368,15 +388,11 @@ def _literal_batch(metas, times):
                 np.int64), lens[q]) for q in range(4)]
             items.append((i, trip, ED.expand_table(sym_t, nb_t, max_bits)))
         elif kind == "accel":
-            (lkind, regen, lens, streams, table, _s), acc, _fr = m
-            if lkind == 1:      # raw literals: the bytes ship in the frame
-                decoded[i] = streams
-            elif lkind == 2:    # RLE
-                decoded[i] = streams * regen
-            else:
-                items.append((i, [(streams[q], acc.lit_cks[q], lens[q])
-                                  for q in range(len(streams))],
-                              ED.expand_table(*table)))
+            from_sidecar(i, m[0], m[1])
+        elif kind == "accel_mb":
+            lits, accs, _hb, _fr = m
+            for k, (lit, acc) in enumerate(zip(lits, accs)):
+                from_sidecar((i, k), lit, acc)
     t1 = time.perf_counter()
     times["lit_walk"] += t1 - t0
     if not items:
@@ -459,8 +475,10 @@ def _exec_batch(metas, lit_decoded, seq_out, max_rounds: int):
     plans, lit_rows, order, host = [], [], [], []
     seq_iter = iter(seq_out)
     for i, (kind, m) in enumerate(metas):
-        if kind in ("host", "accel_mb"):
+        if kind == "host":
             host.append((i, m))
+            continue
+        if kind == "accel_mb":
             continue
         lits = lit_decoded[i]
         if kind == "accel":
@@ -482,14 +500,50 @@ def _exec_batch(metas, lit_decoded, seq_out, max_rounds: int):
     return plans, rows, order, host
 
 
+def _mb_groups(metas, lit_decoded):
+    """Host half of the multi-block execute: {hist_blocks: (meta indices,
+    plans per frame, literal rows (B, K, 512, 128) uint8, pieces, gstart)}
+    and [(meta index, frame)] for the host decoder (a sidecar whose plans
+    ``accel_plan`` or ``pack_pieces_mb`` refuse)."""
+    by_hb, host = {}, []
+    for i, (kind, m) in enumerate(metas):
+        if kind != "accel_mb":
+            continue
+        _lits, accs, hb, frame = m
+        try:
+            plans = [AC.accel_plan(a, hb) for a in accs]
+        except ValueError:
+            host.append((i, frame))
+            continue
+        by_hb.setdefault(hb, []).append((i, plans))
+    groups = {}
+    for hb, group in by_hb.items():
+        plans_kb = [p for _i, p in group]
+        try:
+            pieces, gstart = X.pack_pieces_mb(plans_kb, hb << 16)
+        except ValueError:
+            host.extend((i, metas[i][1][3]) for i, _p in group)
+            continue
+        K = gstart.shape[1]
+        rows = np.zeros((len(group), K, 512 * 128), np.uint8)
+        for b, (i, plans) in enumerate(group):
+            for k in range(len(plans)):
+                lits = lit_decoded[(i, k)]
+                rows[b, k, :len(lits)] = np.frombuffer(lits, np.uint8)
+        groups[hb] = ([i for i, _p in group], plans_kb,
+                      rows.reshape(len(group), K, 512, 128), pieces, gstart)
+    return groups, host
+
+
 def decompress_frames_device(frames, max_rounds: int = 4, device=None,
                              stats: dict | None = None):
     """Decode a batch of zstd items (each one frame, optionally preceded
     by skippable frames such as an accel sidecar and followed by
     skippable frames); returns a list of bytes, equal to
-    ``zstd.decompress`` of each item.  Single-block frames decode on the
-    device (see the module doc for which shapes go to the host decoder,
-    counted in ``decompress_frames_device.host_frames``).
+    ``zstd.decompress`` of each item.  Single-block frames, and
+    multi-block frames with a sidecar, decode on the device (see the
+    module doc for which shapes go to the host decoder, counted in
+    ``decompress_frames_device.host_frames``).
 
     Runs on CUDA unless ``device`` names another device ("cpu" runs the
     plain PyTorch versions); raises when no card is present and no device
@@ -545,6 +599,23 @@ def decompress_frames_device(frames, max_rounds: int = 4, device=None,
         times["exec"] += time.perf_counter() - t1
     else:
         times["plan"] += time.perf_counter() - t0
+
+    # multi-block frames: one history launch per history size
+    t0 = time.perf_counter()
+    groups, mb_host = _mb_groups(metas, lit_decoded)
+    host += mb_host
+    times["plan"] += time.perf_counter() - t0
+    for hb, (idx, plans_kb, rows, pieces, gstart) in groups.items():
+        t0 = time.perf_counter()
+        out = X.execute_blocks_hist(*(torch.from_numpy(a).to(dev) for a in (
+            rows, pieces, gstart)), hb * 512)
+        out = out.reshape(len(idx), -1).cpu().numpy()
+        for b, (i, plans) in enumerate(zip(idx, plans_kb)):
+            frame_out = out[b].reshape(-1, 512 * 128)
+            results[i] = b"".join(
+                frame_out[k, :int(np.sum(p["len"]))].tobytes()
+                for k, p in enumerate(plans))
+        times["exec"] += time.perf_counter() - t0
 
     t0 = time.perf_counter()
     for i, fr in host:

@@ -2,8 +2,11 @@
 (RFC 8878).  A copy of the path the JAX package's ``zstd/encoder.py``
 takes without its native library (``compress``'s Python branch: the
 ``Matcher``, literal and sequence sections, frame assembly), byte for byte
-the same frames.  Dictionaries, custom windows and the concurrent job
-engine are not copied.
+the same frames.  Dictionaries, custom window logs and the concurrent job
+engine are not copied.  ``compress_frame_bs`` writes the frame of 64 KiB
+blocks and a capped window that the accel encode's multi-block mode needs
+(the reference writes it with its native ladder, ``zstd_enc.cpp``
+``ct_zstd_compress_frame_bs``), with this matcher.
 
 ``predef_seq_tables()`` pins every sequence section to the predefined FSE
 tables (mode 0): the frames the shared-table sequence decoder
@@ -20,6 +23,7 @@ import numpy as np
 from compress_tpu_torch.fse import core as fse_core
 from compress_tpu_torch.huff0 import table as HT
 from compress_tpu_torch.huff0.batch import _encode_stream
+from compress_tpu_torch.s2.block import match_len
 from compress_tpu_torch.utils.xxhash64 import xxh64
 from compress_tpu_torch.zstd import frame as F
 from compress_tpu_torch.zstd import seqs as S
@@ -65,11 +69,13 @@ _LEVEL_PARAMS = {
 class Matcher:
     """Greedy repeat-aware matcher with its hash table shared across the
     blocks of a frame.  Sequences never span a block end (matches are
-    capped at it); candidates may reference any earlier position.  The
-    scan loop reads Python lists (the reference indexes numpy arrays; the
-    values are the same)."""
+    capped at it); candidates may reference any earlier position within
+    ``window`` bytes (None: the whole input).  The scan loop reads Python
+    lists (the reference indexes numpy arrays; the values are the
+    same)."""
 
-    def __init__(self, src: bytes, level: int = 2):
+    def __init__(self, src: bytes, level: int = 2,
+                 window: int | None = None):
         self.src = src
         self.buf = np.frombuffer(src, dtype=np.uint8)
         p = _LEVEL_PARAMS.get(level, _LEVEL_PARAMS[2])
@@ -79,6 +85,7 @@ class Matcher:
             bits += 1
         self.bits = bits
         self.insert = p["insert"]
+        self.window = window
         if n >= 4:
             h, v = _hashes(self.buf, bits)
             self.hashes, self.v32 = h.tolist(), v.tolist()
@@ -87,11 +94,12 @@ class Matcher:
 
     def next_block(self, start: int, end: int):
         """Sequences covering src[start:end]: (lls, mls, offs, tail)."""
-        src, buf = self.src, self.buf
+        src = self.src
         out_ll, out_ml, out_off = [], [], []
         if end - start < 16:
             return (np.array([], np.int64),) * 3 + (src[start:end],)
         hashes, v32, table = self.hashes, self.v32, self.table
+        window = self.window if self.window is not None else end
         s = max(start, 1)
         next_emit = start
         r1 = self.r1
@@ -113,14 +121,14 @@ class Matcher:
                     break
                 # c < s: after backward extension a short match can leave
                 # the scan behind a stale table entry
-                if 0 <= c < s and v32[c] == v32[s]:
+                if 0 <= c < s and v32[c] == v32[s] and s - c <= window:
                     cand = c
                     break
                 s += 1 + ((s - next_emit) >> 6)
             while s > next_emit and cand > 0 and src[s - 1] == src[cand - 1]:
                 s -= 1
                 cand -= 1
-            length = 4 + _match_len(buf, cand + 4, s + 4, end - s - 4)
+            length = 4 + match_len(src, cand + 4, s + 4, end - s - 4)
             out_ll.append(s - next_emit)
             out_ml.append(length)
             out_off.append(s - cand)
@@ -132,21 +140,6 @@ class Matcher:
             for d in range(1, self.insert + 1):
                 if s - d > 0:
                     table[hashes[s - d]] = s - d
-
-
-def _match_len(buf: np.ndarray, a: int, b: int, maxlen: int) -> int:
-    """Length of the common prefix of buf[a:] and buf[b:], at most maxlen,
-    compared in growing steps (a short match reads a few bytes, not the
-    rest of the block)."""
-    n, step = 0, 64
-    while n < maxlen:
-        m = min(step, maxlen - n)
-        neq = np.flatnonzero(buf[a + n:a + n + m] != buf[b + n:b + n + m])
-        if neq.size:
-            return n + int(neq[0])
-        n += m
-        step *= 4
-    return max(maxlen, 0)
 
 
 def offsets_to_values(lls, offsets, reps=(1, 4, 8)):
@@ -317,25 +310,18 @@ def encode_sequences_section(lls, mls, ofvals) -> bytes:
     return bytes(out)
 
 
-def compress(data, level: int = 2, checksum: bool = False) -> bytes:
-    """Encode data as one zstd frame (levels 1-4 differ in the matcher's
-    hash width and insert depth)."""
-    data = bytes(data)
+def _encode_blocks(data: bytes, level: int, block: int,
+                   window: int | None) -> bytes:
+    """The blocks of a frame of data (not empty): ``block`` bytes each but
+    the last, sequences from one ``Matcher`` over the whole input."""
     n = len(data)
-    single = n <= (1 << 20)
-    window = n if single else min(1 << 23, max(n, 1024))
-    out = bytearray(F.write_frame_header(n, max(window, 1), single, checksum))
-    if n == 0:
-        out += (1).to_bytes(3, "little")  # empty raw last block
-        if checksum:
-            out += (xxh64(b"") & 0xFFFFFFFF).to_bytes(4, "little")
-        return bytes(out)
-    matcher = Matcher(data, level)
+    out = bytearray()
+    matcher = Matcher(data, level, window)
     reps = (1, 4, 8)
     pos = 0
     while pos < n:
         blk_start = pos
-        blk_end = min(pos + BLOCK_SIZE, n)
+        blk_end = min(pos + block, n)
         lls, mls, offs, tail = matcher.next_block(blk_start, blk_end)
         pos = blk_end
         last = pos >= n
@@ -363,6 +349,55 @@ def compress(data, level: int = 2, checksum: bool = False) -> bytes:
             out += bh.to_bytes(3, "little")
             out += body
             reps = cand_reps
+    return bytes(out)
+
+
+def compress(data, level: int = 2, checksum: bool = False) -> bytes:
+    """Encode data as one zstd frame (levels 1-4 differ in the matcher's
+    hash width and insert depth)."""
+    data = bytes(data)
+    n = len(data)
+    single = n <= (1 << 20)
+    window = n if single else min(1 << 23, max(n, 1024))
+    out = bytearray(F.write_frame_header(n, max(window, 1), single, checksum))
+    if n == 0:
+        out += (1).to_bytes(3, "little")  # empty raw last block
+        if checksum:
+            out += (xxh64(b"") & 0xFFFFFFFF).to_bytes(4, "little")
+        return bytes(out)
+    out += _encode_blocks(data, level, BLOCK_SIZE, None)
     if checksum:
         out += (xxh64(data) & 0xFFFFFFFF).to_bytes(4, "little")
+    return bytes(out)
+
+
+def compress_frame_bs(data, level: int, block_log: int,
+                      max_window: int) -> bytes:
+    """One frame of blocks of ``1 << block_log`` bytes (the last one
+    shorter) whose matches reach back at most ``max_window`` bytes: the
+    frame the reference's native ``ct_zstd_compress_frame_bs``
+    (zstd_enc.cpp:1476) lays out, from this encoder's matcher and blocks.
+    Header: no single segment, the window descriptor of min(input, 8 MiB,
+    max_window) (at least 1 KiB) rounded up as the native code rounds it,
+    a 4-byte content size, no checksum.  The input must hold more than 16
+    bytes and fewer than 2^32."""
+    data = bytes(data)
+    n = len(data)
+    if n <= 16 or n >= 1 << 32:
+        raise ValueError(f"compress_frame_bs: {n} bytes")
+    window = max(min(n, 8 << 20, max_window if max_window > 0 else n), 1024)
+    wlog = 10
+    while 1 << (wlog + 1) <= window:
+        wlog += 1
+    wbase = 1 << wlog
+    mantissa = (window - wbase) // (wbase >> 3)
+    if wbase + mantissa * (wbase >> 3) < window:
+        mantissa += 1
+    if mantissa > 7:
+        mantissa, wlog = 0, wlog + 1
+    out = bytearray(F.MAGIC.to_bytes(4, "little"))
+    out += bytes([2 << 6, ((wlog - 10) << 3) | mantissa])
+    out += n.to_bytes(4, "little")
+    out += _encode_blocks(data, level, 1 << block_log,
+                          max_window if max_window > 0 else None)
     return bytes(out)

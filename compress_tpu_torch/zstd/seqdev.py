@@ -26,7 +26,7 @@ from compress_tpu_torch.ops import entropy_dec as ED
 from compress_tpu_torch.ops import zseq_kern as ZK
 from compress_tpu_torch.zstd import seqs as S
 
-__all__ = ["pack_table", "seq_accel", "prep_sequences",
+__all__ = ["pack_table", "seq_accel", "seq_walk", "prep_sequences",
            "decode_sequences_device"]
 
 
@@ -81,6 +81,77 @@ def seq_accel(stream: bytes, n_seqs: int, t_ll: S.STable, t_of: S.STable,
         if (i + 1) % k == 0 and i + 1 < n_seqs:
             cks.append((br.bitpos, s_ll, s_of, s_ml, r1, r2, r3))
     return cks
+
+
+def seq_walk(stream: bytes, n_seqs: int, t_ll: S.STable, t_of: S.STable,
+             t_ml: S.STable, reps=(1, 4, 8), k: int | None = None):
+    """The sidecar builder's walk of one sequences section (the rules of
+    the reference's native ``side_block``, zstd_dec.cpp:1731-1805): from
+    the repeat offsets ``reps`` the frame carries into the block, the
+    checkpoints as ``seq_accel`` records them, every sequence's literal
+    length, match length and resolved offset, and the repeat offsets after
+    the section.  Returns (cks, lls, mls, offs, reps) with Python lists,
+    or None where the section is not decoded exactly: an offset code above
+    23 (or a code past its alphabet), a repeat offset that resolves to 0,
+    or a bit stream not read to its end.  ``seq_accel`` instead floors
+    repeat code 3 at 1 and reads any stream, as the reference's host walk
+    does."""
+    k = k or ED.ZSEQ_K
+    try:
+        br = fse_core.BitReaderReverse(stream)
+    except ValueError:
+        return None
+    read = br.read
+    ll_sym, of_sym, ml_sym = (t.spread.tolist() for t in (t_ll, t_of, t_ml))
+    ll_nb, of_nb, ml_nb = (t.nb.tolist() for t in (t_ll, t_of, t_ml))
+    ll_ns, of_ns, ml_ns = (t.new_state.tolist() for t in (t_ll, t_of, t_ml))
+    llb, llx = S._LL_BASELINE, S._LL_BITS
+    mlb, mlx = S._ML_BASELINE, S._ML_BITS
+    s_ll = read(t_ll.log)
+    s_of = read(t_of.log)
+    s_ml = read(t_ml.log)
+    r1, r2, r3 = reps
+    cks = [(br.bitpos, s_ll, s_of, s_ml, r1, r2, r3)]
+    lls, mls, offs = [], [], []
+    for i in range(n_seqs):
+        of_c = of_sym[s_of]
+        ml_c = ml_sym[s_ml]
+        ll_c = ll_sym[s_ll]
+        if of_c > 23 or ml_c > S.MAX_ML_CODE or ll_c > S.MAX_LL_CODE:
+            return None
+        of_val = (1 << of_c) + read(of_c) if of_c else 1
+        ml = mlb[ml_c] + read(mlx[ml_c])
+        ll = llb[ll_c] + read(llx[ll_c])
+        if of_val > 3:
+            off = of_val - 3
+            r1, r2, r3 = off, r1, r2
+        else:
+            code = of_val - 1 + (ll == 0)
+            if code == 0:
+                off = r1
+            elif code == 1:
+                off = r2
+                r1, r2 = off, r1
+            elif code == 2:
+                off = r3
+                r1, r2, r3 = off, r1, r2
+            else:
+                off = r1 - 1
+                if off <= 0:
+                    return None
+                r1, r2, r3 = off, r1, r2
+        lls.append(ll)
+        mls.append(ml)
+        offs.append(off)
+        if i < n_seqs - 1:
+            s_ll = ll_ns[s_ll] + read(ll_nb[s_ll])
+            s_ml = ml_ns[s_ml] + read(ml_nb[s_ml])
+            s_of = of_ns[s_of] + read(of_nb[s_of])
+        if (i + 1) % k == 0 and i + 1 < n_seqs:
+            cks.append((br.bitpos, s_ll, s_of, s_ml, r1, r2, r3))
+    if br.bitpos != 0:   # an over-read leaves it below 0
+        return None
+    return cks, lls, mls, offs, (r1, r2, r3)
 
 
 def prep_sequences(items, k: int | None = None):

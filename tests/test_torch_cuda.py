@@ -16,8 +16,13 @@ the LZ execute on compact and padded plans of every arena class, on
 every class of ``corpus.huff0_inputs`` / ``corpus.zseq_inputs`` in every
 mode (shared table, a table per row, the per-container and per-item
 entries; every k from 1 to 8 and both repeat-code-3 rules for the
-sequences), with a profiler trace that shows each entry launching its
-kernel and nothing else.
+sequences, and the chunks that enter with a repeat offset of INT32_MIN),
+with a profiler trace that shows each entry launching its kernel and
+nothing else, and the multi-block history execute on
+``corpus.history_streams``, on ``corpus.hist_plans`` (histories of 1 and
+128 blocks), on a group of frames of 1 to 16 blocks and in twenty
+repeated launches, with the accel and multi-block accel decode routes
+end to end.
 Without a card every test here skips.
 
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -40,6 +45,9 @@ from compress_tpu_torch.s2.device_dec import plan_blocks
 from compress_tpu_torch.utils.varint import put_uvarint
 from compress_tpu_torch.zstd import device as zdevice
 from compress_tpu_torch.zstd import encoder as zencoder
+from compress_tpu_torch.zstd import accel as zaccel
+from compress_tpu_torch.zstd import device_dec as zdevice_dec
+from compress_tpu_torch.zstd import seqdev as zseqdev
 from compress_tpu_torch.zstd import seqs as zseqs
 from compress_tpu_torch.zstd.device_dec import decompress_frames_device
 
@@ -1035,3 +1043,178 @@ def test_zseq_kernel_repeatable(cuda_device):
         got = zseq_kern.launch(*args)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rep3_r0_1", "carried_nonpositive"])
+def test_zseq_kernel_int32_min_floor(cuda_device, kind):
+    """The per-item entry on the chunks that enter with a repeat offset of
+    INT32_MIN: repeat code 3 under the floor gives INT32_MAX there (r1 - 1
+    wrapped in int32, as the XLA scan), as the plain version does."""
+    d = corpus.zseq_inputs(kind)
+    enters = (d["reps"] == -(1 << 31)).any(axis=1)
+    assert enters.sum() > 10
+    C = d["per_row"]
+    N = len(d["lbit"]) // C
+    cols = [torch.from_numpy(np.ascontiguousarray(x.reshape(N, C))).to(
+        cuda_device) for x in (d["lbit"], *d["states"].T, d["nsym"],
+                               d["nore"], *d["reps"].T)]
+    args = (torch.from_numpy(d["windows"]).to(cuda_device).view(N, C, -1),
+            *cols, torch.from_numpy(d["tables"]).to(cuda_device))
+    (got, got_e), (want, want_e) = (
+        entropy_dec.zseq_decode_chunks_rep(*args),
+        entropy_dec.zseq_decode_chunks_rep_ref(*args))
+    torch.cuda.synchronize()
+    assert torch.equal(got_e, want_e)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    off = want[3].cpu().numpy().reshape(N * C, -1)[enters]
+    if kind == "rep3_r0_1":
+        assert (off == (1 << 31) - 1).any()
+
+
+def _hist_ops_plans(n_blocks: int, hb: int, seed: int) -> list:
+    """Plans of a frame of n_blocks seeded 64 KiB blocks (literal runs,
+    short and overlapping copies, copies up to the history's far end)
+    planned with their history."""
+    rng = np.random.default_rng(seed)
+    hist_cap = hb << 16
+    plans = []
+    for k in range(n_blocks):
+        avail = min(k << 16, hist_cap)
+        kinds, lens, offs, pos = [], [], [], 0
+        while True:
+            if rng.random() < 0.3 or pos + avail == 0:
+                op = (0, int(rng.integers(1, 300)), 0)
+            else:
+                far = int(rng.integers(1, pos + avail + 1))
+                op = (1, int(rng.integers(3, 400)),
+                      int(rng.choice([1, 2, 3, far, far])))
+            if pos + op[1] > 1 << 16:
+                break
+            kinds.append(op[0])
+            lens.append(op[1])
+            offs.append(op[2])
+            pos += op[1]
+        if k < n_blocks - 1:     # every non-final block makes 64 KiB
+            kinds.append(0)
+            lens.append((1 << 16) - pos)
+            offs.append(0)
+        dst, src, ln, rnd = execute.plan_ops(kinds, lens, offs, 4,
+                                             execute.OUT_BASE, avail,
+                                             hist_cap)
+        plans.append(dict(src=src.astype(np.int32), dst=dst.astype(np.int32),
+                          len=ln.astype(np.int32),
+                          round=rnd.astype(np.int32),
+                          n_rounds=int(rnd.max()) + 1 if len(rnd) else 1))
+    return plans
+
+
+def _hold_hist(dev, plans_kb, hb, seed, repeat: int = 1):
+    pieces, gstart = execute.pack_pieces_mb(plans_kb, hb << 16)
+    K = gstart.shape[1]
+    lit = np.random.default_rng(seed).integers(
+        0, 256, (len(plans_kb), K, 512, 128), np.uint8)
+    args = [torch.from_numpy(a).to(dev) for a in (lit, pieces, gstart)]
+    want = execute.execute_blocks_hist_ref(*args, hb * 512)
+    before = execute.execute_blocks_hist.launches
+    for _ in range(repeat):
+        got = execute.execute_blocks_hist(*args, hb * 512)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert execute.execute_blocks_hist.launches == before + repeat
+    return got
+
+
+@pytest.mark.cuda
+def test_exec_hist_kernel_history_streams(cuda_device):
+    """Frames of ``corpus.history_streams`` through the port's multi-block
+    accel encode: the kernel on their sidecars' plans."""
+    plans_kb = []
+    for d in corpus.history_streams(2, 6 << 16, seed=5):
+        blob = zaccel.compress_accel(d, level=1, multi_block=True)
+        side, _frame = zaccel.split_sidecar(blob)
+        hb, accs = zaccel.parse_sidecar(side)
+        plans_kb.append([zaccel.accel_plan(a, hb) for a in accs])
+    assert hb == 5
+    assert any((p["src"] >= execute.HIST_BASE).any()
+               for pb in plans_kb for p in pb[1:])
+    _hold_hist(cuda_device, plans_kb, hb, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hb", [1, 128])
+def test_exec_hist_kernel_hostile_plans(cuda_device, hb):
+    """History reads before and across the frame's start, at the
+    history's ends and into a short non-final block's zero tail."""
+    _hold_hist(cuda_device, corpus.hist_plans(hb), hb, 2)
+
+
+@pytest.mark.cuda
+def test_exec_hist_kernel_frames_of_1_to_16_blocks(cuda_device):
+    plans_kb = [_hist_ops_plans(n, 8, 40 + n) for n in range(1, 17)]
+    _hold_hist(cuda_device, plans_kb, 8, 3)
+
+
+@pytest.mark.cuda
+def test_exec_hist_kernel_repeatable(cuda_device):
+    """Twenty launches on the same inputs give the plain version's
+    outputs each time (a history read that raced the store before it
+    would show here)."""
+    plans_kb = [_hist_ops_plans(n, 2, 60 + n) for n in (3, 9, 12)]
+    _hold_hist(cuda_device, plans_kb, 2, 4, repeat=20)
+
+
+@pytest.mark.cuda
+def test_exec_hist_kernel_rejects_bad_inputs(cuda_device):
+    lit = torch.zeros((2, 3, 512, 128), dtype=torch.uint8,
+                      device=cuda_device)
+    pieces = torch.zeros((0, 2), dtype=torch.int32, device=cuda_device)
+    gstart = torch.zeros((2, 3, 3), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        execute.execute_blocks_hist(lit, pieces, gstart, 256)
+    with pytest.raises(ValueError):
+        execute.execute_blocks_hist(lit, pieces.to(torch.int64), gstart, 512)
+    with pytest.raises(ValueError):
+        execute.execute_blocks_hist(lit, pieces, gstart.cpu(), 512)
+    assert not execute.execute_blocks_hist(lit, pieces, gstart, 512).any()
+
+
+@pytest.mark.cuda
+def test_accel_routes_on_cuda_make_no_host_walk(cuda_device, monkeypatch):
+    """compress_accel streams, single-block and multi-block (histories of
+    8 and 2 blocks), decode on the card with no host walk and no host
+    frame, through one launch of each literal and execute kernel."""
+    texts = [corpus.make_block("text", np.random.default_rng(s)).tobytes()
+             for s in range(3)]
+    datas = [texts[0][:30000], texts[1]]
+    datas += corpus.history_streams(2, 5 << 16, seed=9)
+    datas.append(b"".join(texts) + texts[0][:7000])
+    blobs = [zaccel.compress_accel(d, level=1) for d in datas[:2]]
+    blobs += [zaccel.compress_accel(d, level=1, multi_block=True)
+              for d in datas[2:4]]
+    blobs.append(zaccel.compress_accel(datas[4], level=1, multi_block=True,
+                                       hist_blocks=2))
+    items = [it for b in blobs for it in zaccel.split_stream_accel(b)]
+    calls = {"walks": 0}
+
+    def counted(fn):
+        def f(*a, **kw):
+            calls["walks"] += 1
+            return fn(*a, **kw)
+        return f
+
+    monkeypatch.setattr(zdevice_dec, "_hwalk", counted(zdevice_dec._hwalk))
+    monkeypatch.setattr(zseqdev, "seq_accel", counted(zseqdev.seq_accel))
+    counters = (entropy_dec.huff0_decode_chunks, execute.execute_pieces,
+                execute.execute_blocks_hist)
+    before = [f.launches for f in counters]
+    host_before = decompress_frames_device.host_frames
+    stats = {}
+    got = decompress_frames_device(items, stats=stats)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 2]
+    assert calls["walks"] == 0
+    assert decompress_frames_device.host_frames == host_before
+    assert stats["routes"] == {"accel": 2, "accel_mb": 3}
+    assert got == datas

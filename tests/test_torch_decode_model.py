@@ -322,8 +322,9 @@ def zseq_model(windows, lbit, nsym, nore, states, reps, tabs, per_row: int,
         b0, b1, b2 = big
         if rep3_floor:
             r0s = np.where(r0 >= 1 << 31, r0 - (1 << 32), r0)   # as int32
-            rep3 = np.where(b0, (r0 - 1) & M32,
-                            np.where(r0s >= 2, (r0 - 1) & M32, 1))
+            # r0 - 1 in int32 (INT32_MIN wraps to INT32_MAX), floored at 1
+            rep3 = np.where(b0 | (r0s >= 2) | (r0s == -(1 << 31)),
+                            (r0 - 1) & M32, 1)
             b3 = b0 & (r0 != 1 << 31)
         else:
             rep3 = (r0 - 1) & M32

@@ -378,9 +378,6 @@ def test_offset_code_gate(code):
         assert np.array_equal(g, w) and np.array_equal(g, x)
 
 
-_I32_MIN = -(1 << 31)
-
-
 @pytest.mark.parametrize("kind", [c for c in corpus.ZSEQ_CLASSES
                                   if c != "of31_ones"])
 def test_hostile_chunks_match_jax(kind):
@@ -397,11 +394,9 @@ def test_hostile_chunks_match_jax(kind):
 
     Per-item classes: the plain decodes with and without the repeat
     offsets against the XLA ``zseq_decode_chunks(_rep)`` (repeat code 3
-    floored at 1), every output of every chunk, except the resolved
-    offsets of chunks that enter with a repeat offset of INT32_MIN: there
-    the scan floors r1 - 1 after an int32 wrap (INT32_MAX) where the plain
-    version floors the 64-bit value (1), a departure that ROADMAP.md
-    queue 3 records; its repair adds those chunks to the comparison."""
+    floored at 1 after r1 - 1 in int32, so a carried INT32_MIN gives
+    INT32_MAX), every output of every chunk, the chunks that enter with a
+    repeat offset of INT32_MIN included."""
     d = corpus.zseq_inputs(kind)
     if d["shared"]:
         args = (d["windows"], d["lbit"], d["nsym"], d["states"], d["reps"],
@@ -430,9 +425,7 @@ def test_hostile_chunks_match_jax(kind):
     assert np.array_equal(got_e.numpy(), np.asarray(want_e))
     for g, x in zip(got[:3], want[:3]):
         assert np.array_equal(g.numpy(), np.asarray(x))
-    wraps = np.any([r == _I32_MIN for r in reps], axis=0)
-    off, want_off = got[3].numpy(), np.asarray(want[3])
-    assert np.array_equal(off[~wraps], want_off[~wraps])
+    assert np.array_equal(got[3].numpy(), np.asarray(want[3]))
     got, got_e = ED.zseq_decode_chunks(
         *map(torch.from_numpy, [wj, *cols, d["tables"]]))
     want, want_e = jax_ed.zseq_decode_chunks(

@@ -4,8 +4,9 @@
 plain frames (JAX native levels 1-4, ``zstandard``, the port's encoder
 with and without predefined tables), accel frames (``compress_accel``), a
 frame whose sidecar fails its CRC (plain route), raw, RLE and multi-block
-frames (host route, counted in ``host_frames``) and a multi-block accel
-frame (host route in the port)."""
+frames (host route, counted in ``host_frames``) and multi-block accel
+frames of JAX's and of the port's ``compress_accel`` (the history
+executor)."""
 
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from compress_tpu.zstd import device_dec as jax_dd  # noqa: E402
 from compress_tpu.zstd import seqdev as jax_sd  # noqa: E402
 from compress_tpu.zstd import seqs as jax_s  # noqa: E402
 from compress_tpu_torch import corpus  # noqa: E402
+from compress_tpu_torch.zstd import accel as A  # noqa: E402
 from compress_tpu_torch.zstd import encoder as E  # noqa: E402
 from compress_tpu_torch.zstd import seqdev as SD  # noqa: E402
 from compress_tpu_torch.zstd.device_dec import (  # noqa: E402
@@ -67,6 +69,8 @@ def batch():
     add(E.compress(d, level=1), d, "host")                 # two blocks
     d = b"".join(_block("text", 65536, 10 + s) for s in range(2))
     add(jax_z.compress_accel(d, level=1, multi_block=True), d, "accel_mb")
+    d = b"".join(_block("text", 65536, 20 + s) for s in range(2)) + d[:5000]
+    add(A.compress_accel(d, level=1, multi_block=True), d, "accel_mb")
     return items, datas, routes
 
 
@@ -78,7 +82,7 @@ def test_decode_matches_jax_and_input(batch):
     assert [_route(f)[0] for f in items] == routes
     assert got == datas
     assert got == jax_dd.decompress_frames_device(items)
-    n_host = sum(r in ("host", "accel_mb") for r in routes)
+    n_host = routes.count("host")
     assert decompress_frames_device.host_frames - before == n_host
     assert stats["host_frames"] == n_host
     assert stats["routes"] == {r: routes.count(r) for r in set(routes)}
