@@ -125,6 +125,36 @@ Batched zstd frame decode (``zstd.device_dec.decompress_frames_device``):
     kernel's bound and the whole call's GB/s of output (median of 2),
     and traces one call.
 
+Inputs that are not whole jobs, the FSE batch codec and the checksums:
+
+22. ``zstd.device.compress_device`` on the phase-10 corpus followed by a
+    tail of 300,001 bytes (the tail through the host matcher) and on
+    200,003 bytes (less than one job: the host encoder), with the launch
+    counters set to 0 just before each call and read just after: the
+    first call's counts equal phase 10's, the second's are 0; both frames
+    decode to their input with the port's host decoder; prints both calls'
+    host-clock times;
+23. the FSE batch codec on the phase-3 corpus as 1024 rows of 16 KiB:
+    holds the encode chain (``csrc/fseenc.cu``) against its plain version
+    on the path's own tables; runs ``fse.compress_batch`` with the launch
+    counter (one launch; prints the None rows and the ratio); adds 4 host
+    ``fse.compress(table_log=11)`` containers; times ``make_accel`` (the
+    first 256 rows only if the whole walk would take over 90 s); holds the
+    chunk decode (``csrc/fsedec.cu``) against its plain version on the
+    prepared windows; runs ``fse.decompress_batch`` with the counters (one
+    launch, exactly the 4 log-11 containers on the host, every row equal
+    to its input); times both kernels (also by device time), their plain
+    versions, ``fse_encode_blocks``, both whole calls, the 16 MiB
+    histogram (``histogram256_torch``, plain PyTorch, beside
+    ``torch.bincount``) and the per-row histograms, and traces one call
+    of each;
+24. CRC-32C and xxHash64 (``csrc/checksum.cu``) of the phase-3 corpus (256
+    rows of 64 KiB): holds ``crc32c_batch`` (whole rows and 65536 - 4097
+    bytes) and ``xxh64_batch`` (seeds 0 and 2^64 - 1) against their plain
+    versions and 8 rows against the host ``crc32c`` / ``xxh64``; one call
+    of each with the launch counters; times both kernels (also by device
+    time) and their plain versions, with their bounds.
+
 The routes no path sends, which take the inputs the reference takes
 (run after every main path):
 
@@ -165,6 +195,11 @@ HIST_BLOCKS = 8     # their history: compress_accel's default
 SEED = 0
 ZSTD_JOB = 4 << 20  # the v2 encoder's default job
 ZSTD_JOBS = 8       # one launch of the default max_launch_jobs
+TAIL_BYTES = 300_001   # phase 22: past the phase-10 jobs (3 host blocks)
+SHORT_BYTES = 200_003  # phase 22: below one job (the host encoder)
+FSE_HOST_LOG11 = 4     # phase 23: host containers of log 11 in the decode
+FSE_ACCEL_CUT = 256    # phase 23: rows kept if make_accel would be slow
+ACCEL_CUT_S = 90       # phase 23: make_accel's estimated seconds allowed
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 # CUDA-core rate (non-tensor) from the published H100 table; the integer
 # work of these kernels is counted against it for the operations bound
@@ -594,7 +629,7 @@ def zstd_path(dev) -> list:
             "zstd_plain_ms": plain["find"], "zstd_bound_ms": b_find[0],
             "zstd_max_abs_err": errs["find_matches"],
             "zstd_device_ms": dev_t["find"]}
-    return out, find
+    return out, find, launches
 
 
 def s2_decode_path(dev, data: bytes, bodies) -> dict:
@@ -1429,6 +1464,273 @@ def other_routes(dev, blocks_np, main_launches) -> list:
             for name, key, source, replaces, bnd, err, k in rows]
 
 
+def tail_path(zstd_launches: dict) -> None:
+    """Phase 22: ``compress_device`` on inputs that are not whole jobs: the
+    phase-10 corpus followed by a tail of TAIL_BYTES (the tail through the
+    host matcher), and SHORT_BYTES (< one job: the host encoder).  Every
+    frame must decode to its input with the port's host decoder; the first
+    call's launch counts must equal phase 10's, the second's must be 0."""
+    from compress_tpu_torch import corpus
+    from compress_tpu_torch import zstd as Z
+    from compress_tpu_torch.ops import lzkern, zenc2, zparse, zseqenc
+    from compress_tpu_torch.zstd import device as zdevice
+
+    counted = {"find": lzkern.find_matches_blocks,
+               "parse": zparse.parse_blocks, "rep": zseqenc.rep_scan,
+               "fse": zseqenc.fse_chain, "litlut": zenc2._litlut}
+    extra = corpus.corpus_blocks(8, SEED + 22).tobytes()
+    data = (corpus.replica_jobs(ZSTD_JOBS, ZSTD_JOB, SEED).tobytes()
+            + extra[:TAIL_BYTES])
+    for what, src, want in (("tail", data, zstd_launches),
+                            ("short", extra[:SHORT_BYTES],
+                             {k: 0 for k in counted})):
+        for f in counted.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        frame = zdevice.compress_device(src)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counted.items()}
+        if launches != want:
+            raise AssertionError(f"compress_device ({what}): launches "
+                                 f"{launches}, expected {want}")
+        t0 = time.perf_counter()
+        back = Z.decompress(frame)
+        dec_s = time.perf_counter() - t0
+        if back != src:
+            raise AssertionError(f"compress_device ({what}): the frame does "
+                                 "not decode to its input")
+        _say(f"compress_device, {what} ({len(src)} bytes, "
+             f"{len(src) % ZSTD_JOB} past the last whole job): launches "
+             f"{launches}; frame {len(frame)} bytes (ratio "
+             f"{len(frame) / len(src):.6f}), call {call_s:.4f} s on the host "
+             f"clock; decoded by the port's host decoder to its input "
+             f"({dec_s:.2f} s)")
+
+
+def fse_path(dev, blocks_np) -> tuple:
+    """Phase 23: the FSE batch codec on the phase-3 corpus as 1024 rows of
+    16 KiB.  Returns the two FSE kernels' JSON entries and the histogram's
+    numbers."""
+    from compress_tpu_torch import fse
+    from compress_tpu_torch.ops import entropy as E
+    from compress_tpu_torch.ops import entropy_dec as ED
+    from compress_tpu_torch.utils.histogram import histogram256_torch
+
+    row = 16 << 10
+    rows = blocks_np.reshape(-1, row)
+    N = len(rows)
+    t = torch.from_numpy(rows).to(dev)
+    # kernel 1 against its plain version on the path's own tables
+    hist = E.byte_histograms(t)
+    st, dnb, dfs, _ = E._fse_tables_bytes(hist, E.FSE_LOG)
+    chain_in = (t, st, dnb, dfs)
+    err_enc = _hold(f"fse_encode_chain ({N} rows of {row})",
+                    E.fse_encode_chain(*chain_in),
+                    E.fse_encode_chain_ref(*chain_in))
+    E.fse_encode_chain.launches = 0
+    t0 = time.perf_counter()
+    conts = fse.compress_batch(rows)
+    torch.cuda.synchronize()
+    enc_first = (time.perf_counter() - t0) * 1e3
+    enc_launches = E.fse_encode_chain.launches
+    if enc_launches != 1:
+        raise AssertionError(f"compress_batch: {enc_launches} launches")
+    kept = [i for i, c in enumerate(conts) if c is not None]
+    ratio = sum(len(conts[i]) for i in kept) / (len(kept) * row)
+    t0 = time.perf_counter()
+    host11 = [fse.compress(rows[i].tobytes(), table_log=11)
+              for i in range(FSE_HOST_LOG11)]
+    host_s = time.perf_counter() - t0
+    _say(f"FSE compress_batch: {N} rows of {row} bytes, launches "
+         f"{enc_launches}; {N - len(kept)} rows None; ratio of the others "
+         f"{ratio:.6f}; first call {enc_first:.1f} ms; {FSE_HOST_LOG11} host "
+         f"fse.compress(table_log=11) containers {host_s:.2f} s")
+
+    decode = conts + host11
+    want = [r.tobytes() for r in rows] + [rows[i].tobytes()
+                                          for i in range(FSE_HOST_LOG11)]
+    t0 = time.perf_counter()
+    fse.make_accel(decode[:FSE_ACCEL_CUT])
+    part_s = time.perf_counter() - t0
+    estimate = part_s * len(decode) / FSE_ACCEL_CUT
+    if estimate > ACCEL_CUT_S:
+        decode = decode[:FSE_ACCEL_CUT] + host11
+        want = want[:FSE_ACCEL_CUT] + want[N:]
+        _say(f"FSE make_accel: {part_s:.1f} s for the first "
+             f"{FSE_ACCEL_CUT} containers, {estimate:.1f} s estimated for "
+             f"all: decoding the first {FSE_ACCEL_CUT} rows only (cut)")
+    t0 = time.perf_counter()
+    accel = fse.make_accel(decode)
+    accel_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    metas, arrays = fse.prep_decode_batch(decode, accel)
+    prep_ms = (time.perf_counter() - t0) * 1e3
+    args = [torch.from_numpy(a).to(dev) for a in arrays]
+    err_dec = _hold(f"fse_decode_chunks ({arrays[0].shape[0]} x "
+                    f"{arrays[0].shape[1]} chunks)", ED.fse_decode_chunks(
+                        *args), ED.fse_decode_chunks_ref(*args))
+    ED.fse_decode_chunks.launches = 0
+    fse.decompress_batch.host_containers = 0
+    t0 = time.perf_counter()
+    got = fse.decompress_batch(decode, accel=accel)
+    torch.cuda.synchronize()
+    dec_first = (time.perf_counter() - t0) * 1e3
+    dec_launches = ED.fse_decode_chunks.launches
+    host_routed = fse.decompress_batch.host_containers
+    if dec_launches != 1 or host_routed != FSE_HOST_LOG11:
+        raise AssertionError(f"decompress_batch: {dec_launches} launches, "
+                             f"{host_routed} containers on the host")
+    bad = [i for i, (g, c) in enumerate(zip(got, decode))
+           if (c is None and g is not None)
+           or (c is not None and g != want[i])]
+    if bad:
+        raise AssertionError(f"decompress_batch: rows {bad[:8]} differ from "
+                             "their input")
+    n_dev = sum(m is not None for m in metas)
+    _say(f"FSE decompress_batch: {len(decode)} entries, launches "
+         f"{dec_launches}, {host_routed} log-11 containers on the host, "
+         f"{n_dev} on the card, every container equal to its input; "
+         f"make_accel {accel_s:.2f} s (host walk), prep {prep_ms:.1f} ms, "
+         f"first call {dec_first:.1f} ms")
+
+    t_enc = cuda_ms(lambda: E.fse_encode_chain(*chain_in), 10)
+    t_enc_dev = cuda_ms(lambda: E.fse_encode_chain(*chain_in), 10, True)
+    p_enc = cuda_ms(lambda: E.fse_encode_chain_ref(*chain_in), 1)
+    t_dec = cuda_ms(lambda: ED.fse_decode_chunks(*args), 20)
+    t_dec_dev = cuda_ms(lambda: ED.fse_decode_chunks(*args), 20, True)
+    p_dec = cuda_ms(lambda: ED.fse_decode_chunks_ref(*args), 2)
+    t_blocks = cuda_ms(lambda: E.fse_encode_blocks(t), 3)
+    enc_call = host_ms(lambda: fse.compress_batch(rows), 2)
+    dec_call = host_ms(lambda: fse.decompress_batch(decode, accel=accel), 2)
+    # the histograms: plain PyTorch, torch.bincount the library call
+    flat = t.reshape(-1)
+    if not torch.equal(histogram256_torch(flat),
+                       torch.bincount(flat, minlength=256).to(torch.int32)):
+        raise AssertionError("histogram256_torch differs from torch.bincount")
+    h_ms = cuda_ms(lambda: histogram256_torch(flat), 20)
+    h_dev = cuda_ms(lambda: histogram256_torch(flat), 20, True)
+    lib_ms = cuda_ms(lambda: torch.bincount(flat, minlength=256), 20)
+    lib_dev = cuda_ms(lambda: torch.bincount(flat, minlength=256), 20, True)
+    rows_ms = cuda_ms(lambda: E.byte_histograms(t), 20)
+    rows_dev = cuda_ms(lambda: E.byte_histograms(t), 20, True)
+
+    # bounds: kernel 1 reads the rows and tables once and writes the two
+    # item arrays; 20 integer operations a symbol pair.  Kernel 2 reads the
+    # windows, the six (N, C) int32 inputs and the tables once and writes
+    # the symbols and end cursors; 30 operations a pair.  The chain is a
+    # serial walk of L / 2 - 1 steps a row, which bounds it harder.
+    W = E._chain_width(row)
+    b_enc = bound(rows.size + 4 * N * (512 + 512) + 8 * N * W,
+                  20 * N * (row // 2))
+    nc = arrays[1].size
+    b_dec = bound(arrays[0].size + 6 * 4 * nc + arrays[7].size * 4
+                  + nc * (accel["k"] + 4), 30 * int(arrays[4].sum()))
+    b_hist = bound(flat.numel() + 256 * 4, flat.numel())
+    _say(f"FSE kernel times (ms, CUDA events): encode chain {t_enc:.4f} "
+         f"({t_enc_dev:.4f} device time; plain {p_enc:.4f}; {row // 2 - 1} "
+         f"dependent steps a row), bound {b_enc[0]:.4f} ({b_enc[1]}); chunk "
+         f"decode {t_dec:.4f} ({t_dec_dev:.4f} device time; plain "
+         f"{p_dec:.4f}; {nc} chunks), bound {b_dec[0]:.4f} ({b_dec[1]}); "
+         f"fse_encode_blocks {t_blocks:.4f}")
+    _say(f"FSE whole calls (host clock, ms): compress_batch {enc_call:.4f} "
+         f"({rows.size / (enc_call * 1e-3) / 1e9:.4f} GB/s of input), "
+         f"decompress_batch {dec_call:.4f} "
+         f"({len(kept) * row / (dec_call * 1e-3) / 1e9:.4f} GB/s of output)")
+    _say(f"histogram of {flat.numel()} bytes (ms): histogram256_torch "
+         f"{h_ms:.4f} ({h_dev:.4f} device time), torch.bincount {lib_ms:.4f} "
+         f"({lib_dev:.4f} device time), bound {b_hist[0]:.4f} "
+         f"({b_hist[1]}); per-row histograms ({N} rows) {rows_ms:.4f} "
+         f"({rows_dev:.4f} device time)")
+    _say_trace("FSE encode", lambda: fse.compress_batch(rows))
+    _say_trace("FSE decode", lambda: fse.decompress_batch(decode,
+                                                          accel=accel))
+    common = {"route": "cuda", "library_ms": None, "equal_to_plain": True}
+    return [
+        {"name": "fse_encode_chain", **common,
+         "source": "compress_tpu_torch/csrc/fseenc.cu",
+         "replaces": "compress_tpu/ops/entropy.py:223",
+         "launches": enc_launches, "max_abs_err": err_enc, "ms": t_enc,
+         "plain_ms": p_enc, "bound_ms": b_enc[0], "bound_by": b_enc[1],
+         "device_ms": t_enc_dev, "rows": N, "row_bytes": row,
+         "chain_steps": row // 2 - 1, "none_rows": N - len(kept),
+         "ratio": ratio, "call_ms": enc_call, "first_call_ms": enc_first,
+         "fse_encode_blocks_ms": t_blocks},
+        {"name": "fse_decode_chunks", **common,
+         "source": "compress_tpu_torch/csrc/fsedec.cu",
+         "replaces": "compress_tpu/ops/entropy_dec.py:185",
+         "launches": dec_launches, "max_abs_err": err_dec, "ms": t_dec,
+         "plain_ms": p_dec, "bound_ms": b_dec[0], "bound_by": b_dec[1],
+         "device_ms": t_dec_dev, "chunks": nc, "host_containers": host_routed,
+         "make_accel_s": accel_s, "prep_ms": prep_ms, "call_ms": dec_call,
+         "first_call_ms": dec_first}], {
+        "histogram256_torch_ms": h_ms, "histogram256_torch_device_ms": h_dev,
+        "bincount_ms": lib_ms, "bincount_device_ms": lib_dev,
+        "bound_ms": b_hist[0], "row_histograms_ms": rows_ms,
+        "row_histograms_device_ms": rows_dev}
+
+
+def checksum_path(blocks) -> list:
+    """Phase 24: CRC-32C and xxHash64 of the phase-3 corpus (256 rows of 64
+    KiB on the card).  Returns the two kernels' JSON entries."""
+    from compress_tpu_torch.ops import checksum as CK
+    from compress_tpu_torch.utils.crc import crc32c
+    from compress_tpu_torch.utils.xxhash64 import xxh64
+
+    B, n = blocks.shape
+    host = blocks[:8].cpu().numpy()
+    errs = {}
+    for length in (None, n - 4097):
+        got = CK.crc32c_batch(blocks, length)
+        errs[f"crc {length}"] = _hold(f"crc32c_batch (length {length})",
+                                      [got], [CK.crc32c_batch_ref(blocks,
+                                                                  length)])
+        m = n if length is None else length
+        if got[:8].tolist() != [crc32c(r[:m].tobytes()) for r in host]:
+            raise AssertionError("crc32c_batch differs from the host crc32c")
+    for seed in (0, (1 << 64) - 1):
+        got = CK.xxh64_batch(blocks, seed)
+        errs[f"xxh {seed}"] = _hold(f"xxh64_batch (seed {seed})", [got],
+                                    [CK.xxh64_batch_ref(blocks, seed)])
+        if [lo | hi << 32 for lo, hi in got[:8].tolist()] != \
+                [xxh64(r.tobytes(), seed) for r in host]:
+            raise AssertionError("xxh64_batch differs from the host xxh64")
+    CK.crc32c_batch.launches = CK.xxh64_batch.launches = 0
+    CK.crc32c_batch(blocks)
+    CK.xxh64_batch(blocks)
+    torch.cuda.synchronize()
+    launches = {"crc": CK.crc32c_batch.launches,
+                "xxh": CK.xxh64_batch.launches}
+    if launches != {"crc": 1, "xxh": 1}:
+        raise AssertionError(f"checksum launches {launches}")
+    t = {"crc": cuda_ms(lambda: CK.crc32c_batch(blocks), 20),
+         "xxh": cuda_ms(lambda: CK.xxh64_batch(blocks), 20)}
+    dev_t = {"crc": cuda_ms(lambda: CK.crc32c_batch(blocks), 20, True),
+             "xxh": cuda_ms(lambda: CK.xxh64_batch(blocks), 20, True)}
+    plain = {"crc": cuda_ms(lambda: CK.crc32c_batch_ref(blocks), 2),
+             "xxh": cuda_ms(lambda: CK.xxh64_batch_ref(blocks), 2)}
+    # bounds: each byte read once, the digests written once; about 2
+    # integer operations a byte for the CRC's table steps, 1 for xxHash64
+    bnd = {"crc": bound(B * n + 8 * B, 2 * B * n),
+           "xxh": bound(B * n + 16 * B, B * n)}
+    _say(f"checksums ({B} rows of {n} bytes; ms, CUDA events): " + ", ".join(
+        f"{k} {t[k]:.4f} ({dev_t[k]:.4f} device time; plain {plain[k]:.4f};"
+        f" bound {bnd[k][0]:.4f}, {bnd[k][1]})" for k in t)
+        + f"; launches {launches}; 8 rows equal the host crc32c / xxh64")
+    rows = [("crc32c_batch", "crc", "compress_tpu/ops/checksum.py:84",
+             ("crc None", "crc " + str(n - 4097))),
+            ("xxh64_batch", "xxh", "compress_tpu/ops/checksum.py:242",
+             ("xxh 0", f"xxh {(1 << 64) - 1}"))]
+    return [{"name": name, "route": "cuda",
+             "source": "compress_tpu_torch/csrc/checksum.cu",
+             "replaces": replaces, "launches": launches[key],
+             "max_abs_err": max(errs[e] for e in es), "equal_to_plain": True,
+             "ms": t[key], "plain_ms": plain[key], "bound_ms": bnd[key][0],
+             "bound_by": bnd[key][1], "library_ms": None,
+             "device_ms": dev_t[key]}
+            for name, key, replaces, es in rows]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1619,7 +1921,7 @@ def main() -> int:
          "ctas_per_sm": ctas["emit_blocks"]},
     ]
 
-    zstd_kernels, zstd_find = zstd_path(dev)
+    zstd_kernels, zstd_find, zstd_launches = zstd_path(dev)
     kernels[0].update(zstd_find)
     kernels += zstd_kernels
     kernels.append(s2_decode_path(dev, data, bodies))
@@ -1644,6 +1946,11 @@ def main() -> int:
     kernels += zseq_rows
     hist_row["accel_call"] = acc["accel_call"]
     kernels.append(hist_row)
+    tail_path(zstd_launches)
+    fse_rows, hist_numbers = fse_path(dev, blocks_np)
+    fse_rows[0]["histograms"] = hist_numbers
+    kernels += fse_rows
+    kernels += checksum_path(blocks)
     kernels += other_routes(dev, blocks_np, route_counts())
 
     _say(smi)

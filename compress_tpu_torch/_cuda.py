@@ -24,12 +24,16 @@ _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("lzkern.cu", "lzemit.cu", "zparse.cu", "zseqenc.cu", "litlut.cu",
-           "exec.cu", "huff0dec.cu", "zseqdec.cu")
+           "exec.cu", "huff0dec.cu", "zseqdec.cu", "fseenc.cu", "fsedec.cu",
+           "checksum.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_U = ctypes.c_uint
+_U64 = ctypes.c_uint64
 _SIGNATURES = {
     "ct_find_matches": [_P, _P, _P, _I, _I, _P],
     "ct_emit_blocks": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
@@ -50,6 +54,10 @@ _SIGNATURES = {
     "ct_zseq_decode": [_P] * 11 + [_I] * 8 + [_P] * 6,
     "ct_huff0_occupancy": [_I],
     "ct_zseq_occupancy": [_I],
+    "ct_fse_encode": [_P] * 4 + [_I] * 4 + [_P] * 3,
+    "ct_fse_decode": [_P] * 8 + [_I] * 4 + [_P] * 3,
+    "ct_crc32c_batch": [_P, _L, _I, _I, _I, _U, _U, _P, _P],
+    "ct_xxh64_batch": [_P, _I, _I, _U64, _P, _P],
 }
 
 _lib = None

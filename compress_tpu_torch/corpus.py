@@ -691,3 +691,128 @@ def zseq_inputs(kind: str) -> dict:
                                                 len(edges) * 30)
         out["nore"] = nore.astype(np.int32)
     return out
+
+
+FSE_ENC_CLASSES = ("corpus", "nb_zero", "hostile", "clip_edges", "short")
+
+
+def fse_enc_inputs(kind: str):
+    """(blocks (N, L) uint8, st (N, 512), dnb (N, 256), dfs (N, 256)
+    int32): inputs of the FSE batch encode's chain at log 9.
+
+    - ``corpus``: real tables (``ops/entropy._fse_tables_bytes``) of text,
+      rand4 and period3 rows of 6146 bytes (a chain over 4 chunks of the
+      kernel, the last partial);
+    - ``nb_zero``: real tables of 4096-byte rows where one byte has
+      probability 1/2 or more (state writes of 0 bits);
+    - ``hostile``: random tables of values below 2^24 in magnitude (the
+      reference's float32 lookups are exact there): states, shifts and
+      table indexes far outside their ranges, so its clips decide every
+      step;
+    - ``clip_edges``: tables whose widths land on -1, 0, 16 and 17 and
+      whose indexes land just inside and outside 0..511;
+    - ``short``: the smallest chain (L = 2: the first states and the
+      flush alone) with real tables."""
+    import torch
+
+    from compress_tpu_torch.ops import entropy as E
+
+    rng = np.random.default_rng(FSE_ENC_CLASSES.index(kind) + 71)
+
+    def real(blocks):
+        t = torch.from_numpy(blocks)
+        st, dnb, dfs, _ = E._fse_tables_bytes(E.byte_histograms(t), 9)
+        return blocks, st.numpy(), dnb.numpy(), dfs.numpy()
+
+    if kind == "corpus":
+        rows = [make_block(c, rng)[:6146] for c in ("text", "rand4",
+                                                    "period3")]
+        return real(np.stack(rows))
+    if kind == "short":
+        return real(rng.integers(0, 4, (3, 2), dtype=np.uint8))
+    if kind == "nb_zero":
+        L = 4096
+        b = np.where(rng.random((3, L)) < 0.7, 65,
+                     rng.integers(0, 256, (3, L))).astype(np.uint8)
+        return real(b)
+    N, L = 4, 1030
+    blocks = rng.integers(0, 256, (N, L), dtype=np.uint8)
+    if kind == "hostile":
+        st, dnb, dfs = (rng.integers(-(1 << 24), 1 << 24, (N, w),
+                                     dtype=np.int32) for w in (512, 256, 256))
+        return blocks, st, dnb, dfs
+    # states 0..1535: nb = (s + dnb) >> 16 from -1 to 17; s >> c + dfs
+    # around 0 and 511
+    st = rng.integers(0, 1536, (N, 512)).astype(np.int32)
+    widths = rng.choice([-1, 0, 16, 17], (N, 256))
+    dnb = ((widths << 16) - rng.integers(0, 1536, (N, 256))).astype(np.int32)
+    dfs = rng.choice([-3, -1, 0, 500, 511, 512, 600], (N, 256)).astype(
+        np.int32)
+    return blocks, st, dnb, dfs
+
+
+FSE_DEC_CLASSES = ("cursor_edges", "npair_nore_edges", "state_edges",
+                   "nb_zero")
+
+
+def _fse_dtable(rng: np.random.Generator, skew: float = 0.0):
+    """A log-9 decode table (spread, nb, new_state) of a random
+    histogram; with ``skew`` one symbol takes that share."""
+    from compress_tpu_torch.fse import core
+
+    hist = rng.integers(0, 40, 256)
+    hist[rng.random(256) < 0.5] = 0
+    hist[7] += int(skew * hist.sum() / max(1e-9, 1 - skew))
+    total = int(hist.sum())
+    mx = int(np.nonzero(hist)[0][-1])
+    norm = core.normalize_count(hist.astype(np.int64), 9, total, mx)
+    return core.build_dtable(norm, 9)
+
+
+def fse_dec_inputs(kind: str) -> dict:
+    """Chunk-decode inputs of the FSE batch decode (k = 32, 52-byte
+    windows) as a dict: windows (N, C, 52) uint8; lbit, st1, st2, npair,
+    nore1, nore2 (N, C) int32; dtables, each row's (spread, nb,
+    new_state); tables (N, 512) int32 (``entropy_dec.fse_table``).
+
+    - ``cursor_edges``: cursors 0, 1, 8, 9, 10, 100, 288, 415 and 416 (the
+      window's top), with 16 and 3 live pairs: reads below window bit 0;
+    - ``npair_nore_edges``: npair 0, 1, 7 and 16, nore 0, 1, 8, 16, -1 and
+      20, in every combination;
+    - ``state_edges``: entry states 0, 1, 255, 256, 511, and 512, 1000 and
+      -1 (outside the table: entry 0);
+    - ``nb_zero``: a table where one symbol has probability 1/2 or more
+      (states of 0 bits)."""
+    from compress_tpu_torch.ops.entropy_dec import WIN, fse_table
+
+    rng = np.random.default_rng(FSE_DEC_CLASSES.index(kind) + 89)
+    N, C = 3, 96
+    dts = [_fse_dtable(rng, 0.6 if kind == "nb_zero" else 0.0)
+           for _ in range(N)]
+    windows = rng.integers(0, 256, (N, C, WIN), dtype=np.uint8)
+    lbit = np.full((N, C), 8 * WIN, np.int64)
+    st1 = rng.integers(0, 512, (N, C))
+    st2 = rng.integers(0, 512, (N, C))
+    npair = np.full((N, C), 16)
+    nore1 = np.full((N, C), 16)
+    nore2 = np.full((N, C), 16)
+    if kind == "cursor_edges":
+        edges = np.array([0, 1, 8, 9, 10, 100, 288, 415, 416])
+        lbit[:] = np.resize(edges, N * C).reshape(N, C)
+        npair[:] = np.resize([16, 16, 3], N * C).reshape(N, C)
+    elif kind == "npair_nore_edges":
+        combos = np.array([(p, a, b) for p in (0, 1, 7, 16)
+                           for a in (0, 1, 8, 16, -1, 20)
+                           for b in (0, 1, 8, 16, -1, 20)])
+        pick = np.resize(np.arange(len(combos)), N * C)
+        npair[:], nore1[:], nore2[:] = (combos[pick, i].reshape(N, C)
+                                        for i in range(3))
+    elif kind == "state_edges":
+        edges = np.array([0, 1, 255, 256, 511, 512, 1000, -1])
+        st1[:] = np.resize(edges, N * C).reshape(N, C)
+        st2[:] = np.roll(st1, 3)
+    as32 = [a.astype(np.int32) for a in (lbit, st1, st2, npair, nore1,
+                                        nore2)]
+    return dict(windows=windows, lbit=as32[0], st1=as32[1], st2=as32[2],
+                npair=as32[3], nore1=as32[4], nore2=as32[5], dtables=dts,
+                tables=np.stack([fse_table(*d) for d in dts]))

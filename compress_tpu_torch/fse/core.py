@@ -1,6 +1,6 @@
-"""FSE (tANS) host pieces that frame assembly needs: normalization, the
-NCount header (RFC 8878 §4.1.1), table construction and the 2-state
-codec used for huff0 weights.
+"""FSE (tANS) host pieces: normalization, the NCount header (RFC 8878
+§4.1.1), table construction and the 2-state interleaved codec (frame
+assembly, huff0 weights and the standalone FSE codec of ``fse``).
 
 Pure-Python copies of the JAX package's ``fse/core.py`` functions of the
 same names."""
@@ -433,3 +433,29 @@ def encode_interleaved2(symbols: np.ndarray, norm: np.ndarray, table_log: int) -
     bw.add(s2 - (1 << table_log), table_log)  # flush final states
     bw.add(s1 - (1 << table_log), table_log)
     return bw.close()
+
+
+def decode_interleaved2(stream: bytes, norm: np.ndarray, table_log: int,
+                        out_len: int) -> np.ndarray:
+    """Inverse of encode_interleaved2; out_len symbols (the reference's
+    Python loop).  Each state's final emission has no encoder-side
+    transition, so the last two symbols reload no state."""
+    spread, nb, new_state = build_dtable(norm, table_log)
+    spread, nb, new_state = spread.tolist(), nb.tolist(), new_state.tolist()
+    br = BitReaderReverse(stream)
+    s1 = br.read(table_log)
+    s2 = br.read(table_log)
+    out = bytearray(out_len)
+    last = out_len - 2
+    for i in range(out_len):
+        if i & 1:
+            out[i] = spread[s2]
+            if i < last:
+                s2 = new_state[s2] + br.read(nb[s2])
+        else:
+            out[i] = spread[s1]
+            if i < last:
+                s1 = new_state[s1] + br.read(nb[s1])
+    if br.bitpos != 0:
+        raise ValueError(f"fse: bitstream not fully consumed ({br.bitpos})")
+    return np.frombuffer(bytes(out), np.uint8)

@@ -1,6 +1,7 @@
-"""Batched huff0 and zstd sequence decode with one table per container
+"""Batched huff0, FSE and zstd sequence decode with one table per container
 (counterpart of the JAX package's ``ops/entropy_dec.py``: ``WIN``,
-``expand_table``, ``build_windows``, ``huff0_decode_chunks``; ``ZWIN``,
+``expand_table``, ``build_windows``, ``huff0_decode_chunks``;
+``fse_decode_chunks``, with ``fse_table`` for ``expand_fse_table``; ``ZWIN``,
 ``ZSEQ_K``, ``zseq_decode_chunks`` and ``zseq_decode_chunks_rep``; the
 table packing of ``expand_zseq_table`` is ``zseq_kern.state_row``).
 
@@ -24,6 +25,13 @@ float32 planes for its one-hot lookups), decoded by the kernel of
 reads the (N, C) arrays in place: no stack, cast or copy) and by its
 plain version on CPU tensors.  ``zseq_decode_chunks_rep`` also resolves
 the repeat offsets in the carry.
+
+The FSE decode takes the same 52-byte windows at (bit position, state 1,
+state 2) checkpoints every HUFF_CKPT_K symbols (``fse.make_accel``) and
+one 512-state table per container as int32 ``sym | nb << 8 | new_state <<
+16`` (``fse_table``; nb is read as 4 bits; the reference packs (16, 96)
+float32 planes for its one-hot lookups).  It runs through the kernel of ``csrc/fsedec.cu`` on
+CUDA tensors and ``fse_decode_chunks_ref`` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from compress_tpu_torch import _cuda
 from compress_tpu_torch.ops.entropy import HUFF_CKPT_K
 from compress_tpu_torch.ops import zseq_kern as ZK
 from compress_tpu_torch.ops.entropy_kern import decode_chunks_plain, launch
@@ -39,8 +48,11 @@ WIN = 52          # window bytes per chunk (>= ceil(K*11/8) + peek slack)
 ZWIN = 96         # sequence-chunk window bytes (8 seqs x <= 81 bits + slack)
 ZSEQ_K = 8        # sequences per checkpoint chunk
 
+FSE_STATES = 512  # the device FSE decode's table: log 9
+
 __all__ = ["WIN", "expand_table", "build_windows", "huff0_decode_chunks",
-           "huff0_decode_chunks_ref", "ZWIN", "ZSEQ_K", "zseq_decode_chunks",
+           "huff0_decode_chunks_ref", "FSE_STATES", "fse_table",
+           "fse_decode_chunks", "fse_decode_chunks_ref", "ZWIN", "ZSEQ_K", "zseq_decode_chunks",
            "zseq_decode_chunks_ref",
            "zseq_decode_chunks_rep", "zseq_decode_chunks_rep_ref"]
 
@@ -110,6 +122,139 @@ def huff0_decode_chunks(windows: torch.Tensor, lbit: torch.Tensor,
 
 
 huff0_decode_chunks.launches = 0
+
+
+def fse_table(spread, nb, new_state) -> np.ndarray:
+    """Host: a 512-state decode table (``fse.core.build_dtable`` at log 9)
+    as (512,) int32 entries ``sym | nb << 8 | new_state << 16``."""
+    return (np.asarray(spread, np.int32) | (np.asarray(nb, np.int32) << 8)
+            | (np.asarray(new_state, np.int32) << 16))
+
+
+def _fse_check(windows, lbit, st1, st2, npair, nore1, nore2, tables, k):
+    N, C = lbit.shape
+    if windows.dim() != 3 or windows.shape[:2] != (N, C) or any(
+            t.shape != (N, C) for t in (st1, st2, npair, nore1, nore2)) \
+            or tables.shape != (N, FSE_STATES):
+        raise ValueError("expected (N, C, win) windows, (N, C) cursors, "
+                         f"states and counts, (N, {FSE_STATES}) tables")
+    if windows.shape[2] % 4 or not 4 <= windows.shape[2] <= 64:
+        raise ValueError(f"fse_decode_chunks: window of {windows.shape[2]} "
+                         "bytes (a multiple of 4 up to 64)")
+    if k < 2 or k % 2 or k > 64:
+        raise ValueError(f"fse_decode_chunks: k = {k} (even, 2..64)")
+    if any(t.device != windows.device
+           for t in (lbit, st1, st2, npair, nore1, nore2, tables)):
+        raise ValueError("fse_decode_chunks: inputs on different devices")
+    return N, C
+
+
+def _window_bits(wbits, lo, n):
+    """Bits [lo, lo + n) of each chunk's window, bit 0 lowest; bits below 0
+    and past the window's end read 0.  wbits (M, 8 * win) int64 0/1."""
+    span = wbits.shape[1]
+    pos = lo[:, None] + torch.arange(15, device=lo.device)
+    inside = (pos >= 0) & (pos < span) & (torch.arange(
+        15, device=lo.device) < n[:, None])
+    b = torch.gather(wbits, 1, pos.clamp(0, span - 1))
+    weights = torch.bitwise_left_shift(
+        torch.ones(15, dtype=torch.int64, device=lo.device),
+        torch.arange(15, device=lo.device))
+    return (torch.where(inside, b, 0) * weights).sum(dim=1)
+
+
+def fse_decode_chunks_ref(windows, lbit, st1, st2, npair, nore1, nore2,
+                          tables, k: int = HUFF_CKPT_K):
+    """Plain version of ``fse_decode_chunks``."""
+    N, C = _fse_check(windows, lbit, st1, st2, npair, nore1, nore2, tables,
+                      k)
+    win = windows.shape[2]
+    dev = windows.device
+    w = windows.reshape(N * C, win).to(torch.int64)
+    wbits = ((w[:, :, None] >> torch.arange(8, device=dev)) & 1).reshape(
+        N * C, 8 * win)
+    row = torch.arange(N, device=dev).repeat_interleave(C)
+    tab = tables.to(torch.int64)
+    lbp, s1, s2, np_, n1, n2 = (t.reshape(-1).to(torch.int32)
+                                for t in (lbit, st1, st2, npair, nore1,
+                                          nore2))
+
+    def look(s):
+        ok = (s >= 0) & (s < FSE_STATES)
+        e = tab[row, s.clamp(0, FSE_STATES - 1).to(torch.int64)]
+        e = torch.where(ok, e, 0)
+        return e & 255, (e >> 8) & 15, e >> 16
+
+    syms = []
+    for j in range(k // 2):
+        sym1, nb1, ns1 = look(s1)
+        sym2, nb2, ns2 = look(s2)
+        act = j < np_
+        re1 = act & (j < n1)
+        lo = (lbp - nb1).to(torch.int64)
+        s1 = torch.where(re1, (ns1 + _window_bits(wbits, lo, nb1)).to(
+            torch.int32), s1)
+        lbp = torch.where(re1, lbp - nb1.to(torch.int32), lbp)
+        re2 = act & (j < n2)
+        lo = (lbp - nb2).to(torch.int64)
+        s2 = torch.where(re2, (ns2 + _window_bits(wbits, lo, nb2)).to(
+            torch.int32), s2)
+        lbp = torch.where(re2, lbp - nb2.to(torch.int32), lbp)
+        syms += [torch.where(act, sym1, 0), torch.where(act, sym2, 0)]
+    out = torch.stack(syms, dim=1).to(torch.uint8).view(N, C, k)
+    return out, lbp.view(N, C)
+
+
+def fse_decode_chunks(windows: torch.Tensor, lbit: torch.Tensor,
+                      st1: torch.Tensor, st2: torch.Tensor,
+                      npair: torch.Tensor, nore1: torch.Tensor,
+                      nore2: torch.Tensor, tables: torch.Tensor,
+                      k: int = HUFF_CKPT_K):
+    """Chunked 2-state interleaved FSE decode.
+
+    windows (N, C, win) uint8 (win a multiple of 4 up to 64; ``WIN``) with
+    window-local cursors lbit (N, C) int32 as ``build_windows`` cuts them;
+    st1, st2 (N, C) int32 entry states; npair (N, C) pairs to emit (<= k
+    / 2); nore1, nore2 (N, C) the pair index from which state 1 / 2 stops
+    reloading (the encoder's final emissions carry no transition); tables
+    (N, 512) int32 per ``fse_table``.  Per pair j < k / 2: both symbols are
+    looked up from the current states (a state outside 0..511 reads
+    entry 0); state 1 then state 2 reload ``new_state`` plus the nb bits
+    below the cursor (bits below window bit 0 read 0) while j < npair and
+    j < its nore, and the cursor drops by nb; pairs from npair on give
+    symbol 0 and move nothing.  Returns (syms (N, C, k) uint8, end cursors
+    (N, C) int32).  A CUDA tensor goes through the kernel (one launch), a
+    CPU tensor through ``fse_decode_chunks_ref``."""
+    if windows.device.type == "cpu":
+        return fse_decode_chunks_ref(windows, lbit, st1, st2, npair, nore1,
+                                     nore2, tables, k)
+    N, C = _fse_check(windows, lbit, st1, st2, npair, nore1, nore2, tables,
+                      k)
+    dev = windows.device
+    win = windows.shape[2]
+    windows = _cuda.aligned(windows.contiguous(), 4)
+    ins = [t.contiguous() for t in (lbit, st1, st2, npair, nore1, nore2)]
+    for name, t in zip(("lbit", "st1", "st2", "npair", "nore1", "nore2"),
+                       ins):
+        _cuda.require_cuda_input(t, f"fse_decode_chunks: {name}",
+                                 torch.int32, (N, C))
+    _cuda.require_cuda_input(tables, "fse_decode_chunks: tables",
+                             torch.int32, (N, FSE_STATES))
+    at = (N * C * k + 15) // 16 * 16       # the end cursors' offset
+    out = torch.empty(at + 4 * N * C, dtype=torch.uint8, device=dev)
+    syms = out[:N * C * k].view(N, C, k)
+    endl = out[at:].view(torch.int32).view(N, C)
+    with torch.cuda.device(dev):
+        rc = _cuda.library().ct_fse_decode(
+            windows.data_ptr(), *(t.data_ptr() for t in ins),
+            tables.data_ptr(), N, C, win, k, syms.data_ptr(),
+            endl.data_ptr(), _cuda.stream(dev))
+    _cuda.check(rc, "fse_decode_chunks")
+    fse_decode_chunks.launches += 1
+    return syms, endl
+
+
+fse_decode_chunks.launches = 0
 
 
 def _zseq_check(windows, lbit, sll, sof, sml, nseq, nore, reps, tables):

@@ -1,5 +1,6 @@
 """CRC-32C (Castagnoli): a copy of the JAX package's numpy slicing-by-16
-path (``utils/crc.py`` ``crc32c`` without its native branch)."""
+path (``utils/crc.py`` ``crc32c`` without its native branch) and its
+``crc32c_masked``."""
 
 from __future__ import annotations
 
@@ -42,3 +43,10 @@ def crc32c(data, crc: int = 0) -> int:
     for x in buf[nfast:]:
         crc = t0[(crc ^ x) & 0xFF] ^ (crc >> 8)
     return crc ^ 0xFFFFFFFF
+
+
+def crc32c_masked(data) -> int:
+    """The snappy framing-format checksum: masked CRC-32C."""
+    c = crc32c(data)
+    return ((((c >> 15) | ((c << 17) & 0xFFFFFFFF)) + 0xA282EAD8)
+            & 0xFFFFFFFF)

@@ -11,6 +11,11 @@ Repeat codes are emitted, but the first 3 sequences of every block are
 plain off + 3 (``zseqenc.rep_scan``), so a block never needs another's
 repeat state.  The FSE tables are shared by one launch's blocks: a job's
 first compressed block with sequences carries them, later ones repeat.
+
+An input shorter than one job goes through the host encoder
+(``encoder.compress`` at level 1); the sub-job tail after the device jobs
+goes through the host matcher in blocks of ``encoder.BLOCK_SIZE`` with
+rep-free offsets (``tail_bodies``), as in the reference.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from compress_tpu_torch.fse import core as fse_core
 from compress_tpu_torch.huff0.table import write_table
 from compress_tpu_torch.ops import zenc2
 from compress_tpu_torch.utils.xxhash64 import xxh64
+from compress_tpu_torch.zstd import encoder as E
 from compress_tpu_torch.zstd import frame as F
 from compress_tpu_torch.zstd.encoder import (_lit_header, _lit_header_comp,
                                              _seq_count_header)
@@ -162,6 +168,29 @@ def _assemble_job_py(job_bytes: bytes, t, j: int, block: int):
     return out
 
 
+def tail_bodies(tail: bytes):
+    """Host-matcher encode of the sub-job tail (rep-free offset values):
+    (bodies, regenerated sizes) in blocks of ``encoder.BLOCK_SIZE``."""
+    bodies, regens = [], []
+    if not tail:
+        return bodies, regens
+    matcher = E.Matcher(tail, 1)
+    pos = 0
+    while pos < len(tail):
+        end = min(pos + E.BLOCK_SIZE, len(tail))
+        lls, mls, offs, _ = matcher.next_block(pos, end)
+        body = None
+        if len(lls):
+            lit_sec = E.encode_literals(
+                _extract_literals(tail[pos:end], lls, mls, len(lls)))
+            body = lit_sec + E.encode_sequences_section(lls, mls, offs + 3)
+        bodies.append(body if body is not None and len(body) < end - pos
+                      else None)
+        regens.append(end - pos)
+        pos = end
+    return bodies, regens
+
+
 def emit_blocks(out: bytearray, data: bytes, bodies, regens):
     """Write block headers + bodies; None = raw, ("rle", b) = RLE block."""
     off = 0
@@ -200,8 +229,9 @@ def launch_inputs(src: torch.Tensor, c: int, hi: int, job: int):
 def compress_device(data, *, checksum: bool = False, job: int | None = None,
                     block: int | None = None, max_launch_jobs: int = 8,
                     level: int = 2, device=None) -> bytes:
-    """Encode ``data``, a positive whole number of ``job``-byte jobs
-    (default 4 MiB), as one zstd frame with the device v2 encoder.
+    """Encode ``data`` as one zstd frame: every whole ``job``-byte job
+    (default 4 MiB) with the device v2 encoder, the tail with the host
+    matcher; an input shorter than one job with the host encoder.
 
     Blocks are 64 KiB; each job matches into an overlap prefix of the
     previous job's last job // 8 bytes; up to ``max_launch_jobs`` jobs go
@@ -214,16 +244,15 @@ def compress_device(data, *, checksum: bool = False, job: int | None = None,
     data = bytes(data)
     job = job or DEFAULT_JOB
     n = len(data)
-    if block not in (None, zenc2.BLOCK) or job % zenc2.BLOCK:
-        raise ValueError(f"job ({job}) must be a multiple of the "
+    if block not in (None, zenc2.BLOCK) or job <= 0 or job % zenc2.BLOCK:
+        raise ValueError(f"job ({job}) must be a positive multiple of the "
                          f"{zenc2.BLOCK}-byte block (block={block})")
     block = zenc2.BLOCK
-    if n == 0 or n % job:
-        raise ValueError(f"input length {n} is not a positive whole number "
-                         f"of {job}-byte jobs")
+    if n < job:
+        return E.compress(data, level=1, checksum=checksum)
     n_jobs = n // job
     out = bytearray(F.write_frame_header(n, job + job // 8, False, checksum))
-    src = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    src = torch.frombuffer(bytearray(data[:n_jobs * job]), dtype=torch.uint8)
     bodies = []
     for c in range(0, n_jobs, max_launch_jobs):
         hi = min(c + max_launch_jobs, n_jobs)
@@ -235,7 +264,9 @@ def compress_device(data, *, checksum: bool = False, job: int | None = None,
         for j in range(hi - c):
             jb = data[(c + j) * job : (c + j + 1) * job]
             bodies += _assemble_job_py(jb, t, j, block)
-    emit_blocks(out, data, bodies, [block] * len(bodies))
+    tail_b, tail_r = tail_bodies(data[n_jobs * job:])
+    emit_blocks(out, data, bodies + tail_b,
+                [block] * len(bodies) + tail_r)
     if checksum:
         out += (xxh64(data) & 0xFFFFFFFF).to_bytes(4, "little")
     return bytes(out)

@@ -22,7 +22,13 @@ nothing else, and the multi-block history execute on
 ``corpus.history_streams``, on ``corpus.hist_plans`` (histories of 1 and
 128 blocks), on a group of frames of 1 to 16 blocks and in twenty
 repeated launches, with the accel and multi-block accel decode routes
-end to end.
+end to end; the FSE batch encode chain and chunk decode on
+``corpus.fse_enc_inputs`` / ``corpus.fse_dec_inputs`` (and tables of any
+int32 value), batches of 1 and 7 rows and twenty repeated launches, with
+``fse.compress_batch`` / ``decompress_batch`` end to end; CRC-32C and
+xxHash64 on rows of many lengths, prefixes, seeds, batches of 1 and 7 and
+misaligned rows; and ``compress_device`` on inputs that are not whole
+jobs.
 Without a card every test here skips.
 
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -33,12 +39,15 @@ import numpy as np
 import pytest
 import torch
 
-from compress_tpu_torch import corpus, huff0
+from compress_tpu_torch import corpus, fse, huff0
+from compress_tpu_torch import zstd as zstd_host
 from compress_tpu_torch.fse import core as fse_core
-from compress_tpu_torch.ops import (entropy_dec, entropy_kern, execute, lz2,
-                                    lzemit2, lzkern, zenc2, zparse,
-                                    zseq_kern, zseqenc)
+from compress_tpu_torch.ops import (checksum, entropy, entropy_dec,
+                                    entropy_kern, execute, lz2, lzemit2,
+                                    lzkern, zenc2, zparse, zseq_kern,
+                                    zseqenc)
 from compress_tpu_torch.s2 import block as s2_block
+from compress_tpu_torch.utils.crc import crc32c
 from compress_tpu_torch.s2.device_dec import decode_blocks_device as \
     s2_decode_blocks_device
 from compress_tpu_torch.s2.device_dec import plan_blocks
@@ -1218,3 +1227,238 @@ def test_accel_routes_on_cuda_make_no_host_walk(cuda_device, monkeypatch):
     assert decompress_frames_device.host_frames == host_before
     assert stats["routes"] == {"accel": 2, "accel_mb": 3}
     assert got == datas
+
+
+def _same(got, want):
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+
+
+def _fse_enc(cuda_device, blocks, st, dnb, dfs):
+    ts = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+          for a in (blocks, st, dnb, dfs)]
+    before = entropy.fse_encode_chain.launches
+    got = entropy.fse_encode_chain(*ts)
+    assert entropy.fse_encode_chain.launches == before + 1
+    _same(got, entropy.fse_encode_chain_ref(*ts))
+    return ts, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", corpus.FSE_ENC_CLASSES + ("int32",))
+def test_fse_encode_kernel_hostile(cuda_device, kind):
+    if kind == "int32":
+        rng = np.random.default_rng(5)
+        big = np.iinfo(np.int32)
+        ins = (rng.integers(0, 256, (5, 2050), dtype=np.uint8),
+               *(rng.integers(big.min, big.max, (5, w), dtype=np.int32)
+                 for w in (512, 256, 256)))
+    else:
+        ins = corpus.fse_enc_inputs(kind)
+    _fse_enc(cuda_device, *ins)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7])
+def test_fse_encode_kernel_batches(cuda_device, n, blocks_np):
+    rows = blocks_np.reshape(-1, 16384)[:n]
+    t = torch.from_numpy(rows)
+    st, dnb, dfs, _ = entropy._fse_tables_bytes(
+        entropy.byte_histograms(t), 9)
+    _fse_enc(cuda_device, rows, st, dnb, dfs)
+
+
+@pytest.mark.cuda
+def test_fse_encode_kernel_repeatable(cuda_device, blocks_np):
+    rows = blocks_np.reshape(-1, 16384)[:32]
+    t = torch.from_numpy(rows)
+    tabs = entropy._fse_tables_bytes(entropy.byte_histograms(t), 9)[:3]
+    ts, first = _fse_enc(cuda_device, rows, *tabs)
+    for _ in range(20):
+        _same(entropy.fse_encode_chain(*ts), first)
+
+
+def _fse_dec_args(cuda_device, d):
+    return [torch.from_numpy(np.ascontiguousarray(d[k])).to(cuda_device)
+            for k in ("windows", "lbit", "st1", "st2", "npair", "nore1",
+                      "nore2", "tables")]
+
+
+def _fse_dec(cuda_device, d, k=32):
+    args = _fse_dec_args(cuda_device, d)
+    before = entropy_dec.fse_decode_chunks.launches
+    got = entropy_dec.fse_decode_chunks(*args, k=k)
+    assert entropy_dec.fse_decode_chunks.launches == before + 1
+    _same(got, entropy_dec.fse_decode_chunks_ref(*args, k=k))
+    return args, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", corpus.FSE_DEC_CLASSES)
+def test_fse_decode_kernel_hostile(cuda_device, kind):
+    _fse_dec(cuda_device, corpus.fse_dec_inputs(kind))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 6, 64])
+def test_fse_decode_kernel_other_k_and_cursors(cuda_device, k):
+    """Other chunk lengths, and cursors far past the window's top and far
+    below its bottom."""
+    d = corpus.fse_dec_inputs("cursor_edges")
+    d["lbit"][0] = np.resize([417, 1000, -5, -300, 1 << 20], d["lbit"][0].size)
+    d["npair"][:] = k // 2
+    d["nore1"][:] = k // 2
+    _fse_dec(cuda_device, d, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7])
+def test_fse_decode_kernel_batches(cuda_device, n):
+    d = corpus.fse_dec_inputs("nb_zero")
+    reps = -(-n // 3)
+    for key in ("windows", "lbit", "st1", "st2", "npair", "nore1", "nore2",
+                "tables"):
+        d[key] = np.concatenate([d[key]] * reps)[:n]
+    _fse_dec(cuda_device, d)
+
+
+@pytest.mark.cuda
+def test_fse_decode_kernel_repeatable(cuda_device):
+    args, first = _fse_dec(cuda_device, corpus.fse_dec_inputs("state_edges"))
+    for _ in range(20):
+        _same(entropy_dec.fse_decode_chunks(*args), first)
+
+
+@pytest.mark.cuda
+def test_fse_kernels_reject_bad_inputs(cuda_device):
+    blocks, st, dnb, dfs = (torch.from_numpy(a).to(cuda_device)
+                            for a in corpus.fse_enc_inputs("short"))
+    with pytest.raises(ValueError):
+        entropy.fse_encode_chain(blocks, st.to(torch.int64), dnb, dfs)
+    with pytest.raises(ValueError):
+        entropy.fse_encode_chain(blocks[:, :1], st, dnb, dfs)
+    args = _fse_dec_args(cuda_device, corpus.fse_dec_inputs("nb_zero"))
+    with pytest.raises(ValueError):
+        entropy_dec.fse_decode_chunks(*args, k=3)
+    args[7] = args[7][:, :256]
+    with pytest.raises(ValueError):
+        entropy_dec.fse_decode_chunks(*args)
+
+
+@pytest.mark.cuda
+def test_fse_batch_on_cuda_matches_cpu(cuda_device, blocks_np):
+    rows = blocks_np.reshape(-1, 16384)[:24]
+    enc_before = entropy.fse_encode_chain.launches
+    conts = fse.compress_batch(rows)
+    assert entropy.fse_encode_chain.launches == enc_before + 1
+    assert conts == fse.compress_batch(rows, device="cpu")
+    conts += [fse.compress(rows[0].tobytes(), table_log=11), None]
+    accel = fse.make_accel(conts)
+    dec_before = entropy_dec.fse_decode_chunks.launches
+    fse.decompress_batch.host_containers = 0
+    out = fse.decompress_batch(conts, accel=accel)
+    assert entropy_dec.fse_decode_chunks.launches == dec_before + 1
+    assert fse.decompress_batch.host_containers == 1
+    want = [None if c is None else r.tobytes()
+            for c, r in zip(conts, list(rows) + [rows[0], None])]
+    assert out == want
+    assert out == fse.decompress_batch(conts, accel=accel, device="cpu")
+
+
+def _crc(cuda_device, rows, length=None):
+    t = torch.from_numpy(np.ascontiguousarray(rows)).to(cuda_device)
+    before = checksum.crc32c_batch.launches
+    got = checksum.crc32c_batch(t, length)
+    assert checksum.crc32c_batch.launches == before + 1
+    _same([got], [checksum.crc32c_batch_ref(t, length)])
+    return t, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 255, 256, 257, 512, 513, 1000, 4096,
+                               65536, 100000])
+def test_crc32c_kernel_matches_plain(cuda_device, n):
+    rng = np.random.default_rng(n)
+    rows = rng.integers(0, 256, (7, n), dtype=np.uint8)
+    rows[1] = 0
+    _, got = _crc(cuda_device, rows)
+    assert got.tolist() == [_host_crc(r) for r in rows]
+
+
+def _host_crc(row):
+    return crc32c(row.tobytes())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [0, 1, 2, 255, 256, 257, 4097,
+                                    65536 - 4097, 65535])
+def test_crc32c_kernel_prefix(cuda_device, length):
+    rows = np.random.default_rng(length).integers(0, 256, (3, 65536),
+                                                  dtype=np.uint8)
+    _, got = _crc(cuda_device, rows, length)
+    assert got.tolist() == [_host_crc(r[:length]) for r in rows]
+
+
+@pytest.mark.cuda
+def test_crc32c_kernel_batch_of_one_misaligned_and_repeatable(cuda_device):
+    rows = np.random.default_rng(2).integers(0, 256, (1, 70001),
+                                             dtype=np.uint8)
+    t, first = _crc(cuda_device, rows)
+    view = t.view(-1)[3:].view(1, -1)      # starts 3 bytes past a line
+    got = checksum.crc32c_batch(view, 70000 - 5)
+    _same([got], [checksum.crc32c_batch_ref(view, 70000 - 5)])
+    strided = t.view(-1)[:70000].view(7, 10000)[:, 3:9001]
+    _same([checksum.crc32c_batch(strided)],
+          [checksum.crc32c_batch_ref(strided)])
+    for _ in range(20):
+        _same([checksum.crc32c_batch(t)], [first])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 12345, (1 << 64) - 1, 1 << 63],
+                         ids=["0", "12345", "2^64-1", "2^63"])
+@pytest.mark.parametrize("N", [32, 64, 544, 1024, 1056, 1184, 32768, 65536])
+def test_xxh64_kernel_matches_plain(cuda_device, N, seed):
+    from compress_tpu_torch.utils.xxhash64 import xxh64
+
+    rows = np.random.default_rng(N).integers(0, 256, (7, N), dtype=np.uint8)
+    t = torch.from_numpy(rows).to(cuda_device)
+    before = checksum.xxh64_batch.launches
+    got = checksum.xxh64_batch(t, seed)
+    assert checksum.xxh64_batch.launches == before + 1
+    _same([got], [checksum.xxh64_batch_ref(t, seed)])
+    assert [lo | hi << 32 for lo, hi in got.tolist()] == \
+        [xxh64(r.tobytes(), seed) for r in rows]
+
+
+@pytest.mark.cuda
+def test_xxh64_kernel_batch_of_one_misaligned_and_repeatable(cuda_device):
+    rows = np.random.default_rng(3).integers(0, 256, (1, 4096 + 8),
+                                             dtype=np.uint8)
+    t = torch.from_numpy(rows).to(cuda_device)
+    view = t.view(-1)[5:4101].view(1, 4096)
+    got = checksum.xxh64_batch(view, 7)
+    _same([got], [checksum.xxh64_batch_ref(view, 7)])
+    for _ in range(20):
+        _same([checksum.xxh64_batch(view, 7)], [got])
+    with pytest.raises(ValueError):
+        checksum.xxh64_batch(t[:, :48])
+
+
+@pytest.mark.cuda
+def test_compress_device_any_length_on_cuda(cuda_device):
+    """A sub-job tail and an input shorter than a job: the frames equal
+    the CPU ones and decode with the port's host decoder."""
+    job = 128 << 10
+    data = np.concatenate([corpus.replica_jobs(2, job, 5),
+                           corpus.corpus_blocks(3, 5).reshape(-1)[
+                               :150001]]).tobytes()
+    for n, checksum_on in ((len(data), True), (job // 2 + 7, False),
+                           (0, False)):
+        frame = zdevice.compress_device(data[:n], job=job,
+                                        checksum=checksum_on)
+        assert frame == zdevice.compress_device(
+            data[:n], job=job, checksum=checksum_on, device="cpu")
+        assert zstd_host.decompress(frame) == data[:n]

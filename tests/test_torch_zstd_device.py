@@ -3,7 +3,11 @@ device.py) against the JAX package's ``compress_device`` with the v2
 encoder in interpret mode (its frame assembly is its native one where that
 library is built), byte for byte, on two 128 KiB jobs: a replica job (the
 long-range channel) and a job of an all-zero block (an RLE block) and a
-random block (a raw block).  Every frame decodes with ``zstandard``."""
+random block (a raw block); and on inputs that are not whole jobs: a
+sub-job tail of one and of two host blocks after the device jobs, an input
+shorter than one job and the empty input, which go through the host
+encoder (the JAX package's native ladder patched out).  Every frame
+decodes with ``zstandard``."""
 
 import functools
 
@@ -149,13 +153,80 @@ def test_huff_table_and_ncount_match_jax_python_paths(monkeypatch):
             jax_fse.write_ncount(norm, log)
 
 
-def test_bad_length_raises_value_error(data):
+_JAX_JOBS: dict = {}
+
+
+def _memo_encode(jobs, **kw):
+    """The JAX v2 encode of a launch, computed once per input (the tests
+    below send the same jobs with and without a checksum)."""
+    key = (np.asarray(jobs).tobytes(), np.asarray(kw["prefixes"]).tobytes(),
+           kw["job"])
+    if key not in _JAX_JOBS:
+        _JAX_JOBS[key] = jax_zenc2.zstd_encode_jobs_v2(jobs, interpret=True,
+                                                       **kw)
+    return _JAX_JOBS[key]
+
+
+@pytest.fixture(scope="module")
+def tail_data():
+    """Two replica jobs, then 200,705 bytes of corpus blocks (a tail of
+    two host blocks, the second 69,633 bytes)."""
+    return np.concatenate([corpus.replica_jobs(2, JOB, 23),
+                           corpus.corpus_blocks(4, 23).reshape(-1)[
+                               :3 * BS + 4097]]).tobytes()
+
+
+TAILS = [(JOB + 1000, False), (JOB + 1000, True),
+         (2 * JOB + 3 * BS + 4097, False), (2 * JOB + 3 * BS + 4097, True)]
+
+
+@pytest.mark.parametrize("n,checksum", TAILS,
+                         ids=["one_host_block", "one_host_block_checksum",
+                              "two_host_blocks", "two_host_blocks_checksum"])
+def test_sub_job_tail_matches_jax(n, checksum, tail_data):
+    data = tail_data[:n]
+    port = device.compress_device(data, checksum=checksum, job=JOB,
+                                  device="cpu")
+    ref = jax_device.compress_device(data, checksum=checksum, job=JOB,
+                                     block=BS, encode_fn=_memo_encode)
+    assert port == ref
+    assert zstandard.ZstdDecompressor().decompress(
+        port, max_output_size=n) == data
+    blocks, _ = _blocks(port)
+    n_tail = n - n // JOB * JOB
+    assert len(blocks) == n // JOB * (JOB // BS) + -(-n_tail // (128 << 10))
+
+
+SHORT = [(JOB // 2 + 7, JOB, False), (JOB // 2 + 7, JOB, True),
+         (0, JOB, False), (0, JOB, True), (JOB, None, False)]
+
+
+@pytest.mark.parametrize("n,job,checksum", SHORT,
+                         ids=["half_job", "half_job_checksum", "empty",
+                              "empty_checksum", "one_small_job_default"])
+def test_input_shorter_than_a_job_matches_jax(n, job, checksum, tail_data,
+                                              monkeypatch):
+    """``n < job`` goes through the host encoder at level 1 (at the
+    default 4 MiB job too), with the JAX package's native ladder off."""
+    from compress_tpu.zstd import encoder as jax_enc
+
+    monkeypatch.setattr(jax_enc, "_native_compress", lambda *a, **k: None)
+    data = tail_data[:n]
+    port = device.compress_device(data, checksum=checksum, job=job,
+                                  device="cpu")
+    ref = jax_device.compress_device(data, checksum=checksum,
+                                     job=job or device.DEFAULT_JOB,
+                                     block=BS, encode_fn=_memo_encode)
+    assert port == ref
+    assert zstandard.ZstdDecompressor().decompress(
+        port, max_output_size=max(n, 1)) == data
+
+
+@pytest.mark.parametrize("job,block", [(1000, None), (JOB, 4096),
+                                       (-BS, None)])
+def test_bad_job_or_block_raises_value_error(job, block, data):
     with pytest.raises(ValueError):
-        device.compress_device(data[:JOB + 1000], job=JOB, device="cpu")
-    with pytest.raises(ValueError):
-        device.compress_device(b"", job=JOB, device="cpu")
-    with pytest.raises(ValueError):
-        device.compress_device(data[:JOB], device="cpu")   # < one 4 MiB job
+        device.compress_device(data, job=job, block=block, device="cpu")
 
 
 def test_no_device_raises_without_cuda(data, monkeypatch):
