@@ -155,6 +155,32 @@ Inputs that are not whole jobs, the FSE batch codec and the checksums:
     of each with the launch counters; times both kernels (also by device
     time) and their plain versions, with their bounds.
 
+The two XLA-graph encoders (the reference's CPU engines, which the port
+also runs on the card):
+
+25. the S2 XLA engine (``ops/lz2.s2_encode_blocks``) on the phase-3
+    corpus at tile 512, levels 1 and 2, and at tile 256 (the parallel
+    engine's tile), level 1: every body decodes with the port's S2 decoder
+    to its block; holds the tile parse kernel (``csrc/tileparse.cu``)
+    against its plain version on each call's own L_t; runs the entry,
+    ``encode_blocks_np`` with ``COMPRESS_TPU_S2_ENGINE=xla``, with the
+    launch counter set to 0 just before and read just after (one launch),
+    whose bodies must equal the level-1 call's, and without the variable,
+    whose bodies must equal phase 6's; prints the ratio beside the kernel
+    path's; times the kernel (also by device time), its plain version and
+    the whole call (host clock, median of 3), and traces one call;
+26. the zstd v1 engine (``ops/zdev.zstd_encode_jobs``) through
+    ``compress_device(engine="v1")`` on ``corpus.replica_jobs(8, 1 MiB)``
+    (one launch of 8 jobs, 512 blocks of 16 KiB) at levels 1, 2 and 3,
+    with the launch counters set to 0 just before each call and read just
+    after (one launch each of the tile parse, the repeat scan and the FSE
+    scan, ``csrc/zdevfse.cu``); every frame decodes with the port's host
+    decoder to its input and the sizes are monotone (level 3 <= 2 <= 1);
+    holds the three kernels against their plain versions on the level-2
+    call's own inputs; times them (also by device time), their plain
+    versions and the whole call (host clock, median of 2) with their
+    bounds and the longest chain, and traces one call.
+
 The routes no path sends, which take the inputs the reference takes
 (run after every main path):
 
@@ -167,7 +193,8 @@ The routes no path sends, which take the inputs the reference takes
 
 Then it prints one ``{"kernels": [...]}`` line with all the kernels (the
 huff0 kernel once per engine, the sequence kernel once per mode, the
-routes of phase 19 once each).
+routes of phase 19 once each; the tile parse's row and the repeat scan's
+also carry their phase-26 numbers as ``v1_*``).
 Every comparison is exact (tolerance 0: all outputs are integers or
 bytes).  Any failure raises and the exit code is not 0.  The last line
 of standard output is ``{"ok": true, "device": {...}}``.
@@ -1731,6 +1758,234 @@ def checksum_path(blocks) -> list:
             for name, key, replaces, es in rows]
 
 
+class _Capture:
+    """Record the arguments of each call of ``module.name`` (a kernel
+    wrapper, called through its module) while the block runs.  The
+    wrapper still runs; it counts its launches on the module's name, so
+    the spy carries the count and hands it back on exit."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.calls = []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+        orig, calls = self.orig, self.calls
+
+        def spy(*args, **kw):
+            calls.append(args)
+            return orig(*args, **kw)
+
+        spy.launches = orig.launches
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        self.orig.launches = getattr(self.module, self.name).launches
+        setattr(self.module, self.name, self.orig)
+
+
+def _decode_all(bodies, data: bytes, what: str) -> float:
+    """Every S2 body must decode with the port's decoder to its 64 KiB
+    block; returns the seconds it took."""
+    from compress_tpu_torch.ops import lz2
+    from compress_tpu_torch.s2 import decode
+    from compress_tpu_torch.utils.varint import put_uvarint
+
+    hdr = bytearray()
+    put_uvarint(hdr, lz2.B)
+    t0 = time.perf_counter()
+    for i, body in enumerate(bodies):
+        if decode(bytes(hdr) + body) != data[i * lz2.B:(i + 1) * lz2.B]:
+            raise AssertionError(f"{what}: block {i} does not decode to its "
+                                 "input")
+    return time.perf_counter() - t0
+
+
+def s2_xla_path(dev, data: bytes, blocks, kern_bodies) -> dict:
+    """Phase 25: the S2 XLA engine on the phase-3 corpus.  Returns the tile
+    parse kernel's JSON entry."""
+    from compress_tpu_torch.ops import lz2
+
+    nb = blocks.shape[0]
+    cases = [(512, 1), (512, 2), (256, 1)]
+    outs, parse_in = {}, {}
+    for tile, level in cases:
+        with _Capture(lz2, "tile_parse") as cap:
+            out, lens = lz2.s2_encode_blocks(blocks, tile, level)
+        torch.cuda.synchronize()
+        L_t = cap.calls[0][0]
+        parse_in[(tile, level)] = L_t
+        bodies = [out[i, :n].cpu().numpy().tobytes()
+                  for i, n in enumerate(lens.tolist())]
+        dec_s = _decode_all(bodies, data, f"S2 XLA engine (tile {tile}, "
+                                          f"level {level})")
+        outs[(tile, level)] = bodies
+        _say(f"S2 XLA engine, tile {tile}, level {level}: {nb} bodies decode "
+             f"to their blocks ({dec_s:.1f} s); ratio "
+             f"{sum(map(len, bodies)) / len(data):.6f}")
+    errs = {c: _hold(f"tile_parse (tile {c[0]}, level {c[1]}, {nb} blocks)",
+                     lz2.tile_parse(parse_in[c], c[0]),
+                     lz2.tile_parse_ref(parse_in[c], c[0]))
+            for c in cases}
+
+    # main path: the entry with the reference's switch set
+    prev = os.environ.get("COMPRESS_TPU_S2_ENGINE")
+    os.environ["COMPRESS_TPU_S2_ENGINE"] = "xla"
+    try:
+        lz2.tile_parse.launches = 0
+        bodies = lz2.encode_blocks_np(data)
+        torch.cuda.synchronize()
+        launches = lz2.tile_parse.launches
+        t_call = host_ms(lambda: lz2.encode_blocks_np(data), 3)
+        _say_trace("S2 XLA engine", lambda: lz2.encode_blocks_np(data))
+    finally:
+        if prev is None:
+            del os.environ["COMPRESS_TPU_S2_ENGINE"]
+        else:
+            os.environ["COMPRESS_TPU_S2_ENGINE"] = prev
+    if launches != 1:
+        raise AssertionError(f"S2 XLA engine: tile_parse launches {launches}")
+    if bodies != outs[(512, 1)]:
+        raise AssertionError("encode_blocks_np with COMPRESS_TPU_S2_ENGINE="
+                             "xla differs from s2_encode_blocks")
+    if lz2.encode_blocks_np(data) != kern_bodies:
+        raise AssertionError("encode_blocks_np without the switch differs "
+                             "from the kernel path's bodies (phase 6)")
+    r_xla = sum(map(len, bodies)) / len(data)
+    r_kern = sum(map(len, kern_bodies)) / len(data)
+    L_t = parse_in[(512, 1)]
+    t_k = cuda_ms(lambda: lz2.tile_parse(L_t, 512), 20)
+    t_dev = cuda_ms(lambda: lz2.tile_parse(L_t, 512), 20, True)
+    t_plain = cuda_ms(lambda: lz2.tile_parse_ref(L_t, 512), 2)
+    t_engine = cuda_ms(lambda: lz2.s2_encode_blocks(blocks), 3)
+    # bound: each L_t read once (4 bytes), the two masks written once; a
+    # few integer operations a position
+    n_pos = L_t.numel()
+    bnd = bound(6 * n_pos, 4 * n_pos)
+    _say(f"S2 XLA engine whole call (encode_blocks_np, host clock, median "
+         f"of 3): {t_call:.4f} ms ({len(data) / (t_call * 1e-3) / 1e9:.4f} "
+         f"GB/s), s2_encode_blocks alone {t_engine:.4f} ms by CUDA events; "
+         f"launches {{tile_parse {launches}}}; ratio {r_xla:.6f} against the "
+         f"kernel path's {r_kern:.6f} ({(r_xla / r_kern - 1) * 100:+.3f}% "
+         f"size); tile_parse {t_k:.4f} ms ({t_dev:.4f} device time), plain "
+         f"{t_plain:.4f}, bound {bnd[0]:.4f} ({bnd[1]})")
+    return {"name": "tile_parse", "route": "cuda",
+            "source": "compress_tpu_torch/csrc/tileparse.cu",
+            "replaces": "compress_tpu/ops/lz2.py:123",
+            "launches": launches, "max_abs_err": max(errs.values()),
+            "equal_to_plain": True, "ms": t_k, "plain_ms": t_plain,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+            "device_ms": t_dev, "call_ms": t_call, "engine_ms": t_engine,
+            "ratio": r_xla, "kernel_path_ratio": r_kern}
+
+
+def zstd_v1_path(dev) -> tuple:
+    """Phase 26: the zstd v1 engine.  Returns the FSE scan's JSON entry,
+    and the tile parse's and the repeat scan's numbers on this path."""
+    from compress_tpu_torch import corpus
+    from compress_tpu_torch import zstd as Z
+    from compress_tpu_torch.ops import lz2, zdev, zseqenc
+    from compress_tpu_torch.zstd import device as zdevice
+
+    job = zdev.JOB
+    data = corpus.replica_jobs(ZSTD_JOBS, job, SEED).tobytes()
+    n = len(data)
+    counted = {"parse": (lz2, "tile_parse"), "rep": (zseqenc, "rep_scan"),
+               "fse": (zdev, "fse_scan")}
+    sizes, caps, launches = {}, {}, {}
+    for level in (1, 2, 3):
+        for mod, name in counted.values():
+            getattr(mod, name).launches = 0
+        with _Capture(lz2, "tile_parse") as c_p, \
+                _Capture(zseqenc, "rep_scan") as c_r, \
+                _Capture(zdev, "fse_scan") as c_f:
+            t0 = time.perf_counter()
+            frame = zdevice.compress_device(data, engine="v1", level=level)
+            torch.cuda.synchronize()
+            call_s = time.perf_counter() - t0
+        launches[level] = {k: getattr(mod, name).launches
+                           for k, (mod, name) in counted.items()}
+        if launches[level] != {"parse": 1, "rep": 1, "fse": 1}:
+            raise AssertionError(f"zstd v1 (level {level}): launches "
+                                 f"{launches[level]}")
+        caps[level] = (c_p.calls[0], c_r.calls[0], c_f.calls[0])
+        t0 = time.perf_counter()
+        if Z.decompress(frame) != data:
+            raise AssertionError(f"zstd v1 (level {level}): the frame does "
+                                 "not decode to its input")
+        sizes[level] = len(frame)
+        _say(f"zstd v1, level {level}: {ZSTD_JOBS} jobs x {job} bytes, frame "
+             f"{len(frame)} bytes (ratio {len(frame) / n:.6f}), first call "
+             f"{call_s:.2f} s; launches {launches[level]}; decoded by the "
+             f"port's host decoder to its input "
+             f"({time.perf_counter() - t0:.2f} s)")
+    if not sizes[3] <= sizes[2] <= sizes[1]:
+        raise AssertionError(f"zstd v1 sizes not monotone in level: {sizes}")
+
+    # the kernels against their plain versions on the path's own inputs
+    (L_t, tile), rep_in, fse_in = caps[2]
+    err_parse = _hold("tile_parse (v1, level 2)", lz2.tile_parse(L_t, tile),
+                      lz2.tile_parse_ref(L_t, tile))
+    err_rep = _hold("rep_scan (v1, level 2)", [zseqenc.rep_scan(*rep_in)],
+                    [zseqenc.rep_scan_ref(*rep_in)])
+    err_fse = _hold("fse_scan (v1, level 2)", zdev.fse_scan(*fse_in),
+                    zdev.fse_scan_ref(*fse_in))
+    syms, n_seqs = fse_in[0], fse_in[1]
+    R, _, MS = syms.shape
+    ns = n_seqs.to(torch.int64)
+    sum_seqs, max_seqs = int(ns.sum()), int(ns.max())
+    t = {"parse": cuda_ms(lambda: lz2.tile_parse(L_t, tile), 20),
+         "rep": cuda_ms(lambda: zseqenc.rep_scan(*rep_in), 20),
+         "fse": cuda_ms(lambda: zdev.fse_scan(*fse_in), 20)}
+    dev_t = {"parse": cuda_ms(lambda: lz2.tile_parse(L_t, tile), 20, True),
+             "rep": cuda_ms(lambda: zseqenc.rep_scan(*rep_in), 20, True),
+             "fse": cuda_ms(lambda: zdev.fse_scan(*fse_in), 20, True)}
+    plain = {"parse": cuda_ms(lambda: lz2.tile_parse_ref(L_t, tile), 2),
+             "rep": cuda_ms(lambda: zseqenc.rep_scan_ref(*rep_in), 1),
+             "fse": cuda_ms(lambda: zdev.fse_scan_ref(*fse_in), 1)}
+    t_call = host_ms(lambda: zdevice.compress_device(data, engine="v1"), 2)
+    _say_trace("zstd v1", lambda: zdevice.compress_device(data, engine="v1"))
+    # bounds: the parse as in phase 25; the repeat scan as in phase 11 at
+    # MS = 2,731; the FSE scan reads each live sequence's three codes and
+    # the jobs' tables once and writes its two (R, 3, MS) outputs and the
+    # final states once, 20 integer operations a sequence and stream.  The
+    # chains are serial: the longest chain bounds them harder.
+    nj = fse_in[2].shape[0]
+    b_parse = bound(6 * L_t.numel(), 4 * L_t.numel())
+    b_rep = bound(8 * sum_seqs + 4 * R + 4 * R * MS, 24 * sum_seqs)
+    b_fse = bound(12 * sum_seqs + 4 * R + nj * 3 * (512 + 128) * 4
+                  + 2 * 4 * R * 3 * MS + 12 * R, 60 * sum_seqs)
+    _say(f"zstd v1 whole call (compress_device, engine v1, level 2, host "
+         f"clock, median of 2): {t_call:.4f} ms "
+         f"({n / (t_call * 1e-3) / 1e9:.4f} GB/s); sizes by level {sizes}")
+    _say(f"zstd v1 kernels ({R} blocks, MS {MS}, sequences {sum_seqs}, "
+         f"longest chain {max_seqs}; ms, CUDA events / device time / plain "
+         f"/ bound): " + ", ".join(
+             f"{k} {t[k]:.4f} / {dev_t[k]:.4f} / {plain[k]:.4f} / "
+             f"{b[0]:.4f} ({b[1]})"
+             for k, b in (("parse", b_parse), ("rep", b_rep),
+                          ("fse", b_fse))))
+    row = {"name": "fse_scan", "route": "cuda",
+           "source": "compress_tpu_torch/csrc/zdevfse.cu",
+           "replaces": "compress_tpu/ops/zdev.py:445",
+           "launches": launches[2]["fse"], "max_abs_err": err_fse,
+           "equal_to_plain": True, "ms": t["fse"], "plain_ms": plain["fse"],
+           "bound_ms": b_fse[0], "bound_by": b_fse[1], "library_ms": None,
+           "device_ms": dev_t["fse"], "longest_chain": max_seqs,
+           "call_ms": t_call, "sizes_by_level": sizes}
+    extra = {"parse": {"v1_launches": launches[2]["parse"],
+                       "v1_max_abs_err": err_parse, "v1_ms": t["parse"],
+                       "v1_device_ms": dev_t["parse"],
+                       "v1_plain_ms": plain["parse"],
+                       "v1_bound_ms": b_parse[0]},
+             "rep": {"v1_launches": launches[2]["rep"],
+                     "v1_max_abs_err": err_rep, "v1_ms": t["rep"],
+                     "v1_device_ms": dev_t["rep"], "v1_plain_ms": plain["rep"],
+                     "v1_bound_ms": b_rep[0], "v1_longest_chain": max_seqs}}
+    return row, extra
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1951,6 +2206,13 @@ def main() -> int:
     fse_rows[0]["histograms"] = hist_numbers
     kernels += fse_rows
     kernels += checksum_path(blocks)
+    kernels.append(s2_xla_path(dev, data, blocks, bodies))
+    fse_scan_row, v1 = zstd_v1_path(dev)
+    kernels[-1].update(v1["parse"])
+    for row in kernels:
+        if row["name"] == "rep_scan":
+            row.update(v1["rep"])
+    kernels.append(fse_scan_row)
     kernels += other_routes(dev, blocks_np, route_counts())
 
     _say(smi)

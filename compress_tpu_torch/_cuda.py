@@ -25,7 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("lzkern.cu", "lzemit.cu", "zparse.cu", "zseqenc.cu", "litlut.cu",
            "exec.cu", "huff0dec.cu", "zseqdec.cu", "fseenc.cu", "fsedec.cu",
-           "checksum.cu")
+           "checksum.cu", "tileparse.cu", "zdevfse.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -58,6 +58,8 @@ _SIGNATURES = {
     "ct_fse_decode": [_P] * 8 + [_I] * 4 + [_P] * 3,
     "ct_crc32c_batch": [_P, _L, _I, _I, _I, _U, _U, _P, _P],
     "ct_xxh64_batch": [_P, _I, _I, _U64, _P, _P],
+    "ct_tile_parse": [_P, _L, _I, _P, _P, _P],
+    "ct_zdev_fse": [_P] * 7 + [_I] * 3 + [_P] * 4,
 }
 
 _lib = None

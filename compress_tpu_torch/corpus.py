@@ -420,6 +420,30 @@ def rep_inputs(kind: str):
     return of, ll, n.astype(np.int32)
 
 
+def v1_rep_inputs(ms: int, seed: int = 0):
+    """(of, ll (8, ms) int32, n_seqs (8,) int32): repeat-offset scan inputs
+    at the zstd v1 engine's sequence slots (ms = 2,731 for its 16 KiB
+    blocks, 1,366 for 8 KiB): offsets from alphabets of 1-7 values (every
+    repeat rule fires), ll = 0 in runs of 8, n_seqs 0, 1, 3, 4, ms and
+    random; block 5's live offsets are within 3 of INT32_MAX (off + 3
+    wraps negative in int32) and block 6's are INT32_MAX - 3 and below."""
+    rng = np.random.default_rng([seed, ms])
+    R = 8
+    of = np.zeros((R, ms), np.int32)
+    ll = np.zeros((R, ms), np.int32)
+    for b in range(R):
+        alpha = rng.choice(np.arange(1, 1 << 20), rng.integers(1, 8),
+                           replace=False)
+        of[b] = rng.choice(alpha, ms)
+        zero = rng.random(ms // 8 + 1) < rng.uniform(0, 0.9)
+        ll[b] = np.where(np.repeat(zero, 8)[:ms], 0,
+                         rng.integers(1, 50, ms))
+    of[5] = _I32_MAX - rng.integers(0, 4, ms)
+    of[6] = _I32_MAX - 3 - rng.integers(0, 3, ms)
+    n = np.array([0, 1, 3, 4, ms, ms, ms, rng.integers(5, ms)], np.int32)
+    return of, ll, n
+
+
 FSE_CLASSES = ("random_edges", "doped_rle", "permutation")
 
 

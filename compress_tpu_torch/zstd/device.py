@@ -1,16 +1,20 @@
-"""zstd frames from the device v2 encoder (counterpart of the JAX package's
-``zstd/device.py`` with ``engine="v2"``).
+"""zstd frames from the device encoders (counterpart of the JAX package's
+``zstd/device.py``).
 
-The device (``ops/zenc2.py``) produces, per 64 KiB block, the sequences,
-the literal count, the huff0 4-stream literal halves and the FSE
-sequence-stream halves.  This module is the host's byte plumbing: it picks
-raw, RLE or compressed per section, writes the headers, splices the device
-streams and sets the end-of-stream bit of each.
+The device produces, per block, the sequences, the literal count, the
+huff0 4-stream literal halves and the FSE sequence-stream halves: the v2
+encoder (``ops/zenc2.py``, 64 KiB blocks, FSE tables shared by a launch)
+on CUDA, the v1 encoder (``ops/zdev.py``, 16 KiB blocks, FSE tables per
+job) elsewhere, as the reference picks v2 on an accelerator and v1 on a
+CPU.  This module is the host's byte plumbing, one assembly for both
+engines' dicts: it picks raw, RLE or compressed per section, writes the
+headers, splices the device streams and sets the end-of-stream bit of
+each.
 
 Repeat codes are emitted, but the first 3 sequences of every block are
 plain off + 3 (``zseqenc.rep_scan``), so a block never needs another's
-repeat state.  The FSE tables are shared by one launch's blocks: a job's
-first compressed block with sequences carries them, later ones repeat.
+repeat state.  A job's first compressed block with sequences carries the
+FSE tables, later ones repeat them.
 
 An input shorter than one job goes through the host encoder
 (``encoder.compress`` at level 1); the sub-job tail after the device jobs
@@ -26,7 +30,7 @@ import torch
 from compress_tpu_torch._cuda import resolve_device
 from compress_tpu_torch.fse import core as fse_core
 from compress_tpu_torch.huff0.table import write_table
-from compress_tpu_torch.ops import zenc2
+from compress_tpu_torch.ops import zdev, zenc2
 from compress_tpu_torch.utils.xxhash64 import xxh64
 from compress_tpu_torch.zstd import encoder as E
 from compress_tpu_torch.zstd import frame as F
@@ -227,27 +231,49 @@ def launch_inputs(src: torch.Tensor, c: int, hi: int, job: int):
 
 
 def compress_device(data, *, checksum: bool = False, job: int | None = None,
-                    block: int | None = None, max_launch_jobs: int = 8,
-                    level: int = 2, device=None) -> bytes:
+                    block: int | None = None, encode_fn=None,
+                    max_launch_jobs: int = 8, level: int = 2,
+                    engine: str = "auto", device=None) -> bytes:
     """Encode ``data`` as one zstd frame: every whole ``job``-byte job
-    (default 4 MiB) with the device v2 encoder, the tail with the host
-    matcher; an input shorter than one job with the host encoder.
+    with a device encoder, the tail with the host matcher; an input
+    shorter than one job with the host encoder.
 
-    Blocks are 64 KiB; each job matches into an overlap prefix of the
-    previous job's last job // 8 bytes; up to ``max_launch_jobs`` jobs go
-    in one launch and share its FSE tables.  ``block`` and ``level`` are
-    kept for the reference's signature: the only block is 64 KiB and the
-    finder has one depth, so ``level`` is ignored.  Runs on CUDA unless
-    ``device`` names another device ("cpu" runs the plain PyTorch
-    versions); raises when no card is present and no device was given."""
+    engine: "v2" = the kernel pipeline (``ops/zenc2.py``: 64 KiB blocks
+    only, 4 MiB default job, long-range channel; ``level`` is not read),
+    "v1" = the XLA-graph pipeline (``ops/zdev.py``: 16 KiB default blocks,
+    1 MiB default job, ``level`` 1-3), "auto" = v2 on CUDA, v1 elsewhere,
+    as the reference picks v2 on an accelerator and v1 on a CPU.
+    encode_fn: an explicit encoder (called as v1's ``zstd_encode_jobs``;
+    job and block default to v1's).  Each job matches into an overlap
+    prefix of the previous job's last job // 8 bytes; up to
+    ``max_launch_jobs`` jobs go in one launch (v2's share its FSE tables,
+    v1's have their own).  Runs on CUDA unless ``device`` names another
+    device ("cpu" runs the plain PyTorch versions); raises when no card is
+    present and no device was given."""
     dev = resolve_device(device)
     data = bytes(data)
-    job = job or DEFAULT_JOB
+    if engine == "auto":
+        engine = "v2" if dev.type == "cuda" else "v1"
+    if engine not in ("v1", "v2"):
+        raise ValueError(f"engine must be 'auto', 'v1' or 'v2', not {engine!r}")
+    if encode_fn is None and engine == "v2":
+        job = job or DEFAULT_JOB
+        if block not in (None, zenc2.BLOCK) or job <= 0 or job % zenc2.BLOCK:
+            raise ValueError(f"job ({job}) must be a positive multiple of the "
+                             f"{zenc2.BLOCK}-byte block (block={block})")
+        block = zenc2.BLOCK
+
+        def encode_fn(jobs, *, job, block, prefixes, has_prefix, level):
+            return zenc2.zstd_encode_jobs_v2(jobs, job=job, prefixes=prefixes,
+                                             has_prefix=has_prefix)
+    else:
+        encode_fn = encode_fn or zdev.zstd_encode_jobs
+        job = job or zdev.JOB
+        block = block or zdev.BLOCK
+        if job <= 0 or block <= 0 or job % block:
+            raise ValueError(f"job ({job}) must be a positive multiple of "
+                             f"the block ({block})")
     n = len(data)
-    if block not in (None, zenc2.BLOCK) or job <= 0 or job % zenc2.BLOCK:
-        raise ValueError(f"job ({job}) must be a positive multiple of the "
-                         f"{zenc2.BLOCK}-byte block (block={block})")
-    block = zenc2.BLOCK
     if n < job:
         return E.compress(data, level=1, checksum=checksum)
     n_jobs = n // job
@@ -257,9 +283,9 @@ def compress_device(data, *, checksum: bool = False, job: int | None = None,
     for c in range(0, n_jobs, max_launch_jobs):
         hi = min(c + max_launch_jobs, n_jobs)
         jobs, prefixes, has_prefix = launch_inputs(src, c, hi, job)
-        t = zenc2.zstd_encode_jobs_v2(
-            jobs.to(dev), job=job, prefixes=prefixes.to(dev),
-            has_prefix=has_prefix.to(dev))
+        t = encode_fn(jobs.to(dev), job=job, block=block,
+                      prefixes=prefixes.to(dev),
+                      has_prefix=has_prefix.to(dev), level=level)
         t = {k: v.cpu().numpy() for k, v in t.items()}
         for j in range(hi - c):
             jb = data[(c + j) * job : (c + j + 1) * job]

@@ -27,8 +27,14 @@ end to end; the FSE batch encode chain and chunk decode on
 int32 value), batches of 1 and 7 rows and twenty repeated launches, with
 ``fse.compress_batch`` / ``decompress_batch`` end to end; CRC-32C and
 xxHash64 on rows of many lengths, prefixes, seeds, batches of 1 and 7 and
-misaligned rows; and ``compress_device`` on inputs that are not whole
-jobs.
+misaligned rows; ``compress_device`` on inputs that are not whole
+jobs; and the two XLA-graph encoders: the tile parse on hostile lengths
+(every position 4, matches that end at a tile's end, whole-tile matches,
+raw values, the S2 engine's own) at tiles 256 and 512 and others, the v1
+FSE scan on n_seqs of 0, 1 and MS, one to three RLE streams, an of table
+whose clamped index passes 255 and several jobs' tables in one launch,
+the repeat scan at v1's shapes, and both engines and ``compress_device``
+'s v1 on the card against the CPU.
 Without a card every test here skips.
 
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -106,9 +112,11 @@ def test_emit_kernel_matches_plain(cuda_device, slim, blocks_np):
 
 @pytest.mark.cuda
 def test_encode_on_cuda_matches_cpu(cuda_device, blocks_np):
+    """The entry's kernel path on the card equals the same path's plain
+    versions on the CPU."""
     data = blocks_np.tobytes()
-    assert lz2.encode_blocks_np(data) == lz2.encode_blocks_np(
-        data, device="cpu")
+    assert lz2.encode_blocks_np(data) == lz2.s2_encode_blocks_kern(
+        torch.from_numpy(blocks_np))
 
 
 @pytest.mark.cuda
@@ -174,7 +182,8 @@ def test_zstd_kernels_match_plain(cuda_device, zstd_data, blocks_np):
 @pytest.mark.cuda
 def test_compress_device_on_cuda_matches_cpu(cuda_device, zstd_data):
     assert zdevice.compress_device(zstd_data, job=ZJOB) == \
-        zdevice.compress_device(zstd_data, job=ZJOB, device="cpu")
+        zdevice.compress_device(zstd_data, job=ZJOB, device="cpu",
+                                engine="v2")
 
 
 @pytest.mark.cuda
@@ -522,7 +531,7 @@ def s2_dec_blocks(blocks_np):
     seeded blocks of every arena class (M = 1, 2 and 4)."""
     hdr = bytearray()
     put_uvarint(hdr, lz2.B)
-    bodies = lz2.encode_blocks_np(blocks_np.tobytes(), device="cpu")
+    bodies = lz2.s2_encode_blocks_kern(torch.from_numpy(blocks_np))
     return ([bytes(hdr) + b for b in bodies]
             + [_seeded_s2(n, n) for n in (5000, 65536, 65537, 131072,
                                           200000, 262144)])
@@ -1460,5 +1469,244 @@ def test_compress_device_any_length_on_cuda(cuda_device):
         frame = zdevice.compress_device(data[:n], job=job,
                                         checksum=checksum_on)
         assert frame == zdevice.compress_device(
-            data[:n], job=job, checksum=checksum_on, device="cpu")
+            data[:n], job=job, checksum=checksum_on, device="cpu",
+            engine="v2")
         assert zstd_host.decompress(frame) == data[:n]
+
+
+# ---- the two XLA-graph encoders: tile parse, v1 FSE scan, engines ----------
+
+TILE_PARSE_KINDS = ("every_4", "end_at_tile_end", "whole_tile", "raw_random",
+                    "s2_path")
+
+
+def _tile_parse_input(kind: str, tile: int, nb: int = 3) -> np.ndarray:
+    """(nb, 8 * tile) int32 L_t: every position 4 (not capped at the tile
+    end), matches that end exactly at a tile's end (reached by literals
+    and by a jump), L_t = tile at each tile's start and capped values
+    elsewhere, raw random values from -5 to tile + 5, and the S2 XLA
+    engine's own capped L_t on corpus blocks."""
+    bs = 8 * tile
+    rng = np.random.default_rng([TILE_PARSE_KINDS.index(kind), tile])
+    r = np.arange(bs) % tile
+    if kind == "every_4":
+        return np.full((nb, bs), 4, np.int32)
+    if kind == "end_at_tile_end":
+        L = np.zeros((nb, bs), np.int32)
+        L[:, r == tile - 20] = 20
+        L[1, r == 0] = tile - 20
+        L[2, r == 5] = tile - 5
+        return L
+    if kind == "whole_tile":
+        L = np.minimum(rng.integers(0, tile + 1, (nb, bs)), tile - r)
+        L[:, r == 0] = tile
+        return L.astype(np.int32)
+    if kind == "raw_random":
+        return rng.integers(-5, tile + 6, (nb, bs)).astype(np.int32)
+    blocks = torch.from_numpy(corpus.corpus_blocks(nb, 9))
+    take, lit, L_t, off = lz2._find_parse(blocks, tile, level=2)
+    return L_t.to(torch.int32).numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [256, 512])
+@pytest.mark.parametrize("kind", TILE_PARSE_KINDS)
+def test_tile_parse_kernel_hostile(cuda_device, kind, tile):
+    L = torch.from_numpy(_tile_parse_input(kind, tile))
+    before = lz2.tile_parse.launches
+    got = lz2.tile_parse(L.to(cuda_device), tile)
+    want = lz2.tile_parse_ref(L, tile)
+    torch.cuda.synchronize()
+    assert lz2.tile_parse.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [1, 100, 700])
+def test_tile_parse_kernel_other_tiles_and_batches(cuda_device, tile):
+    rng = np.random.default_rng(tile)
+    for nb in (1, 65):
+        L = torch.from_numpy(rng.integers(0, 12, (nb, 3 * tile))
+                             .astype(np.int32))
+        for a, b in zip(lz2.tile_parse(L.to(cuda_device), tile),
+                        lz2.tile_parse_ref(L, tile)):
+            assert torch.equal(a.cpu(), b)
+
+
+def _fse_scan_inputs(seed: int, nj: int = 3, nblk: int = 4,
+                     ms: int = 2731, rle=(), hot_of: bool = False,
+                     n_seqs=None):
+    """The v1 FSE scan's inputs at v1's 16 KiB block: skewed random codes,
+    per-job tables of logs 9/8/9 from ``zdev._fse_build`` (each job its
+    own); ``rle`` lists (job, stream) pairs made RLE; ``hot_of`` moves
+    the of deltas so that clamped indices pass 255 (the padded zeros)."""
+    from compress_tpu_torch.ops import zdev
+
+    rng = np.random.default_rng(seed)
+    R = nj * nblk
+    n = (rng.integers(0, ms + 1, R) if n_seqs is None
+         else np.resize(np.asarray(n_seqs), R)).astype(np.int32)
+    n_t = torch.from_numpy(n)
+    is_seq = torch.arange(ms)[None, :] < n_t[:, None]
+    codes = []
+    for hi in (36, 21, 53):
+        c = np.minimum(rng.geometric(rng.uniform(0.05, 0.5), (R, ms)) - 1,
+                       hi - 1)
+        codes.append(torch.where(is_seq, torch.from_numpy(c), 0)
+                     .to(torch.int32))
+    tabs = [zdev._fse_build(c, is_seq, nj, lg)
+            for c, lg in zip(codes, zdev.FSE_LOGS)]
+    st, dnb, dfs, logs, rle_t = (torch.stack([t[k] for t in tabs], dim=1)
+                                 .contiguous()
+                                 for k in ("st", "dnb", "dfs", "log", "rle"))
+    for j, k in rle:
+        rle_t[j, k] = True
+        logs[j, k] = 0
+    if hot_of:
+        dfs[:, 1] += 200
+    syms = torch.stack(codes, dim=1).contiguous()
+    return syms, n_t, st, dnb, dfs, logs, rle_t
+
+
+def _hold_fse_scan(dev, args):
+    from compress_tpu_torch.ops import zdev
+
+    before = zdev.fse_scan.launches
+    got = zdev.fse_scan(*(a.to(dev) for a in args))
+    want = zdev.fse_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert zdev.fse_scan.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+FSE_SCAN_CASES = {
+    "n_seqs_0_1_ms": dict(n_seqs=[0, 1, 2731, 2, 3, 2730]),
+    "random_n": dict(),
+    "one_rle_stream": dict(rle=[(0, 1)]),
+    "two_rle_streams": dict(rle=[(1, 0), (1, 2)]),
+    "three_rle_streams": dict(rle=[(2, 0), (2, 1), (2, 2)]),
+    "of_index_past_255": dict(hot_of=True),
+    "past_ms": dict(n_seqs=[2731 + 5, 2731, 7]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FSE_SCAN_CASES))
+def test_fse_scan_kernel_hostile(cuda_device, case):
+    args = _fse_scan_inputs(list(FSE_SCAN_CASES).index(case) + 40,
+                            **FSE_SCAN_CASES[case])
+    _hold_fse_scan(cuda_device, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nj,nblk", [(1, 1), (8, 64), (5, 7)])
+def test_fse_scan_kernel_jobs_in_one_launch(cuda_device, nj, nblk):
+    """Several jobs with their own tables in one launch (8 x 64 is the
+    default geometry's launch), and an odd number of rows a job."""
+    args = _fse_scan_inputs(nj * 100 + nblk, nj=nj, nblk=nblk)
+    assert nj == 1 or not torch.equal(args[2][0], args[2][1])
+    _hold_fse_scan(cuda_device, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ms", [2731, 1366])
+def test_rep_scan_kernel_v1_shape(cuda_device, ms):
+    of, ll, n = (torch.from_numpy(a) for a in corpus.v1_rep_inputs(ms, 3))
+    got = zseqenc.rep_scan(*(a.to(cuda_device) for a in (of, ll, n)))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), zseqenc.rep_scan_ref(of, ll, n))
+
+
+@pytest.mark.cuda
+def test_new_kernels_reject_bad_inputs(cuda_device):
+    from compress_tpu_torch.ops import zdev
+
+    L = torch.zeros((2, 1024), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        lz2.tile_parse(L.to(torch.int64), 512)
+    with pytest.raises(ValueError):
+        lz2.tile_parse(L, 300)
+    args = [a.to(cuda_device) for a in _fse_scan_inputs(1, nj=2, nblk=2)]
+    with pytest.raises(ValueError):
+        zdev.fse_scan(args[0].to(torch.int64), *args[1:])
+    with pytest.raises(ValueError):
+        zdev.fse_scan(args[0], args[1].cpu(), *args[2:])
+    with pytest.raises(ValueError):
+        zdev.fse_scan(args[0][:3], *args[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,level", [(512, 1), (512, 2), (256, 2)])
+def test_s2_xla_engine_on_cuda_matches_cpu(cuda_device, blocks_np, tile,
+                                           level):
+    t = torch.from_numpy(blocks_np)
+    before = lz2.tile_parse.launches
+    out, lens = lz2.s2_encode_blocks(t.to(cuda_device), tile, level)
+    assert lz2.tile_parse.launches == before + 1
+    want = lz2.s2_encode_blocks(t, tile, level)
+    assert torch.equal(out.cpu(), want[0]) and torch.equal(lens.cpu(),
+                                                           want[1])
+
+
+@pytest.mark.cuda
+def test_s2_engine_switch_on_cuda(cuda_device, blocks_np, monkeypatch):
+    """COMPRESS_TPU_S2_ENGINE=xla sends the card to the XLA engine, whose
+    bodies equal the CPU default's and decode to their blocks."""
+    data = blocks_np.tobytes()
+    counts = (lz2.tile_parse.launches, lzkern.find_matches_blocks.launches)
+    monkeypatch.setenv("COMPRESS_TPU_S2_ENGINE", "xla")
+    bodies = lz2.encode_blocks_np(data)
+    assert (lz2.tile_parse.launches,
+            lzkern.find_matches_blocks.launches) == (counts[0] + 1,
+                                                     counts[1])
+    assert bodies == lz2.encode_blocks_np(data, device="cpu")
+    hdr = bytearray()
+    put_uvarint(hdr, lz2.B)
+    for i, body in enumerate(bodies):
+        assert s2_block.decode(bytes(hdr) + body) == \
+            data[i * lz2.B:(i + 1) * lz2.B]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [1, 2, 3])
+def test_v1_engine_on_cuda_matches_cpu(cuda_device, level):
+    """zstd_encode_jobs at job 64 KiB / block 16 KiB (MS = 2,731) with
+    prefixes: every key of the dict equal, one launch of each kernel."""
+    from compress_tpu_torch.ops import zdev
+
+    job = 64 << 10
+    jobs = np.ascontiguousarray(
+        corpus.corpus_blocks(8, 12)[:, :job // 4].reshape(2, job))
+    pre = np.zeros((2, job // 8), np.uint8)
+    pre[1] = jobs[0, -job // 8:]
+    hp = np.array([False, True])
+    args = [torch.from_numpy(a) for a in (jobs, pre, hp)]
+    fns = (lz2.tile_parse, zseqenc.rep_scan, zdev.fse_scan)
+    counts = [f.launches for f in fns]
+    got = zdev.zstd_encode_jobs(args[0].to(cuda_device), job=job,
+                                block=16 << 10, prefixes=args[1].to(
+                                    cuda_device),
+                                has_prefix=args[2].to(cuda_device),
+                                debug=True, level=level)
+    assert [f.launches for f in fns] == [c + 1 for c in counts]
+    want = zdev.zstd_encode_jobs(args[0], job=job, block=16 << 10,
+                                 prefixes=args[1], has_prefix=args[2],
+                                 debug=True, level=level)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.cuda
+def test_compress_device_v1_on_cuda_matches_cpu(cuda_device):
+    """engine="v1" on the card gives the CPU default's frame, which
+    decodes with the port's host decoder."""
+    job, block = 64 << 10, 16 << 10
+    data = corpus.corpus_blocks(4, 6).reshape(-1)[:2 * job + 777].tobytes()
+    frame = zdevice.compress_device(data, job=job, block=block,
+                                    engine="v1", level=3)
+    assert frame == zdevice.compress_device(data, job=job, block=block,
+                                            device="cpu", level=3)
+    assert zstd_host.decompress(frame) == data

@@ -1,11 +1,12 @@
 """PyTorch port of the device S2 block encode, end to end
 (compress_tpu_torch/ops/lz2.py), and the port's own host helpers.
 
-- The slice's bodies (``encode_blocks_np(device="cpu")``) equal the JAX
-  chain finder -> lzemit2 -> assemble_bodies in interpret mode byte for
-  byte, and decode with both the JAX package's and the port's decoder.
-  (The JAX ``encode_blocks_np`` itself takes its XLA engine on the CPU,
-  so the chain is the reference.)
+- The kernel path's bodies (``s2_encode_blocks_kern`` on CPU tensors, the
+  plain versions) equal the JAX chain finder -> lzemit2 ->
+  assemble_bodies in interpret mode byte for byte, and decode with both
+  the JAX package's and the port's decoder.  (``encode_blocks_np`` on the
+  CPU takes the XLA engine, as the JAX one does: tests/test_torch_s2xla.py
+  holds it.)
 - The port's S2 decoder equals ``compress_tpu.s2.decode`` on host-encoded
   blocks that carry repeat and copy4 tags.
 - The port and ``chip_smoke.py`` import neither ``jax`` nor
@@ -56,7 +57,8 @@ def jax_bodies(data):
 
 @pytest.fixture(scope="module")
 def port_bodies(data):
-    return lz2.encode_blocks_np(data, device="cpu")
+    return lz2.s2_encode_blocks_kern(torch.from_numpy(
+        np.frombuffer(data, np.uint8).reshape(-1, lz2.B).copy()))
 
 
 def _hdr(n):
@@ -83,8 +85,10 @@ def test_bodies_decode_with_both_decoders(name, data, port_bodies):
 
 def test_encode_chunks_launches(data, port_bodies, monkeypatch):
     """Inputs longer than MAX_LAUNCH_BLOCKS go in several chunks with the
-    same result."""
+    same result (the kernel path, through ``s2_encode_blocks_kern`` on
+    CPU tensors)."""
     monkeypatch.setattr(lz2, "MAX_LAUNCH_BLOCKS", 3)
+    monkeypatch.setattr(lz2, "_use_kernel_path", lambda dev: True)
     assert lz2.encode_blocks_np(data, device="cpu") == port_bodies
 
 

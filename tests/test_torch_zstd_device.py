@@ -1,6 +1,7 @@
 """PyTorch port of the device zstd frame encoder (compress_tpu_torch/zstd/
-device.py) against the JAX package's ``compress_device`` with the v2
-encoder in interpret mode (its frame assembly is its native one where that
+device.py) with ``engine="v2"`` (the card's default; the CPU's is v1, held
+in tests/test_torch_zdev_v1.py) against the JAX package's
+``compress_device`` with the v2 encoder in interpret mode (its frame assembly is its native one where that
 library is built), byte for byte, on two 128 KiB jobs: a replica job (the
 long-range channel) and a job of an all-zero block (an RLE block) and a
 random block (a raw block); and on inputs that are not whole jobs: a
@@ -53,7 +54,8 @@ def frames(data):
     out = {}
     for checksum, mlj in CASES:
         port = device.compress_device(data, checksum=checksum, job=JOB,
-                                      max_launch_jobs=mlj, device="cpu")
+                                      max_launch_jobs=mlj, device="cpu",
+                                      engine="v2")
         out[(checksum, mlj)] = (port, _jax_frame(data, checksum, mlj))
     return out
 
@@ -186,7 +188,7 @@ TAILS = [(JOB + 1000, False), (JOB + 1000, True),
 def test_sub_job_tail_matches_jax(n, checksum, tail_data):
     data = tail_data[:n]
     port = device.compress_device(data, checksum=checksum, job=JOB,
-                                  device="cpu")
+                                  device="cpu", engine="v2")
     ref = jax_device.compress_device(data, checksum=checksum, job=JOB,
                                      block=BS, encode_fn=_memo_encode)
     assert port == ref
@@ -213,7 +215,7 @@ def test_input_shorter_than_a_job_matches_jax(n, job, checksum, tail_data,
     monkeypatch.setattr(jax_enc, "_native_compress", lambda *a, **k: None)
     data = tail_data[:n]
     port = device.compress_device(data, checksum=checksum, job=job,
-                                  device="cpu")
+                                  device="cpu", engine="v2")
     ref = jax_device.compress_device(data, checksum=checksum,
                                      job=job or device.DEFAULT_JOB,
                                      block=BS, encode_fn=_memo_encode)
@@ -226,10 +228,19 @@ def test_input_shorter_than_a_job_matches_jax(n, job, checksum, tail_data,
                                        (-BS, None)])
 def test_bad_job_or_block_raises_value_error(job, block, data):
     with pytest.raises(ValueError):
-        device.compress_device(data, job=job, block=block, device="cpu")
+        device.compress_device(data, job=job, block=block, device="cpu",
+                               engine="v2")
 
 
 def test_no_device_raises_without_cuda(data, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         device.compress_device(data, job=JOB)
+
+
+@pytest.mark.parametrize("engine", ["v1", "v2"])
+def test_no_device_raises_without_cuda_either_engine(data, monkeypatch,
+                                                     engine):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device.compress_device(data, job=JOB, engine=engine)
