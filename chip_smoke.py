@@ -3,7 +3,7 @@
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with one CUDA card and ``nvcc``.  It builds the kernels from
-``compress_tpu_torch/csrc`` and then drives four paths.
+``compress_tpu_torch/csrc`` and then drives the paths below.
 
 Device S2 block encode, on a 16 MiB seeded corpus (256 blocks of 64 KiB
 mixing every class of ``compress_tpu_torch.corpus``):
@@ -181,6 +181,36 @@ also runs on the card):
     versions and the whole call (host clock, median of 2) with their
     bounds and the longest chain, and traces one call.
 
+The block-parallel engine (``compress_tpu_torch/parallel``), after the
+paths above:
+
+27. one rank over NCCL (``init_process_group("nccl")`` at world size 1
+    through a ``file://`` rendezvous): ``encode_blocks_sharded`` and
+    ``encode_step_stats`` of the phase-3 corpus (equal to
+    ``s2_encode_blocks``; the total is the lengths' sum);
+    ``s2_stream_encode_device`` of the corpus and a 12,345-byte tail,
+    walked chunk by chunk (type, length, masked CRC-32C, body through the
+    port's S2 decoder) back to the input; ``zstd_encode_sharded`` of the
+    phase-26 jobs and a 300,001-byte tail, equal to
+    ``compress_device(engine="v1", level=2)`` byte for byte (its halo,
+    encode, assembly and gather times, and one trace with its idle
+    share); ``zstd_decode_sharded`` of phase 20's and 21's items and of
+    16 of phase 16's plain frames, and ``decode_blocks_device`` of 32 of
+    phase 6's bodies with the mesh, each equal to the unsharded call's
+    output.  Each call runs with the launch counters of rows 6, 9-12, 17
+    and 18 set to 0 just before and read just after; each of those
+    kernels must launch.  Prints each sharded call's host-clock time
+    beside the unsharded call's;
+28. two gloo ranks (spawned processes, ``parallel.launch.run_ranks``)
+    whose kernels both run on ``cuda:0``, the collectives through host
+    tensors: ``zstd_encode_sharded`` of 4 jobs of 1 MiB and a tail (both
+    ranks' frames equal ``compress_device(engine="v1")``'s; rank 1
+    received the last 128 KiB of job 1), ``encode_step_stats`` of 64
+    blocks, ``zstd_decode_sharded`` of 33 of phase 20's items (the
+    padding path) and ``parallel.dryrun.dryrun_multichip``; prints each
+    rank's times and launches.  Both phases' numbers are printed as one
+    ``{"sharded": ...}`` line before the kernels line.
+
 The routes no path sends, which take the inputs the reference takes
 (run after every main path):
 
@@ -194,7 +224,8 @@ The routes no path sends, which take the inputs the reference takes
 Then it prints one ``{"kernels": [...]}`` line with all the kernels (the
 huff0 kernel once per engine, the sequence kernel once per mode, the
 routes of phase 19 once each; the tile parse's row and the repeat scan's
-also carry their phase-26 numbers as ``v1_*``).
+also carry their phase-26 numbers as ``v1_*``, and the rows of the
+sharded paths' kernels their phase-27 launches as ``sharded_launches``).
 Every comparison is exact (tolerance 0: all outputs are integers or
 bytes).  Any failure raises and the exit code is not 0.  The last line
 of standard output is ``{"ok": true, "device": {...}}``.
@@ -890,8 +921,9 @@ def _zseq_bound(nc: int, win: int, tables: int, live: int, n_out: int):
 
 def zstd_decode_path(dev):
     """Phases 16-18: the batched zstd frame decode.  Returns the sequence
-    kernel's JSON entries (per-item and shared table) and this path's
-    numbers for the huff0 and exec rows."""
+    kernel's JSON entries (per-item and shared table), this path's
+    numbers for the huff0 and exec rows, the text inputs, and 16 of the
+    plain frames with their inputs (for phase 27)."""
     from compress_tpu_torch import corpus
     from compress_tpu_torch import zstd as Z
     from compress_tpu_torch.ops import entropy_dec as ED
@@ -1130,7 +1162,7 @@ def zstd_decode_path(dev):
                  "host_decode_s": hdec_s, "stages_s": stats["s"],
                  "h2d_ms": h2d_ms},
     }
-    return rows_out, extra, text_data
+    return rows_out, extra, text_data, (frames[:16], datas[:16])
 
 
 def _encode_accel(job):
@@ -1266,8 +1298,9 @@ def _call_times(items, n_out: int, what: str):
 def accel_paths(dev, texts, ctas: int) -> tuple:
     """Phases 20-21: the accel and multi-block accel routes (``ctas``: the
     history kernel's CTAs per SM, from phase 2).  Returns the history
-    kernel's JSON entry and the launches and call numbers of both
-    routes."""
+    kernel's JSON entry, the launches and call numbers of both routes,
+    and their items, inputs and whole-call milliseconds (for phase
+    27)."""
     from compress_tpu_torch import corpus
     from compress_tpu_torch.ops import execute as X
     from compress_tpu_torch.zstd import accel as AC
@@ -1298,7 +1331,7 @@ def accel_paths(dev, texts, ctas: int) -> tuple:
          f"build_sidecar {sum(e[2] for e in enc):.2f} s; sidecars "
          f"{side_b} bytes, frames {frame_b} bytes (sidecar share "
          f"{side_b / frame_b:.4f} of the frame bytes)")
-    items = [it for b in blobs for it in AC.split_stream_accel(b)]
+    items = items20 = [it for b in blobs for it in AC.split_stream_accel(b)]
     out, l20, _st, first20 = _decode_counted(items, {"accel"})
     if out != texts:
         raise AssertionError("accel route: an item differs from its input")
@@ -1390,7 +1423,10 @@ def accel_paths(dev, texts, ctas: int) -> tuple:
                        "accel_mb_launches": l21["huff0"]},
              "exec": {"accel_launches": l20["exec"]},
              "accel_call": {**call20, "first_s": first20}}
-    return row, extra
+    items = {"items20": items20, "texts": texts, "items21": items,
+             "streams": streams, "accel_ms": call20["call_ms"],
+             "accel_mb_ms": call21["call_ms"]}
+    return row, extra, items
 
 
 def _route_counters():
@@ -1986,6 +2022,323 @@ def zstd_v1_path(dev) -> tuple:
     return row, extra
 
 
+def _sharded_counters():
+    """The launch counters of the kernels on the sharded paths: rows 6,
+    9-12, 17 and 18 of PERF.md's table."""
+    from compress_tpu_torch.ops import entropy_dec as ED
+    from compress_tpu_torch.ops import execute as X
+    from compress_tpu_torch.ops import lz2, zdev, zseq_kern, zseqenc
+
+    return {"rep_scan": [zseqenc.rep_scan],
+            "huff0_decode": [ED.huff0_decode_chunks],
+            "zseq_decode": [ED.zseq_decode_chunks_rep, ED.zseq_decode_chunks,
+                            zseq_kern.zseq_decode_chunks_shared],
+            "execute_pieces": [X.execute_pieces],
+            "execute_blocks_hist": [X.execute_blocks_hist],
+            "tile_parse": [lz2.tile_parse], "fse_scan": [zdev.fse_scan]}
+
+
+def _count_launches(fn):
+    """(fn(), launches of each sharded-path kernel in the call): every
+    counter set to 0 just before and read just after."""
+    counters = _sharded_counters()
+    for fns in counters.values():
+        for f in fns:
+            f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: sum(f.launches for f in fns)
+                 for k, fns in counters.items()}
+
+
+def _walk_s2_stream(stream: bytes) -> bytes:
+    """The input of an .s2 framed stream: the stream magic, then chunks of
+    a type byte, a 3-byte length and a masked CRC-32C of the chunk's
+    input; a compressed chunk's body decodes through ``s2.block.decode``,
+    a stored chunk is its input."""
+    from compress_tpu_torch.parallel.engine import MAGIC_CHUNK_S2
+    from compress_tpu_torch.s2 import block as s2block
+    from compress_tpu_torch.utils.crc import crc32c_masked
+
+    if not stream.startswith(MAGIC_CHUNK_S2):
+        raise AssertionError("S2 stream: no stream magic")
+    pos, out = len(MAGIC_CHUNK_S2), bytearray()
+    while pos < len(stream):
+        kind = stream[pos]
+        n = int.from_bytes(stream[pos + 1:pos + 4], "little")
+        crc = int.from_bytes(stream[pos + 4:pos + 8], "little")
+        body = stream[pos + 8:pos + 4 + n]
+        pos += 4 + n
+        if kind == 0x00:
+            chunk = s2block.decode(body)
+        elif kind == 0x01:
+            chunk = body
+        else:
+            raise AssertionError(f"S2 stream: chunk type {kind:#x}")
+        if crc32c_masked(chunk) != crc or len(chunk) > (1 << 16):
+            raise AssertionError("S2 stream: a chunk's CRC or size is wrong")
+        out += chunk
+    if pos != len(stream):
+        raise AssertionError("S2 stream: a chunk overruns the stream")
+    return bytes(out)
+
+
+def sharded_world1(data, blocks, acc, plain) -> dict:
+    """Phase 27: the block-parallel engine on one rank over NCCL, at the
+    sizes of the unsharded phases (``data``/``blocks``: phase 3's corpus;
+    ``acc``: phases 20-21's items and inputs and their call times;
+    ``plain``: 16 of phase 16's plain frames and their inputs).  Every
+    output must equal the unsharded call's.  Returns the launches of the
+    sharded calls and the numbers the kernels line carries."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from compress_tpu_torch import corpus
+    from compress_tpu_torch.ops import lz2, zdev
+    from compress_tpu_torch.parallel import engine as PE
+    from compress_tpu_torch.s2 import device_dec as SD
+    from compress_tpu_torch.zstd import device as zdevice
+    from compress_tpu_torch.zstd import device_dec as DD
+
+    torch.cuda.set_device(0)
+    launches, times = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as root:
+        dist.init_process_group("nccl", init_method=f"file://{root}/rdv",
+                                world_size=1, rank=0)
+        try:
+            mesh = PE.block_mesh()
+            _say(f"phase 27: {mesh.backend} process group of {mesh.size} "
+                 f"rank on {mesh.device}")
+            # -- S2: the sharded encode against s2_encode_blocks -----------
+            (out, lens), launches["encode_blocks_sharded"] = _count_launches(
+                lambda: PE.encode_blocks_sharded(blocks, mesh))
+            w_out, w_lens = lz2.s2_encode_blocks(blocks)
+            if not (torch.equal(out, w_out) and torch.equal(lens, w_lens)):
+                raise AssertionError("encode_blocks_sharded (world 1) differs "
+                                     "from s2_encode_blocks")
+            (o2, l2, total), launches["encode_step_stats"] = _count_launches(
+                lambda: PE.encode_step_stats(blocks, mesh))
+            if int(total) != int(l2.sum()) or not (
+                    torch.equal(l2, w_lens) and torch.equal(o2, w_out)):
+                raise AssertionError("encode_step_stats differs from "
+                                     "s2_encode_blocks, or its total from "
+                                     "the lengths' sum")
+            times["encode_blocks_sharded"] = (
+                host_ms(lambda: PE.encode_blocks_sharded(blocks, mesh), 3),
+                host_ms(lambda: lz2.s2_encode_blocks(blocks), 3))
+            times["encode_step_stats"] = (
+                host_ms(lambda: PE.encode_step_stats(blocks, mesh), 3), None)
+            # -- S2 stream: 16 MiB and a tail, walked chunk by chunk -------
+            sdata = data + corpus.corpus_blocks(1, 27).tobytes()[:12_345]
+            t0 = time.perf_counter()
+            stream, launches["s2_stream_encode_device"] = _count_launches(
+                lambda: PE.s2_stream_encode_device(sdata, mesh))
+            t_stream = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            if _walk_s2_stream(stream) != sdata:
+                raise AssertionError("s2_stream_encode_device: the stream "
+                                     "does not give back its input")
+            _say(f"S2 stream: {len(sdata)} bytes -> {len(stream)} (ratio "
+                 f"{len(stream) / len(sdata):.6f}), {len(sdata) // lz2.B + 1}"
+                 f" chunks walked and decoded to the input "
+                 f"({time.perf_counter() - t0:.2f} s)")
+            times["s2_stream_encode_device"] = (t_stream, None)
+            # -- zstd v1: the sharded job engine against compress_device ---
+            zdata = (corpus.replica_jobs(ZSTD_JOBS, zdev.JOB, SEED).tobytes()
+                     + corpus.corpus_blocks(8, 22).tobytes()[:TAIL_BYTES])
+            stats = {}
+            frame, launches["zstd_encode_sharded"] = _count_launches(
+                lambda: PE.zstd_encode_sharded(zdata, mesh, level=2,
+                                               stats=stats))
+            want = zdevice.compress_device(zdata, engine="v1", level=2)
+            if frame != want:
+                raise AssertionError("zstd_encode_sharded (world 1) differs "
+                                     "from compress_device(engine='v1')")
+            # host-bound calls on a shared host: time them in turns
+            # (sharded, unsharded) and keep the medians of 3 pairs
+            turns = ([], [])
+            for _ in range(3):
+                for out_ms, fn in zip(turns, (
+                        lambda: PE.zstd_encode_sharded(zdata, mesh, level=2,
+                                                       stats=stats),
+                        lambda: zdevice.compress_device(zdata, engine="v1",
+                                                        level=2))):
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    out_ms.append((time.perf_counter() - t0) * 1e3)
+            _say("zstd_encode_sharded / compress_device(engine='v1') in turns "
+                 "(ms): " + ", ".join(f"{a:.4f} / {b:.4f}"
+                                      for a, b in zip(*turns)))
+            times["zstd_encode_sharded"] = tuple(statistics.median(t)
+                                                 for t in turns)
+            busy, wall, by_name = trace_path(lambda: PE.zstd_encode_sharded(
+                zdata, mesh, level=2))
+            _say(f"zstd_encode_sharded (world 1): {len(zdata)} bytes -> "
+                 f"{len(frame)}, equal to compress_device(engine='v1'); "
+                 f"last call's parts (s): halo {stats['halo_s']:.6f}, encode "
+                 f"{stats['encode_s']:.4f}, assembly "
+                 f"{stats['assemble_s']:.4f}, gather {stats['gather_s']:.6f}; "
+                 f"trace: device busy "
+                 f"{busy:.4f} ms of {wall:.4f} ms wall, idle share "
+                 + (f"{1 - busy / wall:.4f}" if busy > 0 else "not measured")
+                 + "; by name (ms): " + ", ".join(
+                     f"{k[:50]} {v:.4f}" for k, v in by_name[:6]))
+            zstd_parts = {k: stats[k] for k in ("halo_s", "encode_s",
+                                                "assemble_s", "gather_s")}
+            zstd_trace = {"busy_ms": busy, "wall_ms": wall,
+                          "idle_share": 1 - busy / wall if busy > 0 else None}
+            # -- decode: accel, multi-block accel, plain frames, S2 bodies --
+            for key, items, want in (
+                    ("accel", acc["items20"], acc["texts"]),
+                    ("accel_mb", acc["items21"], acc["streams"]),
+                    ("plain", plain[0], plain[1])):
+                t0 = time.perf_counter()
+                got, launches[f"zstd_decode_sharded_{key}"] = _count_launches(
+                    lambda: PE.zstd_decode_sharded(items, mesh))
+                t_sh = (time.perf_counter() - t0) * 1e3
+                if key == "plain":
+                    t0 = time.perf_counter()
+                    unsharded = DD.decompress_frames_device(items)
+                    t_un = (time.perf_counter() - t0) * 1e3
+                else:   # phases 20-21 decoded the same items
+                    unsharded, t_un = want, acc[f"{key}_ms"]
+                if got != unsharded or got != want:
+                    raise AssertionError(f"zstd_decode_sharded ({key}) "
+                                         "differs from the unsharded call")
+                times[f"zstd_decode_sharded_{key}"] = (t_sh, t_un)
+            bodies, s2src = acc["s2_bodies"]
+            t0 = time.perf_counter()
+            got, launches["decode_blocks_device"] = _count_launches(
+                lambda: SD.decode_blocks_device(bodies, mesh=mesh))
+            t_sh = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            if got != SD.decode_blocks_device(bodies) or got != s2src:
+                raise AssertionError("decode_blocks_device with a mesh "
+                                     "differs from the call without one")
+            times["decode_blocks_device"] = (
+                t_sh, (time.perf_counter() - t0) * 1e3)
+        finally:
+            dist.destroy_process_group()
+    for k, (t_sh, t_un) in times.items():
+        _say(f"  {k}: sharded (world 1) {t_sh:.4f} ms, unsharded "
+             + (f"{t_un:.4f} ms" if t_un is not None else "(none)")
+             + f"; launches {launches[k]}")
+    total = {k: sum(v.get(k, 0) for v in launches.values())
+             for k in _sharded_counters()}
+    _say(f"phase 27 launches of the sharded paths' kernels: {total}")
+    if min(total.values()) < 1:
+        raise AssertionError(f"a kernel of the sharded paths did not run: "
+                             f"{total}")
+    return {"launches": total, "by_call": launches, "times_ms": times,
+            "zstd_parts_s": zstd_parts, "zstd_trace": zstd_trace}
+
+
+def _two_ranks_rank(mesh, zdata, blocks_np, items):
+    """Phase 28 on one of two gloo ranks (a spawned process): the sharded
+    zstd encode, the step stats, the sharded decode and the dryrun, with
+    this rank's launches and host-clock times."""
+    from compress_tpu_torch.parallel import dryrun
+    from compress_tpu_torch.parallel import engine as PE
+
+    res = {"device": str(mesh.device)}
+    stats = {}
+    t0 = time.perf_counter()
+    res["frame"], res["zstd_launches"] = _count_launches(
+        lambda: PE.zstd_encode_sharded(zdata, mesh, level=2, stats=stats))
+    res["zstd_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    PE.zstd_encode_sharded(zdata, mesh, level=2, stats=stats)
+    res["zstd_ms_2"] = (time.perf_counter() - t0) * 1e3
+    res["zstd_stats"] = stats
+    t0 = time.perf_counter()
+    (out, lens, total), res["ess_launches"] = _count_launches(
+        lambda: PE.encode_step_stats(blocks_np, mesh))
+    res["ess_ms"] = (time.perf_counter() - t0) * 1e3
+    res["ess"] = (out.cpu(), lens.cpu(), int(total))
+    t0 = time.perf_counter()
+    res["dec"], res["dec_launches"] = _count_launches(
+        lambda: PE.zstd_decode_sharded(items, mesh))
+    res["dec_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    res["dryrun"] = dryrun.dryrun_multichip(mesh)
+    res["dryrun_ms"] = (time.perf_counter() - t0) * 1e3
+    return res
+
+
+def two_ranks(acc) -> dict:
+    """Phase 28: two gloo ranks (spawned processes) whose kernels both run
+    on ``cuda:0``, the collectives through host tensors: 4 jobs of 1 MiB
+    and a tail through ``zstd_encode_sharded`` (both ranks' frames equal
+    ``compress_device(engine="v1")``'s, rank 1's halo the tail of job 1),
+    ``encode_step_stats`` of 64 blocks, ``zstd_decode_sharded`` of 33
+    accel items (the padding path) and the dryrun."""
+    from compress_tpu_torch import corpus
+    from compress_tpu_torch.ops import lz2, zdev
+    from compress_tpu_torch.parallel import launch
+    from compress_tpu_torch.zstd import device as zdevice
+
+    job = zdev.JOB
+    zdata = (corpus.replica_jobs(4, job, SEED + 28).tobytes()
+             + corpus.corpus_blocks(2, 28).tobytes()[:99_999])
+    blocks_np = corpus.corpus_blocks(64, SEED + 28)
+    items, texts = acc["items20"][:33], acc["texts"][:33]
+    t0 = time.perf_counter()
+    res = launch.run_ranks(_two_ranks_rank, 2, "gloo", "cuda:0", zdata,
+                           blocks_np, items, timeout=600)
+    wall = time.perf_counter() - t0
+    want = zdevice.compress_device(zdata, engine="v1", level=2)
+    t_un = host_ms(lambda: zdevice.compress_device(zdata, engine="v1",
+                                                   level=2), 2)
+    w_out, w_lens = lz2.s2_encode_blocks(
+        torch.from_numpy(blocks_np).to("cuda"))
+    for r, x in enumerate(res):
+        if x["frame"] != want:
+            raise AssertionError(f"phase 28: rank {r}'s frame differs from "
+                                 "compress_device(engine='v1')")
+        out, lens, total = x["ess"]
+        if not (torch.equal(out, w_out.cpu()) and torch.equal(
+                lens, w_lens.cpu())) or total != int(w_lens.sum()):
+            raise AssertionError(f"phase 28: rank {r}'s step stats differ")
+        if x["dec"] != texts:
+            raise AssertionError(f"phase 28: rank {r}'s decode differs")
+    halo = res[1]["zstd_stats"]["halo"]
+    if res[0]["zstd_stats"]["halo"] is not None \
+            or halo != zdata[2 * job - job // 8:2 * job]:
+        raise AssertionError("phase 28: the halo bytes are not job 1's tail")
+    launches = {k: [x[f"{k}_launches"] for x in res]
+                for k in ("zstd", "ess", "dec")}
+    need = {"zstd": ("tile_parse", "rep_scan", "fse_scan"),
+            "ess": ("tile_parse",), "dec": ("huff0_decode", "execute_pieces")}
+    _say(f"phase 28: 2 gloo ranks on {res[0]['device']} / {res[1]['device']}"
+         f" ({wall:.2f} s from the start of the ranks to their end); both "
+         f"frames equal compress_device(engine='v1') ({len(want)} bytes of "
+         f"{len(zdata)}); rank 1 received job 1's last {job // 8} bytes; "
+         f"step stats and the decode of {len(items)} items equal the "
+         f"unsharded calls; dryrun {res[0]['dryrun']}")
+    for r, x in enumerate(res):
+        st = x["zstd_stats"]
+        _say(f"  rank {r}: zstd_encode_sharded {x['zstd_ms']:.4f} ms (first)"
+             f" / {x['zstd_ms_2']:.4f} ms (second; halo {st['halo_s']:.6f} s,"
+             f" encode {st['encode_s']:.4f}, assembly {st['assemble_s']:.4f},"
+             f" gather {st['gather_s']:.6f}); encode_step_stats "
+             f"{x['ess_ms']:.4f} ms; zstd_decode_sharded {x['dec_ms']:.4f} "
+             f"ms; dryrun {x['dryrun_ms']:.4f} ms")
+    _say(f"  unsharded compress_device(engine='v1') of the same bytes "
+         f"{t_un:.4f} ms; launches by rank {launches}")
+    for k, per_rank in launches.items():
+        for x in per_rank:
+            if min(x[name] for name in need[k]) < 1:
+                raise AssertionError(f"phase 28: a kernel did not run: {x}")
+    return {"wall_s": wall, "unsharded_ms": t_un, "launches": launches,
+            "ranks": [{k: x[k] for k in ("zstd_ms", "zstd_ms_2", "ess_ms",
+                                         "dec_ms", "dryrun_ms")}
+                      | {k: x["zstd_stats"][k] for k in (
+                          "halo_s", "encode_s", "assemble_s", "gather_s")}
+                      for x in res]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2188,8 +2541,9 @@ def main() -> int:
     for row, key in zip(kernels[-2:], ("huff0_decode",
                                        "huff0_decode_per_row")):
         row["ctas_per_sm"] = ctas[key]
-    zseq_rows, zdec, texts = zstd_decode_path(dev)
-    hist_row, acc = accel_paths(dev, texts, ctas["execute_blocks_hist"])
+    zseq_rows, zdec, texts, plain = zstd_decode_path(dev)
+    hist_row, acc, acc_items = accel_paths(dev, texts,
+                                           ctas["execute_blocks_hist"])
     for row in kernels:
         if row["name"] == "execute_pieces":
             row.update(zdec["exec"], **acc["exec"])
@@ -2213,8 +2567,23 @@ def main() -> int:
         if row["name"] == "rep_scan":
             row.update(v1["rep"])
     kernels.append(fse_scan_row)
+    acc_items["s2_bodies"] = (
+        [bytes(hdr) + b for b in bodies[:32]],
+        [data[i * lz2.B:(i + 1) * lz2.B] for i in range(32)])
+    p27 = sharded_world1(data, blocks, acc_items, plain)
+    p28 = two_ranks(acc_items)
+    by_row = {"rep_scan": "rep_scan", "huff0_decode_chunks": "huff0_decode",
+              "zseq_decode_chunks_rep": "zseq_decode",
+              "execute_pieces": "execute_pieces",
+              "execute_blocks_hist": "execute_blocks_hist",
+              "tile_parse": "tile_parse", "fse_scan": "fse_scan"}
+    for row in kernels:
+        if row["name"] in by_row:
+            row["sharded_launches"] = p27["launches"][by_row[row["name"]]]
     kernels += other_routes(dev, blocks_np, route_counts())
 
+    _say(json.dumps({"sharded": {"world1_nccl": p27, "two_gloo_ranks": p28}},
+                    default=str))
     _say(smi)
     _say(json.dumps({"kernels": kernels}))
     _say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -67,7 +67,7 @@ def plan_blocks(blocks, *, allow_repeat: bool = True, max_rounds: int = 4):
 
 def decode_blocks_device(blocks, *, allow_repeat: bool = True,
                          max_rounds: int = 4, device=None,
-                         stats: dict | None = None):
+                         stats: dict | None = None, mesh=None):
     """Decode a batch of S2 (or snappy, ``allow_repeat=False``) blocks.
     Returns a list of bytes, equal to ``s2.block.decode`` of each block.
 
@@ -75,7 +75,19 @@ def decode_blocks_device(blocks, *, allow_repeat: bool = True,
     plain PyTorch execute); raises when no card is present and no device
     was given.  ``stats``, when given, receives the count of blocks
     decoded on the device and on the host, and per arena class its block
-    count, rounds, piece count and the bytes of its compact plan."""
+    count, rounds, piece count and the bytes of its compact plan.
+
+    mesh: an optional ``parallel.BlockMesh``: the blocks are independent,
+    so each rank decodes its share (``parallel.shard_items``) on the
+    mesh's device and every rank returns the whole list, gathered in
+    block order; ``stats`` then holds this rank's share."""
+    if mesh is not None:
+        from compress_tpu_torch.parallel.engine import map_sharded
+
+        return map_sharded(mesh, blocks, device, lambda part, dev: (
+            decode_blocks_device(part, allow_repeat=allow_repeat,
+                                 max_rounds=max_rounds, device=dev,
+                                 stats=stats)))
     dev = resolve_device(device)
     results, classes = plan_blocks(blocks, allow_repeat=allow_repeat,
                                    max_rounds=max_rounds)

@@ -19,7 +19,8 @@ MAX_DECODED_SIZE = 64 << 30
 
 __all__ = ["compress", "decompress", "predef_seq_tables", "ZstdError",
            "FrameError", "BlockError", "Header", "History",
-           "parse_frame_header", "MAX_DECODED_SIZE"]
+           "parse_frame_header", "MAX_DECODED_SIZE", "compress_accel",
+           "decompress_accel"]
 
 
 class ZstdError(ValueError):
@@ -149,3 +150,31 @@ def _frame_extent(data: bytes, pos: int):
 
 from compress_tpu_torch.zstd.encoder import (compress,  # noqa: E402
                                              predef_seq_tables)
+
+
+def compress_accel(data, level: int = 1, max_rounds: int = 4,
+                   multi_block: bool = False) -> bytes:
+    """Encode with the device-decode accel sidecars before the frames
+    (``zstd/accel.py``); the result is a standard zstd stream.
+    ``multi_block`` writes one frame of 64 KiB blocks with matches across
+    blocks (decoded with a carried history)."""
+    from compress_tpu_torch.zstd.accel import compress_accel as _ca
+
+    return _ca(data, level=level, max_rounds=max_rounds,
+               multi_block=multi_block)
+
+
+def decompress_accel(blob, mesh=None, device=None) -> bytes:
+    """Decode a ``compress_accel`` stream with the batched device decoder
+    (no per-symbol host work for frames with a sidecar, the host decoder
+    for shapes it does not take).  mesh: an optional
+    ``parallel.BlockMesh`` to decode its items over the ranks; device as
+    for ``decompress_frames_device``."""
+    from compress_tpu_torch.zstd.accel import split_stream_accel
+    from compress_tpu_torch.zstd.device_dec import decompress_frames_device
+
+    items = split_stream_accel(blob)
+    if not items:
+        return b""
+    return b"".join(decompress_frames_device(items, device=device,
+                                             mesh=mesh))

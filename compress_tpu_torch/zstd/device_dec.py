@@ -536,7 +536,7 @@ def _mb_groups(metas, lit_decoded):
 
 
 def decompress_frames_device(frames, max_rounds: int = 4, device=None,
-                             stats: dict | None = None):
+                             stats: dict | None = None, mesh=None):
     """Decode a batch of zstd items (each one frame, optionally preceded
     by skippable frames such as an accel sidecar and followed by
     skippable frames); returns a list of bytes, equal to
@@ -554,7 +554,17 @@ def decompress_frames_device(frames, max_rounds: int = 4, device=None,
     ``lit_kernel`` and ``seq`` (transfer, launch, result back; ``seq``
     without its walk), ``plan`` (the execute plans and their packing),
     ``exec`` and ``host`` (host-decoded items).  Batches beyond
-    MAX_DEC_BATCH frames run in chunks."""
+    MAX_DEC_BATCH frames run in chunks.
+
+    mesh: an optional ``parallel.BlockMesh``: each rank decodes its share
+    of the items (``parallel.shard_items``) on the mesh's device and
+    every rank returns the whole list, gathered in item order; ``stats``
+    then holds this rank's share."""
+    if mesh is not None:
+        from compress_tpu_torch.parallel.engine import map_sharded
+
+        return map_sharded(mesh, frames, device, lambda part, dev: (
+            decompress_frames_device(part, max_rounds, dev, stats)))
     dev = resolve_device(device)
     if len(frames) > MAX_DEC_BATCH:
         out = []

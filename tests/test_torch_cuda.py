@@ -34,7 +34,9 @@ raw values, the S2 engine's own) at tiles 256 and 512 and others, the v1
 FSE scan on n_seqs of 0, 1 and MS, one to three RLE streams, an of table
 whose clamped index passes 255 and several jobs' tables in one launch,
 the repeat scan at v1's shapes, and both engines and ``compress_device``
-'s v1 on the card against the CPU.
+'s v1 on the card against the CPU; and the block-parallel engine
+(``parallel``) on one NCCL rank and on two gloo ranks sharing the card,
+against the unsharded calls.
 Without a card every test here skips.
 
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -1710,3 +1712,87 @@ def test_compress_device_v1_on_cuda_matches_cpu(cuda_device):
     assert frame == zdevice.compress_device(data, job=job, block=block,
                                             device="cpu", level=3)
     assert zstd_host.decompress(frame) == data
+
+
+# ---- the block-parallel engine on the card --------------------------------
+
+PAR_JOB, PAR_BLOCK = 64 << 10, 16 << 10
+PAR_BLOCKS = corpus.corpus_blocks(8, 41)
+# 4 jobs and a tail: 2 jobs a rank on 2 ranks
+PAR_DATA = corpus.corpus_blocks(4, 42).tobytes() + b"tail" * 1250
+PAR_TEXTS = [corpus.make_block("text", np.random.default_rng(43 + i))
+             .tobytes()[:30000 + 4000 * i] for i in range(5)]
+
+
+def _par_items():
+    return ([zaccel.compress_accel(t, level=1) for t in PAR_TEXTS[:3]]
+            + [zencoder.compress(t, level=2) for t in PAR_TEXTS[3:]]
+            + [zaccel.compress_accel(b"".join(corpus.history_streams(
+                1, 3 << 16, 44)), level=1, multi_block=True)])
+
+
+def _par_calls(items):
+    from compress_tpu_torch.parallel import engine as pe
+
+    return [(pe.encode_blocks_sharded, (PAR_BLOCKS,), {"level": 1}),
+            (pe.encode_blocks_sharded, (PAR_BLOCKS,), {"level": 2}),
+            (pe.zstd_encode_sharded, (PAR_DATA,),
+             {"job": PAR_JOB, "block": PAR_BLOCK, "level": 2, "stats": {}}),
+            (pe.zstd_decode_sharded, (items,), {})]
+
+
+def _par_run(size: int, backend: str, device: str):
+    from compress_tpu_torch.parallel import launch
+
+    items = _par_items()
+    return items, launch.run_ranks(launch.run_calls, size, backend, device,
+                                   _par_calls(items), timeout=600)
+
+
+@pytest.fixture(scope="module")
+def nccl_world1(cuda_device):
+    """One rank over NCCL (``cuda:0``)."""
+    return _par_run(1, "nccl", "cuda")
+
+
+@pytest.fixture(scope="module")
+def gloo_two_on_one_card(cuda_device):
+    """Two gloo ranks whose kernels both run on ``cuda:0``."""
+    return _par_run(2, "gloo", "cuda:0")
+
+
+def _held_against_unsharded(cuda_device, items, per_rank):
+    blocks = torch.from_numpy(PAR_BLOCKS).to(cuda_device)
+    for rank_results in per_rank:
+        (ebs1, _), (ebs2, _), (frame, _), (dec, _) = rank_results
+        for (out, lens), level in ((ebs1, 1), (ebs2, 2)):
+            w_out, w_lens = lz2.s2_encode_blocks(blocks, level=level)
+            assert torch.equal(out.cpu(), w_out.cpu())
+            assert torch.equal(lens.cpu(), w_lens.cpu())
+        assert frame == zdevice.compress_device(
+            PAR_DATA, job=PAR_JOB, block=PAR_BLOCK, engine="v1", level=2)
+        assert zstd_host.decompress(frame) == PAR_DATA
+        assert dec == decompress_frames_device(items)
+    assert dec == PAR_TEXTS + [zstd_host.decompress(items[-1])]
+
+
+@pytest.mark.cuda
+def test_sharded_world1_nccl_matches_unsharded(cuda_device, nccl_world1):
+    """encode_blocks_sharded equals s2_encode_blocks, zstd_encode_sharded
+    equals compress_device(engine="v1") and zstd_decode_sharded equals
+    decompress_frames_device, on one NCCL rank."""
+    items, per_rank = nccl_world1
+    _held_against_unsharded(cuda_device, items, per_rank)
+    assert per_rank[0][2][1]["halo"] is None
+
+
+@pytest.mark.cuda
+def test_sharded_two_gloo_ranks_on_one_card(cuda_device,
+                                            gloo_two_on_one_card):
+    """Both ranks return the same outputs, equal to the unsharded calls;
+    rank 1 received the tail of rank 0's last job."""
+    items, per_rank = gloo_two_on_one_card
+    _held_against_unsharded(cuda_device, items, per_rank)
+    assert per_rank[0][2][1]["halo"] is None
+    assert per_rank[1][2][1]["halo"] == PAR_DATA[
+        2 * PAR_JOB - PAR_JOB // 8:2 * PAR_JOB]
