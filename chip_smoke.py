@@ -258,6 +258,7 @@ SHORT_BYTES = 200_003  # phase 22: below one job (the host encoder)
 FSE_HOST_LOG11 = 4     # phase 23: host containers of log 11 in the decode
 FSE_ACCEL_CUT = 256    # phase 23: rows kept if make_accel would be slow
 ACCEL_CUT_S = 90       # phase 23: make_accel's estimated seconds allowed
+HIST_CLUSTERS = (1, 8, 16)  # phase 21: cluster sizes of the history execute
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 # CUDA-core rate (non-tensor) from the published H100 table; the integer
 # work of these kernels is counted against it for the operations bound
@@ -1301,8 +1302,9 @@ def accel_paths(dev, texts, ctas: int) -> tuple:
     kernel's JSON entry, the launches and call numbers of both routes,
     and their items, inputs and whole-call milliseconds (for phase
     27)."""
-    from compress_tpu_torch import corpus
+    from compress_tpu_torch import _cuda, corpus
     from compress_tpu_torch.ops import execute as X
+    from compress_tpu_torch.ops.exec_kern import HIST_CLUSTER
     from compress_tpu_torch.zstd import accel as AC
     from compress_tpu_torch.zstd import device_dec as DD
 
@@ -1375,14 +1377,29 @@ def accel_paths(dev, texts, ctas: int) -> tuple:
                              f"{host}")
     (hb, (_idx, plans_kb, rows, pieces, gstart)), = groups.items()
     hargs = [torch.from_numpy(a).to(dev) for a in (rows, pieces, gstart)]
+    want = X.execute_blocks_hist_ref(*hargs, hb * 512)
     err = _hold("execute_blocks_hist",
-                [X.execute_blocks_hist(*hargs, hb * 512)],
-                [X.execute_blocks_hist_ref(*hargs, hb * 512)])
+                [X.execute_blocks_hist(*hargs, hb * 512)], [want])
     t_k = cuda_ms(lambda: X.execute_blocks_hist(*hargs, hb * 512), 20)
     t_dev = cuda_ms(lambda: X.execute_blocks_hist(*hargs, hb * 512), 20,
                     True)
     t_plain = cuda_ms(lambda: X.execute_blocks_hist_ref(*hargs, hb * 512),
                       1)
+    # every cluster size measured: the kernel's choice, one CTA a frame
+    # (the old walk's shape) and the portable and non-portable maxima
+    lib = _cuda.library()
+    by_c = {}
+    for C in HIST_CLUSTERS:
+        _hold(f"execute_blocks_hist (cluster {C})",
+              [X.execute_blocks_hist(*hargs, hb * 512, cluster=C)], [want])
+        by_c[C] = {"device_ms": cuda_ms(
+            lambda C=C: X.execute_blocks_hist(*hargs, hb * 512, cluster=C),
+            20, True), "ctas_per_sm": lib.ct_exec_hist_occupancy(C),
+            "max_active_clusters": lib.ct_exec_hist_clusters(C)}
+        _say(f"history execute, cluster of {C} CTAs: device time "
+             f"{by_c[C]['device_ms']:.4f} ms, CTAs per SM "
+             f"{by_c[C]['ctas_per_sm']}, cudaOccupancyMaxActiveClusters "
+             f"{by_c[C]['max_active_clusters']}")
     hist = pieces[:, 0] >= X.HIST_BASE
     w1 = pieces[:, 1].astype(np.int64) & 0xFFFFFFFF
     n = np.minimum((w1 >> 24) + 1, 128 - (w1 & 127))
@@ -1403,10 +1420,13 @@ def accel_paths(dev, texts, ctas: int) -> tuple:
               + rows.size, 8 * rows.size)
     _say(f"history execute: {len(pieces)} live pieces, {int(hist.sum())} "
          f"history pieces reading {hist_bytes} bytes, {lit_read} literal "
-         f"bytes read, {B_} frames x {K_} blocks; kernel {t_k:.4f} ms "
+         f"bytes read, {B_} frames x {K_} blocks, {gstart.shape[2] - 1} "
+         f"groups a block; kernel (cluster of {HIST_CLUSTER}) {t_k:.4f} ms "
          f"(device time {t_dev:.4f}), plain {t_plain:.4f} ms, bound "
-         f"{b[0]:.4f} ms ({b[1]}), CTAs per SM {ctas}, launches on the path "
-         f"{l21['exec_hist']}")
+         f"{b[0]:.4f} ms ({b[1]}), CTAs per SM {ctas}, "
+         f"cudaOccupancyMaxActiveClusters "
+         f"{by_c[HIST_CLUSTER]['max_active_clusters']}, launches on the "
+         f"path {l21['exec_hist']}")
     call21 = _call_times(items, n_out, "multi-block decode")
     row = {"name": "execute_blocks_hist", "route": "cuda",
            "source": "compress_tpu_torch/csrc/exec.cu",
@@ -1416,6 +1436,8 @@ def accel_paths(dev, texts, ctas: int) -> tuple:
            "equal_to_plain": True, "ms": t_k, "device_ms": t_dev,
            "plain_ms": t_plain, "bound_ms": b[0], "bound_by": b[1],
            "library_ms": None, "ctas_per_sm": ctas,
+           "cluster": HIST_CLUSTER, "clusters": by_c,
+           "groups": int(gstart.shape[2] - 1),
            "pieces": int(len(pieces)), "history_pieces": int(hist.sum()),
            "history_bytes": hist_bytes, "frames": B_, "blocks": K_,
            "hist_blocks": hb, "call": call21, "first_s": first21}
@@ -1575,7 +1597,7 @@ def fse_path(dev, blocks_np) -> tuple:
     """Phase 23: the FSE batch codec on the phase-3 corpus as 1024 rows of
     16 KiB.  Returns the two FSE kernels' JSON entries and the histogram's
     numbers."""
-    from compress_tpu_torch import fse
+    from compress_tpu_torch import corpus, fse
     from compress_tpu_torch.ops import entropy as E
     from compress_tpu_torch.ops import entropy_dec as ED
     from compress_tpu_torch.utils.histogram import histogram256_torch
@@ -1588,9 +1610,13 @@ def fse_path(dev, blocks_np) -> tuple:
     hist = E.byte_histograms(t)
     st, dnb, dfs, _ = E._fse_tables_bytes(hist, E.FSE_LOG)
     chain_in = (t, st, dnb, dfs)
-    err_enc = _hold(f"fse_encode_chain ({N} rows of {row})",
-                    E.fse_encode_chain(*chain_in),
+    routes = torch.zeros(2, dtype=torch.int32, device=dev)
+    chain_out = E.fse_encode_chain(*chain_in, routes=routes)
+    err_enc = _hold(f"fse_encode_chain ({N} rows of {row})", chain_out,
                     E.fse_encode_chain_ref(*chain_in))
+    routes = routes.tolist()
+    _say(f"fse_encode_chain routes: {routes[0]} rows on the one-load step, "
+         f"{routes[1]} on the exact step")
     E.fse_encode_chain.launches = 0
     t0 = time.perf_counter()
     conts = fse.compress_batch(rows)
@@ -1660,6 +1686,24 @@ def fse_path(dev, blocks_np) -> tuple:
     t_enc = cuda_ms(lambda: E.fse_encode_chain(*chain_in), 10)
     t_enc_dev = cuda_ms(lambda: E.fse_encode_chain(*chain_in), 10, True)
     p_enc = cuda_ms(lambda: E.fse_encode_chain_ref(*chain_in), 1)
+    # each class's rows (block i of the corpus is class i mod 8) as a
+    # launch of their own, equal to their rows of the whole launch
+    per_class = {}
+    cls = (torch.arange(N, device=dev) // (N // len(blocks_np))) % len(
+        corpus.CLASSES)
+    for c, name in enumerate(corpus.CLASSES):
+        idx = torch.nonzero(cls == c)[:, 0]
+        sub = [a.index_select(0, idx).contiguous() for a in chain_in]
+        _hold(f"fse_encode_chain ({name} rows alone)",
+              E.fse_encode_chain(*sub), [a.index_select(0, idx)
+                                         for a in chain_out])
+        per_class[name] = cuda_ms(lambda sub=sub: E.fse_encode_chain(*sub),
+                                  10, True)
+    _say(f"fse_encode_chain device time of each class's {N // 8} rows as a "
+         f"launch of their own (ms): " + ", ".join(
+             f"{k} {v:.4f}" for k, v in per_class.items())
+         + f"; the whole launch {t_enc_dev:.4f} ms, "
+         f"{t_enc_dev * 1e6 / (row // 2 - 1):.2f} ns a step")
     t_dec = cuda_ms(lambda: ED.fse_decode_chunks(*args), 20)
     t_dec_dev = cuda_ms(lambda: ED.fse_decode_chunks(*args), 20, True)
     p_dec = cuda_ms(lambda: ED.fse_decode_chunks_ref(*args), 2)
@@ -1716,6 +1760,8 @@ def fse_path(dev, blocks_np) -> tuple:
          "launches": enc_launches, "max_abs_err": err_enc, "ms": t_enc,
          "plain_ms": p_enc, "bound_ms": b_enc[0], "bound_by": b_enc[1],
          "device_ms": t_enc_dev, "rows": N, "row_bytes": row,
+         "class_device_ms": per_class, "routes": {"one_load": routes[0],
+                                                  "exact": routes[1]},
          "chain_steps": row // 2 - 1, "none_rows": N - len(kept),
          "ratio": ratio, "call_ms": enc_call, "first_call_ms": enc_first,
          "fse_encode_blocks_ms": t_blocks},
@@ -2345,7 +2391,7 @@ def main() -> int:
         return 1
 
     from compress_tpu_torch import _cuda, corpus
-    from compress_tpu_torch.ops import lz2, lzemit2, lzkern
+    from compress_tpu_torch.ops import exec_kern, lz2, lzemit2, lzkern
     from compress_tpu_torch.s2 import decode
     from compress_tpu_torch.utils.varint import put_uvarint
 
@@ -2379,8 +2425,12 @@ def main() -> int:
             "huff0_decode_per_row": lib.ct_huff0_occupancy(512),
             "zseq_decode": lib.ct_zseq_occupancy(96),
             "zseq_decode_shared": lib.ct_zseq_occupancy(80),
-            "execute_blocks_hist": lib.ct_exec_hist_occupancy()}
-    _say("CTAs per SM (occupancy query; exec at M = 1): " + ", ".join(
+            "execute_blocks_hist": lib.ct_exec_hist_occupancy(
+                exec_kern.HIST_CLUSTER),
+            "fse_encode_chain": lib.ct_fse_encode_occupancy(9)}
+    _say("CTAs per SM (occupancy query; exec at M = 1, the history "
+         f"execute at its cluster of {exec_kern.HIST_CLUSTER}, the FSE "
+         "encode chain at log 9): " + ", ".join(
              f"{k} {v}" for k, v in ctas.items()))
     if min(ctas.values()) < 1:
         raise AssertionError(f"a kernel cannot be resident: {ctas}")
@@ -2558,6 +2608,7 @@ def main() -> int:
     tail_path(zstd_launches)
     fse_rows, hist_numbers = fse_path(dev, blocks_np)
     fse_rows[0]["histograms"] = hist_numbers
+    fse_rows[0]["ctas_per_sm"] = ctas["fse_encode_chain"]
     kernels += fse_rows
     kernels += checksum_path(blocks)
     kernels.append(s2_xla_path(dev, data, blocks, bodies))

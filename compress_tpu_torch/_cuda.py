@@ -43,9 +43,10 @@ _SIGNATURES = {
     "ct_litlut": [_P, _P, _P, _P, _I, _I, _P],
     "ct_exec_pieces": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "ct_exec_sum": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "ct_exec_hist": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "ct_exec_hist": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "ct_exec_occupancy": [_I],
-    "ct_exec_hist_occupancy": [],
+    "ct_exec_hist_occupancy": [_I],
+    "ct_exec_hist_clusters": [_I],
     "ct_rep_occupancy": [],
     "ct_fse_occupancy": [],
     "ct_parse_occupancy": [],
@@ -54,7 +55,8 @@ _SIGNATURES = {
     "ct_zseq_decode": [_P] * 11 + [_I] * 8 + [_P] * 6,
     "ct_huff0_occupancy": [_I],
     "ct_zseq_occupancy": [_I],
-    "ct_fse_encode": [_P] * 4 + [_I] * 4 + [_P] * 3,
+    "ct_fse_encode": [_P] * 4 + [_I] * 4 + [_P] * 4,
+    "ct_fse_encode_occupancy": [_I],
     "ct_fse_decode": [_P] * 8 + [_I] * 4 + [_P] * 3,
     "ct_crc32c_batch": [_P, _L, _I, _I, _I, _U, _U, _P, _P],
     "ct_xxh64_batch": [_P, _I, _I, _U64, _P, _P],

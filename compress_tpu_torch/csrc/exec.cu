@@ -41,17 +41,37 @@
 // group 0 (its history pieces: source HIST_BASE + x reads history byte
 // x' = clamp(x >> 7, 0, hist_rows - 1) * 128 + (x & 127), 0 before the
 // frame's first byte) and then groups 1 .. G - 1 (its rounds, as above
-// with M = 1), a barrier after each group; its whole output half is the
-// step's output.  Bound: memory, as above, plus the history bytes the
-// pieces read.  Design: a CTA per frame walks the frame's blocks in
-// order with the output half in shared memory and stores each block's
-// output to `out` (B, K, 512, 128), frame-major, before the next block
-// starts.  The history is the frame's own earlier output in `out`, which
-// equals the reference's carried tensor shifted by 512 rows a step
-// because every step stores all its 512 rows: no carried tensor and no
-// shift.  Those reads target bytes this launch wrote, so they are plain
-// loads (not the read-only path) after the CTA barrier that follows the
-// store.  One launch serves a batch of frames with one history size.
+// with M = 1), a barrier after each; its whole output half is the step's
+// output.  Bound: memory, as above, plus the history bytes the pieces
+// read.  Design: a thread-block cluster of C CTAs (on C SMs) a frame
+// walks the frame's blocks in order.  The step's 64 KiB output half lives
+// in the cluster's distributed shared memory, 512 / C rows a CTA: a piece
+// never crosses a 128-byte row, so each writes into one owner's rows
+// (`map_shared_rank`), and a round's reads of output bytes go to the
+// owner likewise.  Each group's pieces are split by index into C
+// contiguous ranges, one a CTA, which is right for pieces in any order;
+// on the planner's plans dst ascends within a group, so a CTA's stores
+// fall mostly into its own rows or its neighbour's.  One cluster barrier
+// (release / acquire at cluster scope) ends each group, as the CTA
+// barrier did.  Each CTA zeroes its rows at a step's start and stores
+// them to `out` (B, K, 512, 128), frame-major, at its end.  The history is
+// the frame's own earlier output in `out`, which equals the reference's
+// carried tensor shifted by 512 rows a step because every step stores all
+// its 512 rows: no carried tensor and no shift.  Those reads target bytes
+// other CTAs of the cluster wrote in this launch, ordered by the cluster
+// barrier that starts the step; they read through L2 (`__ldcg`: the
+// coherent path, no `__restrict__` and no read-only loads).  Within a
+// CTA the copy is balanced by bytes, not pieces (`copy_bytes`): a
+// repeated stretch of history is a run of 128-byte pieces, which a
+// warp-per-32-pieces copy left to a few warps for many rounds.  Bytes
+// this CTA owns are stored and read with plain shared-memory accesses,
+// the others through the cluster's window.  Empty groups (the same for
+// every CTA of the cluster) take no barrier.  One launch serves a batch of
+// frames with one history size.
+//
+// Built with -DCT_HIST_CLOCK (compress_tpu_torch/tools/hist_group_clock.py)
+// the history kernel records frame 0's cycles a group; the library's build
+// does not define it.
 //
 // The sum kernel (`ct_exec_sum`) computes the reference's sums for every
 // plan, those the store cannot take too: a piece that writes the literal
@@ -65,7 +85,11 @@
 // (the first exchange of a byte takes its whole sum).  `execute_rounds`
 // sends it every padded plan; no path of the decoders calls that, so it
 // is simple, not fast.
+#include <cooperative_groups.h>
+
 #include "ct_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -122,6 +146,101 @@ __device__ __forceinline__ void copy_pieces(const int2* __restrict__ pieces,
   }
 }
 
+// The history kernel's copy of pieces [lo, hi), balanced by bytes over the
+// CTA: tiles of HTILE pieces (HPT a thread) are loaded and their live
+// lengths scanned CTA-wide into s_off, then thread t copies bytes 4t ..
+// 4t + 3 of the tile (and every 4 * EXEC_THREADS after): a binary search
+// over s_off finds the first byte's piece, the next bytes step on, the
+// four reads issue before the four writes.  A run of long pieces (a
+// repeated stretch is 128-byte pieces in a row) spreads over every thread
+// instead of holding a few warps for many rounds.
+constexpr int HPT = 2;
+constexpr int HTILE = HPT * EXEC_THREADS;
+
+// A thread's HPT pieces of the tile that starts at t0 (zero past hi).
+__device__ __forceinline__ void tile_words(const int2* __restrict__ pieces,
+                                           int t0, int hi, int2* w) {
+#pragma unroll
+  for (int q = 0; q < HPT; ++q) {
+    const int p = t0 + HPT * threadIdx.x + q;
+    w[q] = p < hi ? __ldg(pieces + p) : make_int2(0, 0);
+  }
+}
+
+// first: the thread's words of the first tile (tile_words(pieces, lo, hi)),
+// loaded by the caller ahead of its barrier.
+template <typename Read, typename Write>
+__device__ __forceinline__ void copy_bytes(const int2* __restrict__ pieces,
+                                           int lo, int hi, const int2* first,
+                                           int* s_src, int* s_dst,
+                                           int* s_off, int* s_warp,
+                                           Read read, Write write) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int2 words[HPT];
+#pragma unroll
+  for (int q = 0; q < HPT; ++q) words[q] = first[q];
+  for (int t0 = lo; t0 < hi; t0 += HTILE) {
+    const int cnt = min(HTILE, hi - t0);
+    if (t0 > lo) tile_words(pieces, t0, hi, words);
+    int n[HPT], sum = 0;
+#pragma unroll
+    for (int q = 0; q < HPT; ++q) {
+      const int p = HPT * tid + q;
+      const int2 w = words[q];
+      const unsigned u = (unsigned)w.y;
+      const int d = (int)(u & 0xFFFFFFu) - HALF1;
+      n[q] = min((int)((u >> 24) & 127u) + 1, 128 - (int)(u & 127u));
+      if (p >= cnt || d < 0 || d >= HALF1) n[q] = 0;
+      s_src[p] = w.x;
+      s_dst[p] = d;
+      sum += n[q];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int k = 1; k < 32; k <<= 1) {
+      const int v = __shfl_up_sync(FULL, incl, k);
+      if (lane >= k) incl += v;
+    }
+    if (lane == 31) s_warp[warp] = incl;
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int i = 0; i < EXEC_WARPS; ++i) {
+      const int v = s_warp[i];
+      before += i < warp ? v : 0;
+      total += v;
+    }
+    int excl = before + incl - sum;
+#pragma unroll
+    for (int q = 0; q < HPT; ++q) {
+      s_off[HPT * tid + q] = excl;
+      excl += n[q];
+    }
+    if (tid == 0) s_off[cnt] = total;  // pieces past cnt have length 0
+    __syncthreads();
+    for (int b0 = 4 * tid; b0 < total; b0 += 4 * EXEC_THREADS) {
+      int pc = 0;  // the last piece whose offset is <= b0
+#pragma unroll
+      for (int step = HTILE / 2; step; step >>= 1)
+        if (pc + step < cnt && s_off[pc + step] <= b0) pc += step;
+      int dst[4];
+      uint8_t v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int b = min(b0 + e, total - 1);
+        while (s_off[pc + 1] <= b) ++pc;
+        const int j = b - s_off[pc];
+        dst[e] = s_dst[pc] + j;
+        v[e] = read((long long)s_src[pc] + j);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (b0 + e < total) write(dst[e], v[e]);
+    }
+    __syncthreads();  // the tile's arrays are free again
+  }
+}
+
 template <bool SMEM>
 __global__ void __launch_bounds__(EXEC_THREADS, 2)
     exec_pieces_kernel(const uint8_t* __restrict__ lit,
@@ -157,22 +276,51 @@ __global__ void __launch_bounds__(EXEC_THREADS, 2)
   }
 }
 
+#ifdef CT_HIST_CLOCK
+// frame 0's (rank, step, group): cycles of the CTA's copy, of the copy and
+// the cluster barrier, and the CTA's pieces (tools/hist_group_clock.py)
+__device__ long long g_hist_clock[16 * 16 * 8 * 3];
+#endif
+
 __global__ void __launch_bounds__(EXEC_THREADS, 2)
     exec_hist_kernel(const uint8_t* __restrict__ lit,
                      const int2* __restrict__ pieces,
                      const int32_t* __restrict__ gstart, int G, int P, int K,
                      int hist_rows, uint8_t* out) {
   extern __shared__ uint4 smem[];
-  uint8_t* o = reinterpret_cast<uint8_t*>(smem);
-  const int b = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int c = (int)cluster.block_rank();
+  const int b = blockIdx.x / C;         // the cluster's frame
+  const int share = HALF1 / C;          // output bytes this CTA owns
+  const int sh = __ffs(share) - 1;
+  uint8_t* mine = reinterpret_cast<uint8_t*>(smem);
+  int* s_src = reinterpret_cast<int*>(mine + share);  // HTILE each
+  int* s_dst = s_src + HTILE;
+  int* s_off = s_dst + HTILE;                          // HTILE + 1
+  __shared__ int s_warp[EXEC_WARPS];
+  // a byte of the output half: this CTA's own by a plain shared-memory
+  // access, another's through the cluster's window
+  const auto write = [&](int i, uint8_t v) {
+    const int r = i >> sh;
+    if (r == c)
+      mine[i & (share - 1)] = v;
+    else
+      *(cluster.map_shared_rank(mine, r) + (i & (share - 1))) = v;
+  };
+  const auto out_byte = [&](int i) -> uint8_t {
+    const int r = i >> sh;
+    return r == c ? mine[i & (share - 1)]
+                  : *(cluster.map_shared_rank(mine, r) + (i & (share - 1)));
+  };
   // this frame's output, stored step by step and read back as history
   // (so no __restrict__ and no read-only loads on it)
   const uint8_t* frame = out + (size_t)b * K * HALF1;
   const long long hist_cap = (long long)hist_rows * 128;
   for (int k = 0; k < K; ++k) {
-    for (int i = threadIdx.x; i < HALF1 / 16; i += EXEC_THREADS)
-      reinterpret_cast<uint4*>(o)[i] = make_uint4(0, 0, 0, 0);
-    __syncthreads();
+    // zero this CTA's rows (the same lanes stored them at the last step)
+    for (int i = threadIdx.x; i < share / 16; i += EXEC_THREADS)
+      reinterpret_cast<uint4*>(mine)[i] = make_uint4(0, 0, 0, 0);
     const uint8_t* l = lit + ((size_t)b * K + k) * HALF1;
     const int32_t* gs = gstart + ((size_t)b * K + k) * (G + 1);
     const long long at_k = (long long)k * HALF1 - hist_cap;
@@ -180,26 +328,65 @@ __global__ void __launch_bounds__(EXEC_THREADS, 2)
       const long long x = a - HIST_BASE;
       const long long xr = min(max(x >> 7, 0LL), (long long)hist_rows - 1);
       const long long at = at_k + xr * 128 + (x & 127);
-      return at < 0 ? (uint8_t)0 : frame[at];
+      return at < 0 ? (uint8_t)0 : __ldcg(frame + at);
     };
     const auto local = [&](long long a) -> uint8_t {
       const int ar = (int)min(max(a >> 7, 0LL), 1023LL);
       const int at = ar * 128 + (int)(a & 127);
-      return at < HALF1 ? __ldg(l + at) : o[at - HALF1];
+      return at < HALF1 ? __ldg(l + at) : out_byte(at - HALF1);
     };
-    for (int g = 0; g < G; ++g) {
-      const int lo = min(max(gs[g], 0), P);
-      const int hi = min(max(gs[g + 1], lo), P);
+    // the next group g' >= g with pieces (empty ones are the same in every
+    // CTA of the cluster and take no barrier) and this CTA's share of it,
+    // whose first tile loads before the barrier that precedes it
+    int mlo = 0, mhi = 0;
+    int2 first[HPT];
+    const auto next = [&](int g) {
+      for (; g < G; ++g) {
+        const int lo = min(max(gs[g], 0), P);
+        const int hi = min(max(gs[g + 1], lo), P);
+        if (hi > lo) {
+          const long long n = hi - lo;
+          mlo = lo + (int)(n * c / C);
+          mhi = lo + (int)(n * (c + 1) / C);
+          tile_words(pieces, mlo, mhi, first);
+          break;
+        }
+      }
+      return g;
+    };
+    int g = next(0);
+    // every CTA's rows are zero, and the last step's stores are visible
+    cluster.sync();
+    while (g < G) {
+#ifdef CT_HIST_CLOCK
+      const long long t0 = clock64();
+      const int g0 = g, n0 = mhi - mlo;
+#endif
       if (g == 0)
-        copy_pieces(pieces, lo, hi, HALF1, o, history);
+        copy_bytes(pieces, mlo, mhi, first, s_src, s_dst, s_off, s_warp,
+                   history, write);
       else
-        copy_pieces(pieces, lo, hi, HALF1, o, local);
+        copy_bytes(pieces, mlo, mhi, first, s_src, s_dst, s_off, s_warp,
+                   local, write);
+#ifdef CT_HIST_CLOCK
       __syncthreads();
+      const long long t1 = clock64();
+#endif
+      g = next(g + 1);
+      cluster.sync();
+#ifdef CT_HIST_CLOCK
+      if (threadIdx.x == 0 && b == 0 && c < 16 && k < 16 && g0 < 8) {
+        long long* e = g_hist_clock + ((c * 16 + k) * 8 + g0) * 3;
+        e[0] = t1 - t0;
+        e[1] = clock64() - t0;
+        e[2] = n0;
+      }
+#endif
     }
-    uint4* o4 = reinterpret_cast<uint4*>(out + ((size_t)b * K + k) * HALF1);
-    for (int i = threadIdx.x; i < HALF1 / 16; i += EXEC_THREADS)
-      o4[i] = reinterpret_cast<const uint4*>(o)[i];
-    __syncthreads();  // the next step reads these bytes as history
+    uint4* o4 = reinterpret_cast<uint4*>(out + ((size_t)b * K + k) * HALF1 +
+                                         (size_t)c * share);
+    for (int i = threadIdx.x; i < share / 16; i += EXEC_THREADS)
+      o4[i] = reinterpret_cast<const uint4*>(mine)[i];
   }
 }
 
@@ -253,6 +440,41 @@ __global__ void __launch_bounds__(SUM_THREADS)
     o[i] = (uint8_t)(A[half + i] & 255);
 }
 
+// Dynamic shared memory of a history CTA: its rows of the output half and
+// a tile's piece arrays.
+int hist_smem(int C) { return HALF1 / C + 4 * (3 * HTILE + 1); }
+
+// The launch of the history kernel: B clusters of C CTAs.
+cudaLaunchConfig_t hist_config(int B, int C, cudaStream_t stream,
+                               cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * C), 1, 1);
+  cfg.blockDim = dim3(EXEC_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = hist_smem(C);
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+cudaError_t hist_attributes(int C) {
+  cudaError_t e = cudaFuncSetAttribute(
+      exec_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      hist_smem(C));
+  if (e == cudaSuccess && C > 8)
+    e = cudaFuncSetAttribute(exec_hist_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+bool hist_cluster_ok(int C) {
+  return C >= 1 && C <= 32 && (C & (C - 1)) == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -302,30 +524,53 @@ int ct_exec_sum(const uint8_t* lit, const int32_t* pieces,
 
 // Multi-block frames with their history: lit (B, K, 512, 128) u8; pieces
 // (P, 2) i32; gstart (B, K, G + 1) i32; out (B, K, 512, 128) u8; hist_rows
-// in [512, 65536].  lit and out 16-byte aligned, pieces 8-byte aligned.
+// in [512, 65536]; C the CTAs of a frame's cluster, a power of two up to
+// 32 (the card takes up to 8 portably and 16 with the non-portable
+// attribute; it refuses a larger cluster, and the error is returned).
+// lit and out 16-byte aligned, pieces 8-byte aligned.
 int ct_exec_hist(const uint8_t* lit, const int32_t* pieces,
                  const int32_t* gstart, int G, int P, int B, int K,
-                 int hist_rows, uint8_t* out, cudaStream_t stream) {
+                 int hist_rows, int C, uint8_t* out, cudaStream_t stream) {
   if (B <= 0 || K <= 0) return 0;
-  if (G < 1 || P < 0 || hist_rows < 512 || hist_rows > 128 * 512)
+  if (G < 1 || P < 0 || hist_rows < 512 || hist_rows > 128 * 512 ||
+      !hist_cluster_ok(C))
     return (int)cudaErrorInvalidValue;
-  const cudaError_t e = cudaFuncSetAttribute(
-      exec_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, HALF1);
+  cudaError_t e = hist_attributes(C);
   if (e != cudaSuccess) return (int)e;
-  exec_hist_kernel<<<B, EXEC_THREADS, HALF1, stream>>>(
-      lit, reinterpret_cast<const int2*>(pieces), gstart, G, P, K, hist_rows,
-      out);
-  return (int)cudaGetLastError();
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = hist_config(B, C, stream, attr);
+  e = cudaLaunchKernelEx(&cfg, exec_hist_kernel, lit,
+                         reinterpret_cast<const int2*>(pieces), gstart, G, P,
+                         K, hist_rows, out);
+  const cudaError_t last = cudaGetLastError();  // clears a refused launch
+  return (int)(e != cudaSuccess ? e : last);
 }
 
-// CTAs of the history kernel resident on one SM (< 0: an error).
-int ct_exec_hist_occupancy() {
+// CTAs of the history kernel resident on one SM at cluster size C (< 0: an
+// error).
+int ct_exec_hist_occupancy(int C) {
+  if (!hist_cluster_ok(C)) return -(int)cudaErrorInvalidValue;
   int n = 0;
-  cudaError_t e = cudaFuncSetAttribute(
-      exec_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, HALF1);
+  cudaError_t e = hist_attributes(C);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, exec_hist_kernel,
-                                                      EXEC_THREADS, HALF1);
+                                                      EXEC_THREADS,
+                                                      hist_smem(C));
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// Clusters of C CTAs of the history kernel the card holds at once
+// (cudaOccupancyMaxActiveClusters; < 0: an error).
+int ct_exec_hist_clusters(int C) {
+  if (!hist_cluster_ok(C)) return -(int)cudaErrorInvalidValue;
+  int n = 0;
+  cudaError_t e = hist_attributes(C);
+  if (e == cudaSuccess) {
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = hist_config(1, C, 0, attr);
+    e = cudaOccupancyMaxActiveClusters(&n, exec_hist_kernel, &cfg);
+  }
+  cudaGetLastError();
   return e == cudaSuccess ? n : -(int)e;
 }
 
@@ -346,5 +591,11 @@ int ct_exec_occupancy(int LR) {
   }
   return e == cudaSuccess ? n : -(int)e;
 }
+
+#ifdef CT_HIST_CLOCK
+int ct_hist_clock_read(long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, g_hist_clock, sizeof(g_hist_clock));
+}
+#endif
 
 }  // extern "C"

@@ -15,8 +15,10 @@ FSE: per-block tables over the byte alphabet (``_fse_tables_bytes``, the
 construction of ``zdev._fse_build`` at 256 symbols), then the classic
 2-state interleaved chain (``fse/core.py`` ``encode_interleaved2``) from the
 last symbol pair down, one bit-pack item per pair.  The chain is a CUDA
-kernel (``csrc/fseenc.cu``) on CUDA tensors and ``fse_encode_chain_ref`` on
-CPU tensors; the reference runs it as a ``lax.scan`` with one-hot lookups.
+kernel (``csrc/fseenc.cu``: a lane a row walks a compact next-state table
+with a one-load step, its warp writes the items) on CUDA tensors and
+``fse_encode_chain_ref`` on CPU tensors; the reference runs it as a
+``lax.scan`` with one-hot lookups.
 """
 
 from __future__ import annotations
@@ -198,7 +200,7 @@ def fse_encode_chain_ref(blocks, st, dnb, dfs, log: int = FSE_LOG):
 
 def fse_encode_chain(blocks: torch.Tensor, st: torch.Tensor,
                      dnb: torch.Tensor, dfs: torch.Tensor,
-                     log: int = FSE_LOG):
+                     log: int = FSE_LOG, *, routes: torch.Tensor | None = None):
     """The FSE chain of each row, from its first states to its flush.
 
     blocks (N, L) uint8, L even; st (N, 1 << log), dnb and dfs (N, 256)
@@ -206,8 +208,11 @@ def fse_encode_chain(blocks: torch.Tensor, st: torch.Tensor,
     with W = ``_chain_width(L)``: item j < L / 2 - 1 holds step j's two
     state writes (s2's bits low, then s1's), item L / 2 - 1 the flush of
     the final states, the rest 0.  A CUDA tensor goes through the kernel
-    (``csrc/fseenc.cu``, one launch), a CPU tensor through
-    ``fse_encode_chain_ref``."""
+    (``csrc/fseenc.cu``, one launch: a compact next-state table a row and
+    a one-load step where the row's tables allow it, the exact step
+    elsewhere), a CPU tensor through ``fse_encode_chain_ref``.  ``routes``,
+    a (2,) int32 CUDA tensor, gets the kernel's count of rows on the
+    one-load step and on the exact step added to it."""
     if blocks.device.type == "cpu":
         return fse_encode_chain_ref(blocks, st, dnb, dfs, log)
     N, L = _chain_check(blocks, st, dnb, dfs, log)
@@ -217,13 +222,19 @@ def fse_encode_chain(blocks: torch.Tensor, st: torch.Tensor,
                                   ("dnb", dnb, _I32, (N, 256)),
                                   ("dfs", dfs, _I32, (N, 256))):
         _cuda.require_cuda_input(t, f"fse_encode_chain: {name}", dtype, shape)
+    if routes is not None:
+        _cuda.require_cuda_input(routes, "fse_encode_chain: routes", _I32,
+                                 (2,))
+        if routes.device != dev:
+            raise ValueError("fse_encode_chain: routes on another device")
     W = _chain_width(L)
     out = torch.empty((2, N, W), dtype=_I32, device=dev)
     ptr = out.data_ptr()
     with torch.cuda.device(dev):
         rc = _cuda.library().ct_fse_encode(
             blocks.data_ptr(), st.data_ptr(), dnb.data_ptr(), dfs.data_ptr(),
-            N, L, log, W, ptr, ptr + 4 * N * W, _cuda.stream(dev))
+            N, L, log, W, ptr, ptr + 4 * N * W,
+            None if routes is None else routes.data_ptr(), _cuda.stream(dev))
     _cuda.check(rc, "fse_encode_chain")
     fse_encode_chain.launches += 1
     return out[0], out[1]

@@ -54,8 +54,10 @@ bytes before the frame's start read 0.  Every step's whole output half
 (zeros past the plan's end) counts as output, so the history equals the
 reference's carried tensor, shifted by a step's 512 rows after every step
 of a frame's plan.  The plain version sums as the reference does; the
-kernel (``ct_exec_hist``) stores, and takes the planner's kind of plan,
-as ``execute_pieces``.
+kernel (``ct_exec_hist``: a thread-block cluster a frame, the step's
+output half in the cluster's distributed shared memory, each group's
+pieces split by index among the cluster's CTAs) stores, and takes the
+planner's kind of plan, as ``execute_pieces``.
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ __all__ = ["execute_pieces", "execute_pieces_ref", "execute_rounds",
            "execute_blocks_hist_ref", "compact_pieces"]
 
 HIST_BASE = 1024 * 128   # first history address (ops/execute.HIST_BASE)
+HIST_CLUSTER = 8         # CTAs of a frame's cluster in the history kernel
 
 
 def _round_bounds(caps, total: int) -> list[int]:
@@ -387,17 +390,24 @@ def execute_blocks_hist_ref(lit_rows: torch.Tensor, pieces: torch.Tensor,
 
 
 def execute_blocks_hist(lit_rows: torch.Tensor, pieces: torch.Tensor,
-                        gstart: torch.Tensor, hist_rows: int) -> torch.Tensor:
+                        gstart: torch.Tensor, hist_rows: int, *,
+                        cluster: int | None = None) -> torch.Tensor:
     """Run multi-block frames with their history: lit_rows (B, K, 512,
     128) uint8; pieces (P, 2) and gstart (B, K, G + 1) int32 per
     ``execute.pack_pieces_mb``; hist_rows the rows of history (512 per
     block the frames keep).  Returns (B, K, 512, 128) uint8 output rows,
-    frame b's block k in [b, k].  A CTA of ``csrc/exec.cu``'s history
-    kernel walks a frame's blocks in order on CUDA tensors; CPU tensors
-    run ``execute_blocks_hist_ref``."""
+    frame b's block k in [b, k].  On CUDA tensors a thread-block cluster
+    of ``csrc/exec.cu``'s history kernel walks a frame's blocks in order
+    (``cluster`` CTAs, a power of two up to 32, ``HIST_CLUSTER`` by
+    default; the card refuses more than 16 and the call then raises); CPU
+    tensors run ``execute_blocks_hist_ref``."""
     if lit_rows.device.type == "cpu":
         return execute_blocks_hist_ref(lit_rows, pieces, gstart, hist_rows)
     _check_hist(lit_rows, pieces, gstart, hist_rows)
+    C = HIST_CLUSTER if cluster is None else int(cluster)
+    if C < 1 or C > 32 or C & (C - 1):
+        raise ValueError(f"cluster: expected a power of two up to 32, got "
+                         f"{cluster}")
     B, K = lit_rows.shape[0], lit_rows.shape[1]
     P, G = pieces.shape[0], gstart.shape[2] - 1
     _cuda.require_cuda_input(lit_rows, "lit_rows", torch.uint8,
@@ -411,7 +421,7 @@ def execute_blocks_hist(lit_rows: torch.Tensor, pieces: torch.Tensor,
         with torch.cuda.device(dev):
             rc = _cuda.library().ct_exec_hist(
                 lit_rows.data_ptr(), pieces.data_ptr(), gstart.data_ptr(),
-                G, P, B, K, hist_rows, out.data_ptr(), _cuda.stream(dev))
+                G, P, B, K, hist_rows, C, out.data_ptr(), _cuda.stream(dev))
         _cuda.check(rc, "execute_blocks_hist")
         execute_blocks_hist.launches += 1
     return out

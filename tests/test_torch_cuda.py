@@ -19,13 +19,18 @@ entries; every k from 1 to 8 and both repeat-code-3 rules for the
 sequences, and the chunks that enter with a repeat offset of INT32_MIN),
 with a profiler trace that shows each entry launching its kernel and
 nothing else, and the multi-block history execute on
-``corpus.history_streams``, on ``corpus.hist_plans`` (histories of 1 and
-128 blocks), on a group of frames of 1 to 16 blocks and in twenty
-repeated launches, with the accel and multi-block accel decode routes
-end to end; the FSE batch encode chain and chunk decode on
+``corpus.history_streams``, on ``corpus.hist_plans`` (histories of 1, 5,
+8 and 128 blocks), on a group of frames of 1 to 16 blocks, on launches
+of 1, 8 and 40 frames (more clusters than the card holds at once), at
+every cluster size the card takes (and one it refuses, which raises) and
+in twenty repeated launches, with the accel and multi-block accel decode
+routes end to end; the FSE batch encode chain and chunk decode on
 ``corpus.fse_enc_inputs`` / ``corpus.fse_dec_inputs`` (and tables of any
-int32 value), batches of 1 and 7 rows and twenty repeated launches, with
-``fse.compress_batch`` / ``decompress_batch`` end to end; CRC-32C and
+int32 value), the encode chain also on every corpus class, at row
+lengths 2, 18 and 16386 and table logs 1 to 12, with the rows it sends
+to each route counted, batches of 1, 7 and 1025 rows and twenty
+repeated launches, with ``fse.compress_batch`` / ``decompress_batch``
+end to end; CRC-32C and
 xxHash64 on rows of many lengths, prefixes, seeds, batches of 1 and 7 and
 misaligned rows; ``compress_device`` on inputs that are not whole
 jobs; and the two XLA-graph encoders: the tile parse on hostile lengths
@@ -51,7 +56,8 @@ from compress_tpu_torch import corpus, fse, huff0
 from compress_tpu_torch import zstd as zstd_host
 from compress_tpu_torch.fse import core as fse_core
 from compress_tpu_torch.ops import (checksum, entropy, entropy_dec,
-                                    entropy_kern, execute, lz2, lzemit2,
+                                    entropy_kern, exec_kern, execute, lz2,
+                                    lzemit2,
                                     lzkern, zenc2, zparse, zseq_kern,
                                     zseqenc)
 from compress_tpu_torch.s2 import block as s2_block
@@ -1130,7 +1136,7 @@ def _hist_ops_plans(n_blocks: int, hb: int, seed: int) -> list:
     return plans
 
 
-def _hold_hist(dev, plans_kb, hb, seed, repeat: int = 1):
+def _hold_hist(dev, plans_kb, hb, seed, repeat: int = 1, cluster=None):
     pieces, gstart = execute.pack_pieces_mb(plans_kb, hb << 16)
     K = gstart.shape[1]
     lit = np.random.default_rng(seed).integers(
@@ -1139,7 +1145,7 @@ def _hold_hist(dev, plans_kb, hb, seed, repeat: int = 1):
     want = execute.execute_blocks_hist_ref(*args, hb * 512)
     before = execute.execute_blocks_hist.launches
     for _ in range(repeat):
-        got = execute.execute_blocks_hist(*args, hb * 512)
+        got = execute.execute_blocks_hist(*args, hb * 512, cluster=cluster)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
     assert execute.execute_blocks_hist.launches == before + repeat
@@ -1163,7 +1169,7 @@ def test_exec_hist_kernel_history_streams(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hb", [1, 128])
+@pytest.mark.parametrize("hb", [1, 5, 8, 128])
 def test_exec_hist_kernel_hostile_plans(cuda_device, hb):
     """History reads before and across the frame's start, at the
     history's ends and into a short non-final block's zero tail."""
@@ -1179,10 +1185,55 @@ def test_exec_hist_kernel_frames_of_1_to_16_blocks(cuda_device):
 @pytest.mark.cuda
 def test_exec_hist_kernel_repeatable(cuda_device):
     """Twenty launches on the same inputs give the plain version's
-    outputs each time (a history read that raced the store before it
-    would show here)."""
+    outputs each time (a history read that raced the store before it, or
+    a remote write that raced the cluster barrier, would show here)."""
     plans_kb = [_hist_ops_plans(n, 2, 60 + n) for n in (3, 9, 12)]
     _hold_hist(cuda_device, plans_kb, 2, 4, repeat=20)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", [1, 8, 40])
+def test_exec_hist_kernel_frames_in_a_launch(cuda_device, frames):
+    """One frame, phase 21's eight, and forty: more clusters than the
+    card holds at once."""
+    plans_kb = [_hist_ops_plans(1 + f % 4, 2, 80 + f) for f in range(frames)]
+    _hold_hist(cuda_device, plans_kb, 2, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_exec_hist_kernel_cluster_sizes(cuda_device, cluster):
+    """Every cluster size the card takes gives the plain version's
+    output, on the history streams' kind of plan and on hostile ones."""
+    plans_kb = [_hist_ops_plans(n, 8, 90 + n) for n in (2, 5, 16)]
+    _hold_hist(cuda_device, plans_kb, 8, 6, cluster=cluster)
+    _hold_hist(cuda_device, corpus.hist_plans(5), 5, 7, cluster=cluster)
+
+
+@pytest.mark.cuda
+def test_exec_hist_kernel_cluster_choice_and_refusal(cuda_device):
+    """The wrapper's cluster size is one the card holds resident, and a
+    cluster the card refuses (32 CTAs) raises, as does one that is not a
+    power of two; the next launch runs."""
+    from compress_tpu_torch import _cuda
+
+    C = exec_kern.HIST_CLUSTER
+    assert C in (8, 16)
+    assert _cuda.library().ct_exec_hist_clusters(C) >= 1
+    assert _cuda.library().ct_exec_hist_occupancy(C) >= 1
+    plans_kb = [_hist_ops_plans(3, 2, 95)]
+    pieces, gstart = execute.pack_pieces_mb(plans_kb, 2 << 16)
+    lit = torch.zeros((1, gstart.shape[1], 512, 128), dtype=torch.uint8,
+                      device=cuda_device)
+    args = [lit] + [torch.from_numpy(a).to(cuda_device)
+                    for a in (pieces, gstart)]
+    before = execute.execute_blocks_hist.launches
+    with pytest.raises(RuntimeError):
+        execute.execute_blocks_hist(*args, 1024, cluster=32)
+    with pytest.raises(ValueError):
+        execute.execute_blocks_hist(*args, 1024, cluster=3)
+    assert execute.execute_blocks_hist.launches == before
+    _hold_hist(cuda_device, plans_kb, 2, 8)
 
 
 @pytest.mark.cuda
@@ -1272,9 +1323,9 @@ def test_fse_encode_kernel_hostile(cuda_device, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 7])
+@pytest.mark.parametrize("n", [1, 7, 1025])
 def test_fse_encode_kernel_batches(cuda_device, n, blocks_np):
-    rows = blocks_np.reshape(-1, 16384)[:n]
+    rows = np.tile(blocks_np.reshape(-1, 16384), (-(-n // 32), 1))[:n]
     t = torch.from_numpy(rows)
     st, dnb, dfs, _ = entropy._fse_tables_bytes(
         entropy.byte_histograms(t), 9)
@@ -1289,6 +1340,75 @@ def test_fse_encode_kernel_repeatable(cuda_device, blocks_np):
     ts, first = _fse_enc(cuda_device, rows, *tabs)
     for _ in range(20):
         _same(entropy.fse_encode_chain(*ts), first)
+
+
+def _fse_routes(cuda_device, blocks, st, dnb, dfs, log=9):
+    """The kernel's rows on the one-load step and on the exact step, with
+    its output held against the plain version."""
+    ts = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+          for a in (blocks, st, dnb, dfs)]
+    routes = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    got = entropy.fse_encode_chain(*ts, log, routes=routes)
+    _same(got, entropy.fse_encode_chain_ref(*ts, log))
+    return routes.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", corpus.CLASSES)
+def test_fse_encode_kernel_corpus_classes(cuda_device, kind):
+    """Rows of 16 KiB of each corpus class take the one-load step."""
+    rng = np.random.default_rng(corpus.CLASSES.index(kind) + 3)
+    rows = np.stack([corpus.make_block(kind, rng) for _ in range(2)]
+                    ).reshape(-1, 16384)
+    tabs = entropy._fse_tables_bytes(
+        entropy.byte_histograms(torch.from_numpy(rows)), 9)[:3]
+    assert _fse_routes(cuda_device, rows, *tabs) == [len(rows), 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", corpus.FSE_ENC_CLASSES + ("int32",))
+def test_fse_encode_kernel_routes(cuda_device, kind):
+    """Real tables take the one-load step, random and clip-edge tables
+    the exact one."""
+    if kind == "int32":
+        rng = np.random.default_rng(6)
+        big = np.iinfo(np.int32)
+        ins = (rng.integers(0, 256, (5, 2050), dtype=np.uint8),
+               *(rng.integers(big.min, big.max, (5, w), dtype=np.int32)
+                 for w in (512, 256, 256)))
+    else:
+        ins = corpus.fse_enc_inputs(kind)
+    n = len(ins[0])
+    want = [n, 0] if kind in ("corpus", "nb_zero", "short") else [0, n]
+    assert _fse_routes(cuda_device, *ins) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [2, 18, 16386])
+def test_fse_encode_kernel_row_lengths(cuda_device, L):
+    """The smallest chain, a chain of 8 steps and one over 9 chunks whose
+    last chunk holds two bytes (rows not a multiple of 16: byte copies)."""
+    rng = np.random.default_rng(L)
+    rows = np.stack([corpus.make_block(c, rng)[:L]
+                     for c in ("text", "rand4", "period7")])
+    tabs = entropy._fse_tables_bytes(
+        entropy.byte_histograms(torch.from_numpy(rows)), 9)[:3]
+    assert _fse_routes(cuda_device, rows, *tabs) == [3, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log", range(1, 13))
+def test_fse_encode_kernel_logs(cuda_device, log):
+    """Every table log the entry takes, with the tables the port builds
+    at that log; rows 16 KiB long (whole chunks, 16-byte copies)."""
+    rng = np.random.default_rng(log + 20)
+    rows = np.stack([corpus.make_block(c, rng)[:16384]
+                     for c in ("text", "rand4", "zeros", "rand256",
+                               "period3")])
+    tabs = entropy._fse_tables_bytes(
+        entropy.byte_histograms(torch.from_numpy(rows)), log)[:3]
+    fast, exact = _fse_routes(cuda_device, rows, *tabs, log=log)
+    assert fast + exact == len(rows)
 
 
 def _fse_dec_args(cuda_device, d):
