@@ -167,8 +167,11 @@ also runs on the card):
     launch counter set to 0 just before and read just after (one launch),
     whose bodies must equal the level-1 call's, and without the variable,
     whose bodies must equal phase 6's; prints the ratio beside the kernel
-    path's; times the kernel (also by device time), its plain version and
-    the whole call (host clock, median of 3), and traces one call;
+    path's; prints the tile parse's routes (the tiles on its warp and
+    chunked routes), CTAs an SM and registers at tiles 512 and 256, and
+    times it there (also by device time) beside its plain version and its
+    bound; times the whole call (host clock, median of 3), and traces one
+    call;
 26. the zstd v1 engine (``ops/zdev.zstd_encode_jobs``) through
     ``compress_device(engine="v1")`` on ``corpus.replica_jobs(8, 1 MiB)``
     (one launch of 8 jobs, 512 blocks of 16 KiB) at levels 1, 2 and 3,
@@ -177,9 +180,11 @@ also runs on the card):
     scan, ``csrc/zdevfse.cu``); every frame decodes with the port's host
     decoder to its input and the sizes are monotone (level 3 <= 2 <= 1);
     holds the three kernels against their plain versions on the level-2
-    call's own inputs; times them (also by device time), their plain
-    versions and the whole call (host clock, median of 2) with their
-    bounds and the longest chain, and traces one call.
+    call's own inputs; prints the routes (tiles of the parse; rows of the
+    FSE scan on its one-load and exact steps), CTAs an SM and registers of
+    the parse and the FSE scan; times the three (also by device time),
+    their plain versions and the whole call (host clock, median of 2) with
+    their bounds and the longest chain, and traces one call.
 
 The block-parallel engine (``compress_tpu_torch/parallel``), after the
 paths above:
@@ -234,6 +239,7 @@ of standard output is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import concurrent.futures
+import ctypes
 import json
 import multiprocessing
 import os
@@ -1884,6 +1890,57 @@ def _decode_all(bodies, data: bytes, what: str) -> float:
     return time.perf_counter() - t0
 
 
+def _kernel_info(entry: str, *args) -> list:
+    """What a kernel's info entry reports of its launch: route, CTAs an
+    SM, registers, shared memory and tiles a warp (``ct_tile_parse_info
+    (tile)``); CTAs an SM, registers, shared memory, sequences a chunk and
+    blocks a walk CTA (``ct_zdev_fse_info()``)."""
+    from compress_tpu_torch import _cuda
+
+    out = (ctypes.c_int * 5)()
+    _cuda.check(getattr(_cuda.library(), entry)(*args, out), entry)
+    return list(out)
+
+
+def tile_parse_numbers(L_t, tile: int, plain_reps: int = 2) -> dict:
+    """The tile parse on L_t at ``tile``: the tiles on each route (a
+    launch of its own), the launch's CTAs an SM and registers, and its
+    times (yardstick and device time, median of 20; the plain version's)."""
+    from compress_tpu_torch.ops import lz2
+
+    routes = torch.zeros(2, dtype=torch.int32, device=L_t.device)
+    lz2.tile_parse(L_t, tile, routes=routes)
+    route, ctas, regs, smem, tpw = _kernel_info("ct_tile_parse_info", tile)
+    return {"routes": {"warp": int(routes[0]), "chunked": int(routes[1])},
+            "route": ("warp", "chunked")[route], "ctas_per_sm": ctas,
+            "registers": regs, "smem_bytes": smem, "tiles_a_warp": tpw,
+            "ms": cuda_ms(lambda: lz2.tile_parse(L_t, tile), 20),
+            "device_ms": cuda_ms(lambda: lz2.tile_parse(L_t, tile), 20, True),
+            "plain_ms": cuda_ms(lambda: lz2.tile_parse_ref(L_t, tile),
+                                plain_reps)}
+
+
+def fse_scan_numbers(fse_in) -> dict:
+    """The v1 FSE scan's (block, stream) rows on each route (a launch of
+    its own) and its launch's CTAs an SM, registers and layout."""
+    from compress_tpu_torch.ops import zdev
+
+    routes = torch.zeros(2, dtype=torch.int32, device=fse_in[0].device)
+    zdev.fse_scan(*fse_in, routes=routes)
+    ctas, regs, smem, chunk, bpc = _kernel_info("ct_zdev_fse_info")
+    return {"routes": {"one_load": int(routes[0]), "exact": int(routes[1])},
+            "ctas_per_sm": ctas, "registers": regs, "smem_bytes": smem,
+            "chunk": chunk, "blocks_a_cta": bpc}
+
+
+def _say_numbers(what: str, k: dict, bnd) -> None:
+    _say(f"{what}: routes {k['routes']}, {k['ctas_per_sm']} CTAs an SM, "
+         f"{k['registers']} registers, {k['smem_bytes']} bytes of shared "
+         f"memory a CTA; device time {k['device_ms']:.4f} ms, yardstick "
+         f"{k['ms']:.4f}, plain {k['plain_ms']:.4f}, bound {bnd[0]:.4f} "
+         f"({bnd[1]})")
+
+
 def s2_xla_path(dev, data: bytes, blocks, kern_bodies) -> dict:
     """Phase 25: the S2 XLA engine on the phase-3 corpus.  Returns the tile
     parse kernel's JSON entry."""
@@ -1936,30 +1993,37 @@ def s2_xla_path(dev, data: bytes, blocks, kern_bodies) -> dict:
                              "from the kernel path's bodies (phase 6)")
     r_xla = sum(map(len, bodies)) / len(data)
     r_kern = sum(map(len, kern_bodies)) / len(data)
-    L_t = parse_in[(512, 1)]
-    t_k = cuda_ms(lambda: lz2.tile_parse(L_t, 512), 20)
-    t_dev = cuda_ms(lambda: lz2.tile_parse(L_t, 512), 20, True)
-    t_plain = cuda_ms(lambda: lz2.tile_parse_ref(L_t, 512), 2)
-    t_engine = cuda_ms(lambda: lz2.s2_encode_blocks(blocks), 3)
     # bound: each L_t read once (4 bytes), the two masks written once; a
     # few integer operations a position
+    L_t = parse_in[(512, 1)]
     n_pos = L_t.numel()
     bnd = bound(6 * n_pos, 4 * n_pos)
+    by_tile = {}
+    for tile in (512, 256):
+        by_tile[tile] = tile_parse_numbers(parse_in[(tile, 1)], tile)
+        _say_numbers(f"tile_parse (S2 XLA engine, tile {tile}, level 1, "
+                     f"{nb} blocks)", by_tile[tile], bnd)
+    k512 = by_tile[512]
+    t_engine = cuda_ms(lambda: lz2.s2_encode_blocks(blocks), 3)
     _say(f"S2 XLA engine whole call (encode_blocks_np, host clock, median "
          f"of 3): {t_call:.4f} ms ({len(data) / (t_call * 1e-3) / 1e9:.4f} "
          f"GB/s), s2_encode_blocks alone {t_engine:.4f} ms by CUDA events; "
          f"launches {{tile_parse {launches}}}; ratio {r_xla:.6f} against the "
          f"kernel path's {r_kern:.6f} ({(r_xla / r_kern - 1) * 100:+.3f}% "
-         f"size); tile_parse {t_k:.4f} ms ({t_dev:.4f} device time), plain "
-         f"{t_plain:.4f}, bound {bnd[0]:.4f} ({bnd[1]})")
+         f"size); tile_parse {k512['ms']:.4f} ms ({k512['device_ms']:.4f} "
+         f"device time), plain {k512['plain_ms']:.4f}, bound {bnd[0]:.4f} "
+         f"({bnd[1]})")
     return {"name": "tile_parse", "route": "cuda",
             "source": "compress_tpu_torch/csrc/tileparse.cu",
             "replaces": "compress_tpu/ops/lz2.py:123",
             "launches": launches, "max_abs_err": max(errs.values()),
-            "equal_to_plain": True, "ms": t_k, "plain_ms": t_plain,
-            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
-            "device_ms": t_dev, "call_ms": t_call, "engine_ms": t_engine,
-            "ratio": r_xla, "kernel_path_ratio": r_kern}
+            "equal_to_plain": True, "ms": k512["ms"],
+            "plain_ms": k512["plain_ms"], "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": None,
+            "device_ms": k512["device_ms"], "call_ms": t_call,
+            "engine_ms": t_engine, "ratio": r_xla,
+            "kernel_path_ratio": r_kern,
+            "tiles": {str(t): d for t, d in by_tile.items()}}
 
 
 def zstd_v1_path(dev) -> tuple:
@@ -2017,15 +2081,18 @@ def zstd_v1_path(dev) -> tuple:
     R, _, MS = syms.shape
     ns = n_seqs.to(torch.int64)
     sum_seqs, max_seqs = int(ns.sum()), int(ns.max())
-    t = {"parse": cuda_ms(lambda: lz2.tile_parse(L_t, tile), 20),
+    k_parse = tile_parse_numbers(L_t, tile)
+    k_fse = fse_scan_numbers(fse_in)
+    t = {"parse": k_parse["ms"],
          "rep": cuda_ms(lambda: zseqenc.rep_scan(*rep_in), 20),
          "fse": cuda_ms(lambda: zdev.fse_scan(*fse_in), 20)}
-    dev_t = {"parse": cuda_ms(lambda: lz2.tile_parse(L_t, tile), 20, True),
+    dev_t = {"parse": k_parse["device_ms"],
              "rep": cuda_ms(lambda: zseqenc.rep_scan(*rep_in), 20, True),
              "fse": cuda_ms(lambda: zdev.fse_scan(*fse_in), 20, True)}
-    plain = {"parse": cuda_ms(lambda: lz2.tile_parse_ref(L_t, tile), 2),
+    plain = {"parse": k_parse["plain_ms"],
              "rep": cuda_ms(lambda: zseqenc.rep_scan_ref(*rep_in), 1),
              "fse": cuda_ms(lambda: zdev.fse_scan_ref(*fse_in), 1)}
+    k_fse.update(ms=t["fse"], device_ms=dev_t["fse"], plain_ms=plain["fse"])
     t_call = host_ms(lambda: zdevice.compress_device(data, engine="v1"), 2)
     _say_trace("zstd v1", lambda: zdevice.compress_device(data, engine="v1"))
     # bounds: the parse as in phase 25; the repeat scan as in phase 11 at
@@ -2041,6 +2108,11 @@ def zstd_v1_path(dev) -> tuple:
     _say(f"zstd v1 whole call (compress_device, engine v1, level 2, host "
          f"clock, median of 2): {t_call:.4f} ms "
          f"({n / (t_call * 1e-3) / 1e9:.4f} GB/s); sizes by level {sizes}")
+    _say_numbers(f"tile_parse (zstd v1, tile {tile}, level 2)", k_parse,
+                 b_parse)
+    _say_numbers(f"fse_scan (zstd v1, level 2; chunks of {k_fse['chunk']} "
+                 f"sequences, {k_fse['blocks_a_cta']} blocks a walk CTA)",
+                 k_fse, b_fse)
     _say(f"zstd v1 kernels ({R} blocks, MS {MS}, sequences {sum_seqs}, "
          f"longest chain {max_seqs}; ms, CUDA events / device time / plain "
          f"/ bound): " + ", ".join(
@@ -2055,12 +2127,17 @@ def zstd_v1_path(dev) -> tuple:
            "equal_to_plain": True, "ms": t["fse"], "plain_ms": plain["fse"],
            "bound_ms": b_fse[0], "bound_by": b_fse[1], "library_ms": None,
            "device_ms": dev_t["fse"], "longest_chain": max_seqs,
-           "call_ms": t_call, "sizes_by_level": sizes}
+           "call_ms": t_call, "sizes_by_level": sizes,
+           "routes": k_fse["routes"], "ctas_per_sm": k_fse["ctas_per_sm"],
+           "registers": k_fse["registers"],
+           "blocks_a_cta": k_fse["blocks_a_cta"]}
     extra = {"parse": {"v1_launches": launches[2]["parse"],
                        "v1_max_abs_err": err_parse, "v1_ms": t["parse"],
                        "v1_device_ms": dev_t["parse"],
                        "v1_plain_ms": plain["parse"],
-                       "v1_bound_ms": b_parse[0]},
+                       "v1_bound_ms": b_parse[0],
+                       "v1_routes": k_parse["routes"],
+                       "v1_ctas_per_sm": k_parse["ctas_per_sm"]},
              "rep": {"v1_launches": launches[2]["rep"],
                      "v1_max_abs_err": err_rep, "v1_ms": t["rep"],
                      "v1_device_ms": dev_t["rep"], "v1_plain_ms": plain["rep"],

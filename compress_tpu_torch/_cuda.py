@@ -60,8 +60,10 @@ _SIGNATURES = {
     "ct_fse_decode": [_P] * 8 + [_I] * 4 + [_P] * 3,
     "ct_crc32c_batch": [_P, _L, _I, _I, _I, _U, _U, _P, _P],
     "ct_xxh64_batch": [_P, _I, _I, _U64, _P, _P],
-    "ct_tile_parse": [_P, _L, _I, _P, _P, _P],
-    "ct_zdev_fse": [_P] * 7 + [_I] * 3 + [_P] * 4,
+    "ct_tile_parse": [_P, _L, _I, _P, _P, _P, _P],
+    "ct_tile_parse_info": [_I, _P],
+    "ct_zdev_fse": [_P] * 7 + [_I] * 3 + [_P] * 5,
+    "ct_zdev_fse_info": [_P],
 }
 
 _lib = None

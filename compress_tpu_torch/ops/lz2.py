@@ -239,10 +239,16 @@ def tile_parse_ref(L_t: torch.Tensor, tile: int):
     return take.view(NB, bs), lit.view(NB, bs)
 
 
-def tile_parse(L_t: torch.Tensor, tile: int):
+def tile_parse(L_t: torch.Tensor, tile: int, *,
+               routes: torch.Tensor | None = None):
     """Greedy parse of each ``tile``-position tile of (NB, bs) int32 L_t
     (already capped to the tile end): (take, lit) bool of the same shape.
-    The CUDA kernel on CUDA tensors, ``tile_parse_ref`` on CPU tensors."""
+    The CUDA kernel on CUDA tensors (``csrc/tileparse.cu``, one launch: a
+    warp a tile in three exact phases for tiles up to 2048 positions, a
+    thread a tile in staged chunks above), ``tile_parse_ref`` on CPU
+    tensors.  ``routes``, a (2,) int32 CUDA tensor, gets the kernel's
+    count of tiles on the warp route and on the chunked route added to
+    it."""
     if L_t.dim() != 2 or tile <= 0 or L_t.shape[1] % tile:
         raise ValueError(f"tile_parse: expected (NB, bs) with bs a multiple "
                          f"of the tile {tile}, got {tuple(L_t.shape)}")
@@ -250,12 +256,17 @@ def tile_parse(L_t: torch.Tensor, tile: int):
         return tile_parse_ref(L_t, tile)
     _cuda.require_cuda_input(L_t, "L_t", _I32, L_t.shape)
     dev = L_t.device
+    if routes is not None:
+        _cuda.require_cuda_input(routes, "tile_parse: routes", _I32, (2,))
+        if routes.device != dev:
+            raise ValueError("tile_parse: routes on another device")
     NB, bs = L_t.shape
     out = torch.empty((2, NB, bs), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         rc = _cuda.library().ct_tile_parse(
             L_t.data_ptr(), NB * bs // tile, tile, out[0].data_ptr(),
-            out[1].data_ptr(), _cuda.stream(dev))
+            out[1].data_ptr(), None if routes is None else routes.data_ptr(),
+            _cuda.stream(dev))
     _cuda.check(rc, "tile_parse")
     tile_parse.launches += 1
     return out[0], out[1]

@@ -378,7 +378,8 @@ def fse_scan_ref(syms, n_seqs, st, dnb, dfs, logs, rle):
     return val, nbs, st_cur
 
 
-def fse_scan(syms, n_seqs, st, dnb, dfs, logs, rle):
+def fse_scan(syms, n_seqs, st, dnb, dfs, logs, rle, *,
+             routes: torch.Tensor | None = None):
     """Backward 3-stream FSE encode state chain over per-job tables.
 
     syms: (R, 3, MS) int32 ll / of / ml codes; n_seqs (R,) int32; the
@@ -388,8 +389,13 @@ def fse_scan(syms, n_seqs, st, dnb, dfs, logs, rle):
     state 0).  Returns (val, nb) (R, 3, MS) int32 in write order, the
     reference's layout: entry k is the state write of sequence MS - 1 - k
     (0 for sequences n_seqs - 1 and later), and the final states (R, 3)
-    int32.  The CUDA kernel (``csrc/zdevfse.cu``) on CUDA tensors,
-    ``fse_scan_ref`` on CPU tensors."""
+    int32.  The CUDA kernel (``csrc/zdevfse.cu``, one launch: each job's
+    compact next-state tables checked per symbol, a one-load step through
+    the chunks whose symbols pass, the exact step through the others) on
+    CUDA tensors, ``fse_scan_ref`` on CPU tensors.  ``routes``, a (2,)
+    int32 CUDA tensor, gets the kernel's count of (block, stream) rows
+    walked wholly on the one-load step and of rows with a chunk on the
+    exact step added to it."""
     if syms.dim() != 3 or syms.shape[1] != 3 or st.dim() != 3:
         raise ValueError("fse_scan: expected (R, 3, MS) codes and "
                          "(nj, 3, FSE_SZ) tables")
@@ -412,6 +418,10 @@ def fse_scan(syms, n_seqs, st, dnb, dfs, logs, rle):
     for k, v in shapes.items():
         _cuda.require_cuda_input(args[k], k, torch.bool if k == "rle"
                                  else _I32, v)
+    if routes is not None:
+        _cuda.require_cuda_input(routes, "fse_scan: routes", _I32, (2,))
+        if routes.device != dev:
+            raise ValueError("fse_scan: routes on another device")
     buf = torch.empty(2 * R * 3 * MS + 3 * R, dtype=_I32, device=dev)
     p = buf.data_ptr()
     with torch.cuda.device(dev):
@@ -419,7 +429,7 @@ def fse_scan(syms, n_seqs, st, dnb, dfs, logs, rle):
             syms.data_ptr(), n_seqs.data_ptr(), st.data_ptr(),
             dnb.data_ptr(), dfs.data_ptr(), logs.data_ptr(), rle.data_ptr(),
             R, MS, nj, p, p + 4 * R * 3 * MS, p + 8 * R * 3 * MS,
-            _cuda.stream(dev))
+            None if routes is None else routes.data_ptr(), _cuda.stream(dev))
     _cuda.check(rc, "fse_scan")
     fse_scan.launches += 1
     val, nb = buf[:2 * R * 3 * MS].view(2, R, 3, MS)

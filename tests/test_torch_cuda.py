@@ -35,11 +35,17 @@ xxHash64 on rows of many lengths, prefixes, seeds, batches of 1 and 7 and
 misaligned rows; ``compress_device`` on inputs that are not whole
 jobs; and the two XLA-graph encoders: the tile parse on hostile lengths
 (every position 4, matches that end at a tile's end, whole-tile matches,
-raw values, the S2 engine's own) at tiles 256 and 512 and others, the v1
-FSE scan on n_seqs of 0, 1 and MS, one to three RLE streams, an of table
-whose clamped index passes 255 and several jobs' tables in one launch,
-the repeat scan at v1's shapes, and both engines and ``compress_device``
-'s v1 on the card against the CPU; and the block-parallel engine
+raw values, values near INT32_MAX, the S2 engine's own) at tiles 1 to
+700 on its warp route and 4096 and the whole 64 KiB block on its chunked
+route, in batches of 1, 65 and 256 rows, the v1 FSE scan on n_seqs of
+0, 1 and MS, one to three RLE streams, an of table whose clamped index
+passes 255, broken tables on its exact route, a route that changes from
+chunk to chunk, several jobs' tables in one launch (the 8 x 64 geometry,
+uneven rows, part-full CTAs), both with the tiles or rows on each route
+equal to the CPU models' (``tests/test_torch_tileparse_model.py``,
+``tests/test_torch_zdevfse_model.py``), the repeat scan at v1's shapes,
+and both engines and ``compress_device``'s v1 on the card against the
+CPU; and the block-parallel engine
 (``parallel``) on one NCCL rank and on two gloo ranks sharing the card,
 against the unsharded calls.
 Without a card every test here skips.
@@ -1730,6 +1736,154 @@ def test_fse_scan_kernel_jobs_in_one_launch(cuda_device, nj, nblk):
     args = _fse_scan_inputs(nj * 100 + nblk, nj=nj, nblk=nblk)
     assert nj == 1 or not torch.equal(args[2][0], args[2][1])
     _hold_fse_scan(cuda_device, args)
+
+
+# The redesigned tile parse and FSE scan against their plain versions, with
+# the rows and tiles on each route equal to the CPU models' counts
+# (tests/test_torch_tileparse_model.py, tests/test_torch_zdevfse_model.py).
+
+
+def _parse_routes(dev, L, tile):
+    import test_torch_tileparse_model as tp_model
+
+    routes = torch.zeros(2, dtype=torch.int32, device=dev)
+    before = lz2.tile_parse.launches
+    got = lz2.tile_parse(torch.from_numpy(L).to(dev), tile, routes=routes)
+    want = lz2.tile_parse_ref(torch.from_numpy(L), tile)
+    torch.cuda.synchronize()
+    assert lz2.tile_parse.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert tuple(routes.tolist()) == tp_model.model_tile_parse(L, tile)[2]
+    return tuple(routes.tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 65, 256])
+@pytest.mark.parametrize("tile", [1, 8, 31, 33, 100, 256, 512, 700, 1024,
+                                  2048, 4096])
+def test_tile_parse_routes_tiles_and_batches(cuda_device, tile, nb):
+    """Tiles on the warp route up to its limit, 2048 positions (the one
+    whose CTA needs more than 48 KiB of shared memory), and the chunked
+    route past it (4096), in batches of 1, 65 and 256 rows of hostile
+    lengths."""
+    import test_torch_tileparse_model as tp_model
+
+    kind = tp_model.KINDS[(tile + nb) % len(tp_model.KINDS)]
+    rows = tp_model.hostile_lengths(kind, tile, nb=nb)
+    L = rows[:, :4 * tile] if tile > 512 else rows
+    routes = _parse_routes(cuda_device, np.ascontiguousarray(L), tile)
+    n_tiles = L.size // tile
+    assert routes == ((n_tiles, 0) if tile <= tp_model.TP_WARP_MAX
+                      else (0, n_tiles))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["raw_random", "near_int32_max"])
+def test_tile_parse_whole_block_tile(cuda_device, blocks_np, kind):
+    """A tile of the whole 64 KiB block: the chunked route in the kernel
+    and through ``s2_encode_blocks``."""
+    import test_torch_tileparse_model as tp_model
+
+    L = np.resize(tp_model.hostile_lengths(kind, 256, nb=4), (3, lz2.B))
+    assert _parse_routes(cuda_device, L.astype(np.int32), lz2.B) == (0, 3)
+    t = torch.from_numpy(blocks_np[:2])
+    out, lens = lz2.s2_encode_blocks(t.to(cuda_device), lz2.B, 1)
+    want = lz2.s2_encode_blocks(t, lz2.B, 1)
+    assert torch.equal(out.cpu(), want[0]) and torch.equal(lens.cpu(),
+                                                           want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [1024, 2048])
+def test_s2_xla_engine_long_tiles_on_the_warp_route(cuda_device, blocks_np,
+                                                    tile):
+    """``s2_encode_blocks`` at the longest tiles of the warp route: the
+    engine's parse on the card equals ``tile_parse_ref`` on its own L_t,
+    every tile on the warp route, and the bodies equal the CPU's."""
+    t = torch.from_numpy(blocks_np)
+    take, lit, L_t, _ = lz2._find_parse(t.to(cuda_device), tile, level=1)
+    L = L_t.to(torch.int32).cpu()
+    want = lz2.tile_parse_ref(L, tile)
+    assert torch.equal(take.cpu(), want[0]) and torch.equal(lit.cpu(),
+                                                            want[1])
+    assert _parse_routes(cuda_device, L.numpy(), tile) == (L.numel() // tile,
+                                                           0)
+    out, lens = lz2.s2_encode_blocks(t.to(cuda_device), tile, 1)
+    want = lz2.s2_encode_blocks(t, tile, 1)
+    assert torch.equal(out.cpu(), want[0]) and torch.equal(lens.cpu(),
+                                                           want[1])
+
+
+def _scan_routes(dev, args):
+    import test_torch_zdevfse_model as zf_model
+    from compress_tpu_torch.ops import zdev
+
+    routes = torch.zeros(2, dtype=torch.int32, device=dev)
+    before = zdev.fse_scan.launches
+    got = zdev.fse_scan(*(a.to(dev) for a in args), routes=routes)
+    want = zdev.fse_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert zdev.fse_scan.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    model = zf_model.model_scan(*(a.numpy() for a in args))
+    assert tuple(routes.tolist()) == model[3]
+    return tuple(routes.tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["n_seqs_0_1_ms", "random_n",
+                                  "three_rle_streams", "of_index_past_255",
+                                  "past_ms"])
+def test_fse_scan_routes_on_card_test_cases(cuda_device, case):
+    import test_torch_zdevfse_model as zf_model
+
+    args = zf_model.scan_inputs(list(zf_model.CASES).index(case) + 40,
+                                **zf_model.CASES[case])
+    routes = _scan_routes(cuda_device, args)
+    assert (routes[1] > 0) == (case == "of_index_past_255")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["switch", "state", "wrap_nb", "k0"])
+def test_fse_scan_exact_route_on_broken_tables(cuda_device, name):
+    import test_torch_zdevfse_model as zf_model
+
+    assert _scan_routes(cuda_device, zf_model._broken(name))[1] >= 1
+
+
+@pytest.mark.cuda
+def test_fse_scan_switches_route_chunk_by_chunk(cuda_device):
+    import test_torch_zdevfse_model as zf_model
+
+    args = zf_model.scan_inputs(11, nj=1, nblk=2, n_seqs=[2000, 1500])
+    args[0][:, 2, :] = torch.where(args[0][:, 2] == 40, 39, args[0][:, 2])
+    args[0][0, 2, 1000] = 40
+    args[3][0, 2, 40] = zf_model.I32_MAX - 700
+    args[4][0, 2, 40] = 0
+    assert _scan_routes(cuda_device, args) == (5, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nj,nblk,uneven", [(8, 64, False), (8, 64, True),
+                                            (1, 1, False), (3, 65, True),
+                                            (2, 256, True)])
+def test_fse_scan_geometries(cuda_device, nj, nblk, uneven):
+    """The default launch (8 jobs x 64 blocks), one block, rows a job that
+    leave a walk CTA part full (65, 256), and uneven rows: most blocks
+    short, a few at or past MS, some empty."""
+    import test_torch_zdevfse_model as zf_model
+
+    n_seqs = None
+    if uneven:
+        rng = np.random.default_rng(nj * nblk)
+        n_seqs = np.where(rng.random(nj * nblk) < 0.9,
+                          rng.integers(0, 300, nj * nblk),
+                          rng.choice([0, 1, 2731, 2740], nj * nblk))
+    args = zf_model.scan_inputs(nj + nblk, nj=nj, nblk=nblk, n_seqs=n_seqs)
+    routes = _scan_routes(cuda_device, args)
+    assert routes == (zf_model._walked_rows(args), 0)
 
 
 @pytest.mark.cuda
