@@ -141,19 +141,24 @@ Inputs that are not whole jobs, the FSE batch codec and the checksums:
     ``fse.compress(table_log=11)`` containers; times ``make_accel`` (the
     first 256 rows only if the whole walk would take over 90 s); holds the
     chunk decode (``csrc/fsedec.cu``) against its plain version on the
-    prepared windows; runs ``fse.decompress_batch`` with the counters (one
-    launch, exactly the 4 log-11 containers on the host, every row equal
-    to its input); times both kernels (also by device time), their plain
-    versions, ``fse_encode_blocks``, both whole calls, the 16 MiB
-    histogram (``histogram256_torch``, plain PyTorch, beside
-    ``torch.bincount``) and the per-row histograms, and traces one call
-    of each;
+    prepared windows, with its routes (the chunks of tiles with no pair to
+    decode, which must be the rows sent elsewhere, and the chunks walked);
+    runs ``fse.decompress_batch`` with the counters (one launch, exactly
+    the 4 log-11 containers on the host, every row equal to its input);
+    times both kernels (also by device time), their plain versions,
+    ``fse_encode_blocks``, both whole calls, the 16 MiB histogram
+    (``histogram256_torch``, plain PyTorch, beside ``torch.bincount``)
+    and the per-row histograms, and traces one call of each (the decode's
+    up to three times where the profiler records no device time);
 24. CRC-32C and xxHash64 (``csrc/checksum.cu``) of the phase-3 corpus (256
     rows of 64 KiB): holds ``crc32c_batch`` (whole rows and 65536 - 4097
     bytes) and ``xxh64_batch`` (seeds 0 and 2^64 - 1) against their plain
     versions and 8 rows against the host ``crc32c`` / ``xxh64``; one call
     of each with the launch counters; times both kernels (also by device
-    time) and their plain versions, with their bounds.
+    time) and their plain versions, with their bounds; builds
+    ``checksum.cu`` with ``-DCT_XXH64_CLOCK`` (``tools/checksum_clock.py``)
+    and prints xxHash64's cycles a round on its chain and the chain's
+    floor beside the byte bound.
 
 The two XLA-graph encoders (the reference's CPU engines, which the port
 also runs on the card):
@@ -243,6 +248,7 @@ import ctypes
 import json
 import multiprocessing
 import os
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -251,6 +257,7 @@ import time
 import numpy as np
 import torch
 
+REPO = pathlib.Path(__file__).resolve().parent
 N_BLOCKS = 256      # 16 MiB: one launch of MAX_LAUNCH_BLOCKS
 TEXT_FRAMES = 128   # 64 KiB text frames for the zstd frame decode
 ENCODE_CUT_S = 90   # half the frames encoded slower than this: keep half
@@ -263,6 +270,7 @@ TAIL_BYTES = 300_001   # phase 22: past the phase-10 jobs (3 host blocks)
 SHORT_BYTES = 200_003  # phase 22: below one job (the host encoder)
 FSE_HOST_LOG11 = 4     # phase 23: host containers of log 11 in the decode
 FSE_ACCEL_CUT = 256    # phase 23: rows kept if make_accel would be slow
+DEC_TILE = 256         # phase 23: chunks a CTA of the chunk decode
 ACCEL_CUT_S = 90       # phase 23: make_accel's estimated seconds allowed
 HIST_CLUSTERS = (1, 8, 16)  # phase 21: cluster sizes of the history execute
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
@@ -331,10 +339,12 @@ def trace_path(fn, warm: bool = True):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     by_name = {}
-    for e in prof.events():
+    events = prof.events()
+    for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.device_time_total / 1e3)
+    trace_path.events = len(events)     # all the profiler recorded
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     return sum(by_name.values()), wall, ranked
 
@@ -452,7 +462,7 @@ def _say_trace(what: str, fn, warm: bool = True, every_name: bool = False):
                  for k, v in (by_name if every_name else by_name[:8])))
         return h2d
     _say(f"{what} trace: the profiler recorded no device time "
-         "(not measured)")
+         f"({trace_path.events} events in all; not measured)")
     return None
 
 
@@ -1662,9 +1672,25 @@ def fse_path(dev, blocks_np) -> tuple:
     metas, arrays = fse.prep_decode_batch(decode, accel)
     prep_ms = (time.perf_counter() - t0) * 1e3
     args = [torch.from_numpy(a).to(dev) for a in arrays]
+    dec_routes = torch.zeros(2, dtype=torch.int32, device=dev)
     err_dec = _hold(f"fse_decode_chunks ({arrays[0].shape[0]} x "
                     f"{arrays[0].shape[1]} chunks)", ED.fse_decode_chunks(
-                        *args), ED.fse_decode_chunks_ref(*args))
+                        *args, routes=dec_routes),
+                    ED.fse_decode_chunks_ref(*args))
+    # a CTA of DEC_TILE chunks whose chunks all have npair 0 takes the dead
+    # route; here those are the rows the batch sends elsewhere
+    npair = arrays[4]
+    C = npair.shape[1]
+    dead_rows = int((npair.max(axis=1) == 0).sum())
+    want_dead = sum(min(DEC_TILE, C - c0) for row in npair
+                    for c0 in range(0, C, DEC_TILE)
+                    if row[c0:c0 + DEC_TILE].max() == 0)
+    dec_routes = dec_routes.tolist()
+    _say(f"fse_decode_chunks routes: {dec_routes[0]} chunks on the dead "
+         f"route ({dead_rows} rows with no pair to decode, {want_dead} "
+         f"chunks in tiles with none), {dec_routes[1]} walked")
+    if dec_routes != [want_dead, npair.size - want_dead]:
+        raise AssertionError(f"fse_decode_chunks routes {dec_routes}")
     ED.fse_decode_chunks.launches = 0
     fse.decompress_batch.host_containers = 0
     t0 = time.perf_counter()
@@ -1756,8 +1782,10 @@ def fse_path(dev, blocks_np) -> tuple:
          f"({b_hist[1]}); per-row histograms ({N} rows) {rows_ms:.4f} "
          f"({rows_dev:.4f} device time)")
     _say_trace("FSE encode", lambda: fse.compress_batch(rows))
-    _say_trace("FSE decode", lambda: fse.decompress_batch(decode,
-                                                          accel=accel))
+    for _ in range(3):   # tries again where the profiler saw no device
+        if _say_trace("FSE decode", lambda: fse.decompress_batch(
+                decode, accel=accel), warm=False) is not None:
+            break
     common = {"route": "cuda", "library_ms": None, "equal_to_plain": True}
     return [
         {"name": "fse_encode_chain", **common,
@@ -1777,6 +1805,7 @@ def fse_path(dev, blocks_np) -> tuple:
          "launches": dec_launches, "max_abs_err": err_dec, "ms": t_dec,
          "plain_ms": p_dec, "bound_ms": b_dec[0], "bound_by": b_dec[1],
          "device_ms": t_dec_dev, "chunks": nc, "host_containers": host_routed,
+         "routes": {"dead": dec_routes[0], "walked": dec_routes[1]},
          "make_accel_s": accel_s, "prep_ms": prep_ms, "call_ms": dec_call,
          "first_call_ms": dec_first}], {
         "histogram256_torch_ms": h_ms, "histogram256_torch_device_ms": h_dev,
@@ -1832,6 +1861,26 @@ def checksum_path(blocks) -> list:
         f"{k} {t[k]:.4f} ({dev_t[k]:.4f} device time; plain {plain[k]:.4f};"
         f" bound {bnd[k][0]:.4f}, {bnd[k][1]})" for k in t)
         + f"; launches {launches}; 8 rows equal the host crc32c / xxh64")
+    # xxHash64's lanes are chains of n / 32 dependent rounds: the clock
+    # build of checksum.cu (compress_tpu_torch/tools/checksum_clock.py)
+    # gives the cycles a round on the chain alone, and the rounds times
+    # those cycles at the SM's largest clock is the floor of any layout
+    from compress_tpu_torch.tools import checksum_clock as XC
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.split()[0])
+    clocked = XC.Run(XC.build(REPO, ("-DCT_XXH64_CLOCK",)),
+                     "xxh64 clock build", blocks, True)
+    clocked.check()
+    chain = clocked.clocks(mhz)
+    _say(f"xxh64_batch chain: {chain['chain_cycles_a_round']:.2f} cycles a "
+         f"round on the chain alone, {chain['loop_cycles_a_round']:.2f} in "
+         f"the lanes' loop, median {chain['wait_cycles_median']} cycles "
+         f"waiting for stages (clock build); {chain['rounds']} rounds a "
+         f"lane: chain floor {chain['chain_floor_ms']:.4f} ms at {mhz:.0f} "
+         f"MHz beside the byte bound {bnd['xxh'][0]:.4f} ms and the device "
+         f"time {dev_t['xxh']:.4f} ms")
     rows = [("crc32c_batch", "crc", "compress_tpu/ops/checksum.py:84",
              ("crc None", "crc " + str(n - 4097))),
             ("xxh64_batch", "xxh", "compress_tpu/ops/checksum.py:242",
@@ -1842,7 +1891,10 @@ def checksum_path(blocks) -> list:
              "max_abs_err": max(errs[e] for e in es), "equal_to_plain": True,
              "ms": t[key], "plain_ms": plain[key], "bound_ms": bnd[key][0],
              "bound_by": bnd[key][1], "library_ms": None,
-             "device_ms": dev_t[key]}
+             "device_ms": dev_t[key],
+             **({"chain_floor_ms": chain["chain_floor_ms"],
+                 "chain_cycles_a_round": chain["chain_cycles_a_round"]}
+                if key == "xxh" else {})}
             for name, key, replaces, es in rows]
 
 

@@ -57,7 +57,7 @@ _SIGNATURES = {
     "ct_zseq_occupancy": [_I],
     "ct_fse_encode": [_P] * 4 + [_I] * 4 + [_P] * 4,
     "ct_fse_encode_occupancy": [_I],
-    "ct_fse_decode": [_P] * 8 + [_I] * 4 + [_P] * 3,
+    "ct_fse_decode": [_P] * 8 + [_I] * 4 + [_P] * 4,
     "ct_crc32c_batch": [_P, _L, _I, _I, _I, _U, _U, _P, _P],
     "ct_xxh64_batch": [_P, _I, _I, _U64, _P, _P],
     "ct_tile_parse": [_P, _L, _I, _P, _P, _P, _P],

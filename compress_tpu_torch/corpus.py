@@ -777,6 +777,9 @@ def fse_enc_inputs(kind: str):
 
 FSE_DEC_CLASSES = ("cursor_edges", "npair_nore_edges", "state_edges",
                    "nb_zero")
+# tables of any int32 entry, which no container's table gives (outside
+# FSE_DEC_CLASSES: the reference's float tables do not hold them)
+FSE_DEC_WILD = "wild_tables"
 
 
 def _fse_dtable(rng: np.random.Generator, skew: float = 0.0):
@@ -806,10 +809,15 @@ def fse_dec_inputs(kind: str) -> dict:
     - ``state_edges``: entry states 0, 1, 255, 256, 511, and 512, 1000 and
       -1 (outside the table: entry 0);
     - ``nb_zero``: a table where one symbol has probability 1/2 or more
-      (states of 0 bits)."""
+      (states of 0 bits);
+    - ``wild_tables`` (``FSE_DEC_WILD``): int32 table entries of any value,
+      half with nb 10-15 and a new state outside 0..511, half with nb 0-9
+      and a new state that stays in the table, and cursors past both ends
+      of the window and at both ends of int32 (dtables None)."""
     from compress_tpu_torch.ops.entropy_dec import WIN, fse_table
 
-    rng = np.random.default_rng(FSE_DEC_CLASSES.index(kind) + 89)
+    classes = FSE_DEC_CLASSES + (FSE_DEC_WILD,)
+    rng = np.random.default_rng(classes.index(kind) + 89)
     N, C = 3, 96
     dts = [_fse_dtable(rng, 0.6 if kind == "nb_zero" else 0.0)
            for _ in range(N)]
@@ -835,8 +843,24 @@ def fse_dec_inputs(kind: str) -> dict:
         edges = np.array([0, 1, 255, 256, 511, 512, 1000, -1])
         st1[:] = np.resize(edges, N * C).reshape(N, C)
         st2[:] = np.roll(st1, 3)
+    tables = np.stack([fse_table(*d) for d in dts])
+    if kind == FSE_DEC_WILD:
+        e = rng.integers(-(1 << 31), 1 << 31, (N, 512), dtype=np.int64)
+        wide = rng.random((N, 512)) < 0.5
+        nb = np.where(wide, rng.integers(10, 16, (N, 512)),
+                      rng.integers(0, 10, (N, 512)))
+        keep = rng.integers(0, 513 - (1 << np.minimum(nb, 9)))  # in the table
+        ns = np.where(wide, e >> 16, keep)
+        ns = np.where(wide & (ns >= 0) & (ns < 512), ns + 600, ns)
+        tables = ((e & 255) | (nb << 8) | (ns << 16)).astype(np.int64)
+        tables = ((tables + (1 << 31)) % (1 << 32) - (1 << 31)).astype(
+            np.int32)
+        edges = np.array([-(1 << 31), -(1 << 31) + 3, -1000, -5, 0, 7, 416,
+                          417, 1000, (1 << 31) - 1, 100, 300])
+        lbit[:] = np.resize(edges, N * C).reshape(N, C)
+        dts = None
     as32 = [a.astype(np.int32) for a in (lbit, st1, st2, npair, nore1,
                                         nore2)]
     return dict(windows=windows, lbit=as32[0], st1=as32[1], st2=as32[2],
                 npair=as32[3], nore1=as32[4], nore2=as32[5], dtables=dts,
-                tables=np.stack([fse_table(*d) for d in dts]))
+                tables=tables)

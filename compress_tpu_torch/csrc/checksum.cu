@@ -20,18 +20,44 @@
 //
 // xxHash64 (`ct_xxh64_batch`).  Function: for each row of n bytes (n a
 // multiple of 32), the xxHash64 digest with `seed`, as its low and high
-// 32-bit halves (int64 each).  Design: four threads a row, one lane each:
-// lane q folds the q-th 8-byte word of every stripe in order (a quad's
-// loads are one 32-byte sector), a batch of 16 stripes' loads in flight
-// while the batch before is folded; the quad's accumulators meet by shuffles, and lane 0
-// merges, adds the length and avalanches.  Native 64-bit integers: the
+// 32-bit halves (int64 each).  Lane q of a row folds the q-th 8-byte word
+// of every stripe in order; the four accumulators merge, the length is
+// added and the digest avalanched.  Native 64-bit integers: the
 // reference's 16-bit limbs are the TPU's, not needed here.
 //
 // Bound on the H100: memory for both (each input byte read once: 16.8 MB
-// at 256 rows of 64 KiB, 0.005 ms at 3.35 TB/s).  Both designs are
-// latency-bound well above that: a CRC thread's chunk is a chain of
-// dependent table steps, and an xxHash64 lane is a chain of n / 32
-// dependent rounds (a 64-bit multiply, rotate and multiply).
+// at 256 rows of 64 KiB, 0.005 ms at 3.35 TB/s).  Both are latency-bound
+// well above that: a CRC thread's chunk is a chain of dependent table
+// steps, and an xxHash64 lane is a chain of n / 32 dependent rounds,
+// which no layout shortens: 2,048 rounds at 64 KiB, so a round's latency
+// sets the floor (tools/checksum_clock.py measures it).
+//
+// xxHash64's design: a CTA of two warps serves XXH_ROWS rows, lane 4 i +
+// q of each warp lane q of row i: 8 rows a CTA, so 256 rows take 32 CTAs
+// (measured faster than 1, 2, 4 or 6 rows a CTA on more SMs: the chain,
+// not the SM count, sets the time).
+// - The fold warp's lanes carry a = acc + in * P2: a round is then a' =
+//   rotl(a, 31) * P1 + in' * P2, two funnel shifts and one 64-bit
+//   multiply-add whose addend is ready, a shorter chain than the
+//   add-rotate-multiply of the definition (a lane starts from a =
+//   rotr(acc0 * P1^-1, 31) and ends with acc = rotl(a, 31) * P1).
+// - The loader warp, on its own scheduler, loads the words a stage
+//   (XXH_SS stripes) ahead, multiplies them by P2 and stores them into a
+//   ring of XXH_STAGES slots in shared memory; named barriers FULL and
+//   EMPTY a slot hand the stages over.  The fold reads each word two
+//   rounds before its round (the next stage's first two during this
+//   stage's last two rounds), so its instruction stream holds the chain,
+//   one shared-memory load a round and nothing that waits on device
+//   memory; neither the loads nor the multiplies by P2 take its issue
+//   slots or its multiply pipe.  Each stage boundary still costs the fold
+//   about a hundred cycles (the barrier, the loop and the loads ptxas
+//   gathers at a stage's start), so stages are as long as registers
+//   allow: 48 stripes, 3 slots (216 registers, no spills).
+// Built with -DCT_XXH64_CLOCK (tools/checksum_clock.py) the library also
+// exports ct_xxh64_batch_clock, whose `clk` output receives each lane's
+// cycles (clock64) in its loop, on the same number of rounds with no
+// loads (the chain alone) and waiting on FULL.  The library's build does
+// not define it.
 #include "ct_common.cuh"
 
 namespace {
@@ -115,16 +141,40 @@ constexpr uint64_t P1 = 0x9E3779B185EBCA87ull;
 constexpr uint64_t P2 = 0xC2B2AE3D27D4EB4Full;
 constexpr uint64_t P3 = 0x165667B19E3779F9ull;
 constexpr uint64_t P4 = 0x85EBCA77C2B2AE63ull;
-constexpr int XXH_THREADS = 128;  // 32 rows a CTA
-constexpr int XXH_AHEAD = 16;     // stripes a batch of loads
+constexpr uint64_t P1_INV = 0x0887493432BADB37ull;  // P1 * P1_INV = 1
+static_assert(P1 * P1_INV == 1ull, "P1_INV");
+constexpr int XXH_ROWS = 8;  // rows (quads) a CTA
+constexpr int XXH_THREADS = 4 * XXH_ROWS;  // lanes of each warp in use
+constexpr int XXH_SS = 48;     // stripes a stage
+constexpr int XXH_STAGES = 3;  // stages of a row's ring
+static_assert(XXH_ROWS >= 1 && XXH_ROWS <= 8, "rows a CTA: 1 to 8");
+static_assert(2 * XXH_STAGES < 16, "named barriers: 1 to 2 * XXH_STAGES");
+static_assert(XXH_SS >= 2, "a stage of at least 2 stripes");
+constexpr int XXH_RING = XXH_STAGES * XXH_SS * 4 + 4;  // a row's ring, padded
 
 __device__ __forceinline__ uint64_t rotl64(uint64_t x, int r) {
   return (x << r) | (x >> (64 - r));
 }
 
+__device__ __forceinline__ uint64_t rotr64(uint64_t x, int r) {
+  return (x >> r) | (x << (64 - r));
+}
+
+// The lane's chain carries a = acc + in * P2, the accumulator with its
+// next word already added: a round is then a' = rotl(a, 31) * P1 + in' *
+// P2, a rotate (two funnel shifts of the halves) and one multiply-add
+// whose addend (the next word times P2) is computed off the chain.  The
+// accumulator after the last word is xstep(a, 0), and a lane starts from
+// the a that gives its first accumulator: rotr(acc0 * P1^-1, 31).
+__device__ __forceinline__ uint64_t xstep(uint64_t a, uint64_t inp2) {
+  const uint32_t lo = (uint32_t)a, hi = (uint32_t)(a >> 32);
+  const uint64_t r = (uint64_t)__funnelshift_l(lo, hi, 31) << 32 |
+                     __funnelshift_l(hi, lo, 31);
+  return r * P1 + inp2;
+}
+
 __device__ __forceinline__ uint64_t xround(uint64_t acc, uint64_t in) {
-  acc += in * P2;
-  return rotl64(acc, 31) * P1;
+  return rotl64(acc + in * P2, 31) * P1;
 }
 
 __device__ __forceinline__ uint64_t xmerge(uint64_t h, uint64_t v) {
@@ -132,48 +182,156 @@ __device__ __forceinline__ uint64_t xmerge(uint64_t h, uint64_t v) {
   return h * P1 + P4;
 }
 
-__global__ void __launch_bounds__(XXH_THREADS)
+// named barrier `id` of `threads` threads: wait for it, or arrive and go on
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// the fold's wait on a FULL barrier; the clock build sums its cycles
+__device__ __forceinline__ void wait_full(int id, long long& waited) {
+#ifdef CT_XXH64_CLOCK
+  const long long t0 = clock64();
+#endif
+  bar_sync(id, 64);
+#ifdef CT_XXH64_CLOCK
+  waited += clock64() - t0;
+#endif
+}
+
+// One stage of a fold lane: rounds over words w[0 .. cnt) of the ring's
+// slot at word offset `cur` (4 apart), w[0] and w[1] given (p0, p1), each
+// later word read two rounds ahead.  Unless the stage is the row's last,
+// the next stage's FULL barrier is waited on before the last two rounds
+// and p0, p1 leave holding the first words of the slot at `next`.  Fully
+// unrolled: each word gets a register of its own, so nothing is copied
+// from stage to stage but p0 and p1.
+template <bool Partial>
+__device__ __forceinline__ void fold_stage(uint64_t& a, uint64_t& p0,
+                                           uint64_t& p1,
+                                           const uint64_t* ring_r, int cur,
+                                           int next, bool more, int full_id,
+                                           int cnt, long long& waited) {
+  uint64_t w[XXH_SS];
+  w[0] = p0;
+  w[1] = p1;
+#pragma unroll
+  for (int u = 0; u < XXH_SS; ++u) {
+    if (u + 2 < XXH_SS) {
+      w[u + 2] = ring_r[cur + 4 * (u + 2)];
+    } else if (more) {
+      if (u + 2 == XXH_SS) {
+        wait_full(full_id, waited);
+        p0 = ring_r[next];
+      } else {
+        p1 = ring_r[next + 4];
+      }
+    }
+    if (!Partial || u < cnt) a = xstep(a, w[u]);
+  }
+}
+
+// clk: null, or with CT_XXH64_CLOCK (B, 4, 5) int64.
+__global__ void __launch_bounds__(64)
     xxh64_kernel(const uint8_t* __restrict__ rows, int B, int n,
-                 uint64_t seed, long long* __restrict__ out) {
-  const int g = blockIdx.x * XXH_THREADS + threadIdx.x;
-  const int r = g >> 2, q = g & 3;
+                 uint64_t seed, long long* __restrict__ out,
+                 long long* __restrict__ clk) {
+  // a row's ring, word u of slot k at [(k * XXH_SS + u) * 4 + lane]: each
+  // word of a stage times P2; rows 32 bytes apart in the banks
+  __shared__ __align__(16) uint64_t ring[XXH_ROWS][XXH_RING];
+  const int lane = threadIdx.x & 31, lr = lane >> 2, q = lane & 3;
+  const bool chain = threadIdx.x < 32;  // warp 0 folds, warp 1 loads
+  const int r = blockIdx.x * XXH_ROWS + lr;
+  const bool active = lane < XXH_THREADS && r < B;
   const int stripes = n / 32;
-  uint64_t acc = q == 0 ? seed + P1 + P2 : q == 1 ? seed + P2
-                 : q == 2 ? seed : seed - P1;
-  if (r < B) {
+  const int nst = (stripes + XXH_SS - 1) / XXH_SS;
+  const auto full = [](int t) { return 1 + t % XXH_STAGES; };
+  const auto empty = [](int t) { return 1 + XXH_STAGES + t % XXH_STAGES; };
+
+  if (!chain) {
+    // the loader: stage t + 1's words are loaded while stage t's are
+    // multiplied by P2 and stored, each slot once the fold has read it
     const unsigned long long* w =
         reinterpret_cast<const unsigned long long*>(rows + (size_t)r * n) + q;
-    // two batches of XXH_AHEAD words in flight: the next batch's loads are
-    // issued before this batch's rounds
-    const int full_batches = stripes / XXH_AHEAD;
-    uint64_t v[XXH_AHEAD];
-    if (full_batches > 0) {
+    uint64_t v[XXH_SS];
 #pragma unroll
-      for (int u = 0; u < XXH_AHEAD; ++u) v[u] = __ldg(w + 4 * u);
-    }
-    for (int bi = 0; bi < full_batches; ++bi) {
-      uint64_t nv[XXH_AHEAD] = {};
-      const int s = (bi + 1) * XXH_AHEAD;
-      if (bi + 1 < full_batches) {
+    for (int u = 0; u < XXH_SS; ++u)
+      v[u] = active && u < stripes ? __ldg(w + 4 * u) : 0;
+    for (int t = 0; t < nst; ++t) {
+      uint64_t nv[XXH_SS];
+      const int s0 = (t + 1) * XXH_SS;
 #pragma unroll
-        for (int u = 0; u < XXH_AHEAD; ++u) nv[u] = __ldg(w + 4 * (s + u));
+      for (int u = 0; u < XXH_SS; ++u)
+        nv[u] = active && s0 + u < stripes ? __ldg(w + 4 * (s0 + u)) : 0;
+      if (t >= XXH_STAGES) bar_sync(empty(t), 64);
+      uint64_t* slot = ring[lr < XXH_ROWS ? lr : 0] +
+                       (t % XXH_STAGES) * XXH_SS * 4 + q;
+      if (lane < XXH_THREADS) {
+#pragma unroll
+        for (int u = 0; u < XXH_SS; ++u) slot[4 * u] = v[u] * P2;
       }
+      bar_arrive(full(t), 64);
 #pragma unroll
-      for (int u = 0; u < XXH_AHEAD; ++u) acc = xround(acc, v[u]);
-#pragma unroll
-      for (int u = 0; u < XXH_AHEAD; ++u) v[u] = nv[u];
+      for (int u = 0; u < XXH_SS; ++u) v[u] = nv[u];
     }
-    for (int s = full_batches * XXH_AHEAD; s < stripes; ++s)
-      acc = xround(acc, __ldg(w + 4 * s));
+    return;
   }
-  const int base = threadIdx.x & 31 & ~3;
-  const unsigned full = 0xffffffffu;
-  const unsigned long long a = acc;
-  const uint64_t a0 = __shfl_sync(full, a, base);
-  const uint64_t a1 = __shfl_sync(full, a, base + 1);
-  const uint64_t a2 = __shfl_sync(full, a, base + 2);
-  const uint64_t a3 = __shfl_sync(full, a, base + 3);
-  if (r >= B || q != 0) return;
+
+  const uint64_t acc0 = q == 0 ? seed + P1 + P2 : q == 1 ? seed + P2
+                        : q == 2 ? seed : seed - P1;
+  uint64_t a = rotr64(acc0 * P1_INV, 31);  // xstep(a, w) = acc0 + w
+  long long waited = 0;
+#ifdef CT_XXH64_CLOCK
+  const long long t0 = clock64();
+#endif
+  // the fold: stage after stage, each word read from shared memory two
+  // rounds before its round; the next stage's first two words are read
+  // (after its FULL) during this stage's last two rounds, and a slot is
+  // handed back (EMPTY) where the loader will refill it
+  const uint64_t* ring_r = ring[lr < XXH_ROWS ? lr : 0] + q;
+  const int nfull = stripes / XXH_SS, tail = stripes - nfull * XXH_SS;
+  wait_full(full(0), waited);
+  uint64_t p0 = ring_r[0], p1 = ring_r[4];
+  for (int t = 0; t < nfull; ++t) {
+    const int cur = (t % XXH_STAGES) * XXH_SS * 4;
+    const int next = ((t + 1) % XXH_STAGES) * XXH_SS * 4;
+    fold_stage<false>(a, p0, p1, ring_r, cur, next, t + 1 < nst, full(t + 1),
+                      XXH_SS, waited);
+    if (t + XXH_STAGES < nst) bar_arrive(empty(t), 64);
+  }
+  if (tail)
+    fold_stage<true>(a, p0, p1, ring_r, (nfull % XXH_STAGES) * XXH_SS * 4, 0,
+                     false, 0, tail, waited);
+  const uint64_t acc = xstep(a, 0);
+#ifdef CT_XXH64_CLOCK
+  // the lane's loop as timed, then as many rounds on words in registers:
+  // the chain alone (its words depend on t1, its result is stored)
+  const long long t1 = clock64();
+  uint64_t c = acc, x = seed + (uint64_t)(t1 & 1);
+  for (int s = 0; s < stripes; ++s) {
+    c = xstep(c, x);
+    x += P3;
+  }
+  const long long t2 = clock64();
+  if (active) {
+    long long* o = clk + 5 * (4 * (size_t)r + q);
+    o[0] = t1 - t0;   // the lane's loop
+    o[1] = t2 - t1;   // the chain alone
+    o[2] = stripes;   // rounds
+    o[3] = waited;    // cycles waiting for its stages
+    o[4] = (long long)c;  // the chain's result, kept so it is computed
+  }
+#endif
+  const int base = lane & ~3;
+  const unsigned long long av = acc;
+  const uint64_t a0 = __shfl_sync(0xffffffffu, av, base);
+  const uint64_t a1 = __shfl_sync(0xffffffffu, av, base + 1);
+  const uint64_t a2 = __shfl_sync(0xffffffffu, av, base + 2);
+  const uint64_t a3 = __shfl_sync(0xffffffffu, av, base + 3);
+  if (!active || q != 0) return;
   uint64_t h = rotl64(a0, 1) + rotl64(a1, 7) + rotl64(a2, 12) + rotl64(a3, 18);
   h = xmerge(h, a0);
   h = xmerge(h, a1);
@@ -210,15 +368,29 @@ int ct_crc32c_batch(const uint8_t* rows, long long stride, int B, int n,
 
 // rows: (B, n) u8, contiguous and 8-byte aligned, n a positive multiple
 // of 32; out (B, 2) int64.
+static int xxh64_launch(const uint8_t* rows, int B, int n,
+                        unsigned long long seed, long long* out,
+                        long long* clk, cudaStream_t stream) {
+  if (B <= 0) return 0;
+  if (n < 32 || n % 32) return (int)cudaErrorInvalidValue;
+  const int grid = (B + XXH_ROWS - 1) / XXH_ROWS;
+  xxh64_kernel<<<grid, 64, 0, stream>>>(rows, B, n, seed, out, clk);
+  return (int)cudaGetLastError();
+}
+
 int ct_xxh64_batch(const uint8_t* rows, int B, int n,
                    unsigned long long seed, long long* out,
                    cudaStream_t stream) {
-  if (B <= 0) return 0;
-  if (n < 32 || n % 32) return (int)cudaErrorInvalidValue;
-  const long long threads = 4LL * B;
-  const int grid = (int)((threads + XXH_THREADS - 1) / XXH_THREADS);
-  xxh64_kernel<<<grid, XXH_THREADS, 0, stream>>>(rows, B, n, seed, out);
-  return (int)cudaGetLastError();
+  return xxh64_launch(rows, B, n, seed, out, nullptr, stream);
 }
+
+#ifdef CT_XXH64_CLOCK
+// ct_xxh64_batch, and clk (B, 4, 5) int64 receives each lane's cycles.
+int ct_xxh64_batch_clock(const uint8_t* rows, int B, int n,
+                         unsigned long long seed, long long* out,
+                         long long* clk, cudaStream_t stream) {
+  return xxh64_launch(rows, B, n, seed, out, clk, stream);
+}
+#endif
 
 }  // extern "C"

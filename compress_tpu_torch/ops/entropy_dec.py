@@ -209,7 +209,8 @@ def fse_decode_chunks(windows: torch.Tensor, lbit: torch.Tensor,
                       st1: torch.Tensor, st2: torch.Tensor,
                       npair: torch.Tensor, nore1: torch.Tensor,
                       nore2: torch.Tensor, tables: torch.Tensor,
-                      k: int = HUFF_CKPT_K):
+                      k: int = HUFF_CKPT_K, *,
+                      routes: torch.Tensor | None = None):
     """Chunked 2-state interleaved FSE decode.
 
     windows (N, C, win) uint8 (win a multiple of 4 up to 64; ``WIN``) with
@@ -224,7 +225,9 @@ def fse_decode_chunks(windows: torch.Tensor, lbit: torch.Tensor,
     j < its nore, and the cursor drops by nb; pairs from npair on give
     symbol 0 and move nothing.  Returns (syms (N, C, k) uint8, end cursors
     (N, C) int32).  A CUDA tensor goes through the kernel (one launch), a
-    CPU tensor through ``fse_decode_chunks_ref``."""
+    CPU tensor through ``fse_decode_chunks_ref``.  ``routes``, a (2,) int32
+    CUDA tensor, gets the kernel's chunks added: [0] those of tiles with no
+    pair to decode (written without a walk), [1] those walked."""
     if windows.device.type == "cpu":
         return fse_decode_chunks_ref(windows, lbit, st1, st2, npair, nore1,
                                      nore2, tables, k)
@@ -240,6 +243,11 @@ def fse_decode_chunks(windows: torch.Tensor, lbit: torch.Tensor,
                                  torch.int32, (N, C))
     _cuda.require_cuda_input(tables, "fse_decode_chunks: tables",
                              torch.int32, (N, FSE_STATES))
+    if routes is not None:
+        _cuda.require_cuda_input(routes, "fse_decode_chunks: routes",
+                                 torch.int32, (2,))
+        if routes.device != dev:
+            raise ValueError("fse_decode_chunks: routes on another device")
     at = (N * C * k + 15) // 16 * 16       # the end cursors' offset
     out = torch.empty(at + 4 * N * C, dtype=torch.uint8, device=dev)
     syms = out[:N * C * k].view(N, C, k)
@@ -248,7 +256,8 @@ def fse_decode_chunks(windows: torch.Tensor, lbit: torch.Tensor,
         rc = _cuda.library().ct_fse_decode(
             windows.data_ptr(), *(t.data_ptr() for t in ins),
             tables.data_ptr(), N, C, win, k, syms.data_ptr(),
-            endl.data_ptr(), _cuda.stream(dev))
+            endl.data_ptr(), None if routes is None else routes.data_ptr(),
+            _cuda.stream(dev))
     _cuda.check(rc, "fse_decode_chunks")
     fse_decode_chunks.launches += 1
     return syms, endl

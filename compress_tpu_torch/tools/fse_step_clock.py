@@ -4,8 +4,8 @@ card.
     python3 compress_tpu_torch/tools/fse_step_clock.py
 
 Builds ``csrc/fseenc.cu`` twice more with ``nvcc`` into
-``compress_tpu_torch/_build/clock/`` (each a library of its own, beside
-the package's): with ``-DCT_FSE_CLOCK`` the kernel reads the SM clock
+``compress_tpu_torch/_build/clock/`` (``tools/clockbuild.py``; each a
+library of its own, beside the package's): with ``-DCT_FSE_CLOCK`` the kernel reads the SM clock
 (``clock64``) around each row's walk and writes the cycles and the row's
 route, and with ``-DCT_FSE_CLOCK -DCT_FSE_EXACT`` every row takes the
 exact step (the reference's arithmetic, clips included) in the same
@@ -31,26 +31,16 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[2]))
 from compress_tpu_torch import _cuda, corpus  # noqa: E402
 from compress_tpu_torch.ops import entropy as E  # noqa: E402
+from compress_tpu_torch.tools.clockbuild import (  # noqa: E402
+    compile_source, device_ms)
 
 BUILDS = {"one_load": ("-DCT_FSE_CLOCK",),
           "exact": ("-DCT_FSE_CLOCK", "-DCT_FSE_EXACT")}
 N_BLOCKS, SEED, ROW = 256, 0, 16 << 10
 
 
-def build(name: str, defines) -> ctypes.CDLL:
-    out = _cuda.BUILD_DIR / "clock"
-    out.mkdir(parents=True, exist_ok=True)
-    obj, so = out / f"fseenc_{name}.o", out / f"libfseenc_{name}.so"
-    nvcc = _cuda._nvcc()
-    for cmd in ([nvcc, *_cuda.NVCC_FLAGS, *defines, "-c",
-                 str(_cuda.CSRC / "fseenc.cu"), "-o", str(obj)],
-                [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
-                 "-o", str(so), str(obj)]):
-        run = subprocess.run(cmd, stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT, text=True)
-        if run.returncode:
-            raise RuntimeError(f"nvcc failed:\n{run.stdout}")
-    lib = ctypes.CDLL(str(so))
+def build(defines) -> ctypes.CDLL:
+    lib = compile_source("fseenc.cu", defines)
     lib.ct_fse_encode.argtypes = _cuda._SIGNATURES["ct_fse_encode"]
     lib.ct_fse_encode.restype = ctypes.c_int
     return lib
@@ -75,28 +65,10 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     result = {}
     for name, defines in BUILDS.items():
-        result[name] = run(build(name, defines), name, t, st, dnb, dfs, want,
+        result[name] = run(build(defines), name, t, st, dnb, dfs, want,
                            names)
     print(json.dumps({"fse_step_clock": result, "device": smi}))
     return 0
-
-
-def device_ms(fn, reps: int = 10) -> float:
-    """Median device time of fn() (each call queued behind a device spin,
-    as ``chip_smoke.cuda_ms(..., spin=True)``)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[len(times) // 2]
 
 
 def run(lib, name, t, st, dnb, dfs, want, names) -> dict:

@@ -36,6 +36,7 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[2]))
 from compress_tpu_torch import _cuda, corpus  # noqa: E402
 from compress_tpu_torch.ops import exec_kern as X  # noqa: E402
+from compress_tpu_torch.tools.clockbuild import compile_source  # noqa: E402
 
 STREAMS, SIZE, SEED, HIST_BLOCKS = 8, 1 << 20, 0, 8
 
@@ -68,19 +69,7 @@ def phase21_inputs(dev):
 
 
 def build() -> ctypes.CDLL:
-    out = _cuda.BUILD_DIR / "clock"
-    out.mkdir(parents=True, exist_ok=True)
-    obj, so = out / "exec_clock.o", out / "libexec_clock.so"
-    nvcc = _cuda._nvcc()
-    for cmd in ([nvcc, *_cuda.NVCC_FLAGS, "-DCT_HIST_CLOCK", "-c",
-                 str(_cuda.CSRC / "exec.cu"), "-o", str(obj)],
-                [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
-                 "-o", str(so), str(obj)]):
-        run = subprocess.run(cmd, stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT, text=True)
-        if run.returncode:
-            raise RuntimeError(f"nvcc failed:\n{run.stdout}")
-    lib = ctypes.CDLL(str(so))
+    lib = compile_source("exec.cu", ("-DCT_HIST_CLOCK",))
     lib.ct_exec_hist.argtypes = _cuda._SIGNATURES["ct_exec_hist"]
     lib.ct_exec_hist.restype = ctypes.c_int
     lib.ct_hist_clock_read.argtypes = [ctypes.c_void_p]

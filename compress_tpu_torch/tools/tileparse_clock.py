@@ -33,26 +33,15 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[2]))
 from compress_tpu_torch import _cuda, corpus  # noqa: E402
 from compress_tpu_torch.ops import lz2, zdev  # noqa: E402
-from compress_tpu_torch.tools.zdevfse_clock import device_ms  # noqa: E402
+from compress_tpu_torch.tools.clockbuild import (  # noqa: E402
+    compile_source, device_ms)
 
 PARTS = ("cursors", "wait", "phase1", "phase2", "phase3", "store")
 N_BLOCKS, JOBS, SEED = 256, 8, 0
 
 
 def build() -> ctypes.CDLL:
-    out = _cuda.BUILD_DIR / "clock"
-    out.mkdir(parents=True, exist_ok=True)
-    obj, so = out / "tileparse_clock.o", out / "libtileparse_clock.so"
-    nvcc = _cuda._nvcc()
-    for cmd in ([nvcc, *_cuda.NVCC_FLAGS, "-DCT_TILEPARSE_CLOCK", "-c",
-                 str(_cuda.CSRC / "tileparse.cu"), "-o", str(obj)],
-                [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
-                 "-o", str(so), str(obj)]):
-        run = subprocess.run(cmd, stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT, text=True)
-        if run.returncode:
-            raise RuntimeError(f"nvcc failed:\n{run.stdout}")
-    lib = ctypes.CDLL(str(so))
+    lib = compile_source("tileparse.cu", ("-DCT_TILEPARSE_CLOCK",))
     sig = _cuda._SIGNATURES["ct_tile_parse"]
     lib.ct_tile_parse_clock.argtypes = sig[:-1] + [ctypes.c_void_p, sig[-1]]
     lib.ct_tile_parse_clock.restype = ctypes.c_int

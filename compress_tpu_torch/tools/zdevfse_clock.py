@@ -5,7 +5,8 @@
 
 Builds ``compress_tpu_torch/csrc/zdevfse.cu`` of the checkout at DIR
 (default: this one) with ``nvcc`` into ``compress_tpu_torch/_build/clock/``
-(each build a library of its own, beside the package's):
+(``tools/clockbuild.py``; each build a library of its own, beside the
+package's):
 
 - ``one_load``: ``-DCT_ZDEVFSE_CLOCK``: the entry ``ct_zdev_fse_clock``
   reads the SM clock (``clock64``) around each row's walk of each chunk
@@ -32,7 +33,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import pathlib
 import subprocess
@@ -44,6 +44,8 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[2]))
 from compress_tpu_torch import _cuda, corpus  # noqa: E402
 from compress_tpu_torch.ops import lz2, zdev  # noqa: E402
+from compress_tpu_torch.tools.clockbuild import (  # noqa: E402
+    compile_source, device_ms)
 
 BUILDS = {"one_load": ("-DCT_ZDEVFSE_CLOCK",),
           "exact": ("-DCT_ZDEVFSE_CLOCK", "-DCT_ZDEVFSE_EXACT"),
@@ -51,32 +53,15 @@ BUILDS = {"one_load": ("-DCT_ZDEVFSE_CLOCK",),
 JOBS, SEED = 8, 0
 
 
-def build(root: pathlib.Path, name: str, defines) -> ctypes.CDLL:
-    out = _cuda.BUILD_DIR / "clock"
-    out.mkdir(parents=True, exist_ok=True)
-    tag = "zdevfse_{}_{}".format(name, hashlib.sha256(
-        str(root.resolve()).encode()).hexdigest()[:8])
-    obj, so = out / f"{tag}.o", out / f"lib{tag}.so"
-    nvcc = _cuda._nvcc()
-    src = root / "compress_tpu_torch" / "csrc" / "zdevfse.cu"
-    for cmd in ([nvcc, *_cuda.NVCC_FLAGS, *defines, "-c", str(src), "-o",
-                 str(obj)],
-                [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
-                 "-o", str(so), str(obj)]):
-        run = subprocess.run(cmd, stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT, text=True)
-        if run.returncode:
-            raise RuntimeError(f"nvcc failed:\n{run.stdout}")
-    regs = [ln.strip() for ln in run.stdout.splitlines() if "registers" in ln]
-    lib = ctypes.CDLL(str(so))
-    lib.ct_zdev_fse.argtypes = _cuda._SIGNATURES["ct_zdev_fse"]
+def build(root: pathlib.Path, defines) -> ctypes.CDLL:
+    lib = compile_source("zdevfse.cu", defines, root)
+    sig = _cuda._SIGNATURES["ct_zdev_fse"]
+    lib.ct_zdev_fse.argtypes = sig
     lib.ct_zdev_fse.restype = ctypes.c_int
     if "-DCT_ZDEVFSE_CLOCK" in defines:  # the entry with its clk output
-        sig = _cuda._SIGNATURES["ct_zdev_fse"]
         lib.ct_zdev_fse_clock.argtypes = sig[:-1] + [ctypes.c_void_p,
                                                      sig[-1]]
         lib.ct_zdev_fse_clock.restype = ctypes.c_int
-    lib.ptxas = regs
     return lib
 
 
@@ -99,24 +84,6 @@ def capture(dev):
     finally:
         zdev.fse_scan, lz2.tile_parse = f_scan, f_parse
     return caps[0]
-
-
-def device_ms(fn, reps: int = 10) -> float:
-    """Median device time of fn() (each call queued behind a device spin,
-    as ``chip_smoke.cuda_ms(..., spin=True)``)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[len(times) // 2]
 
 
 class Run:
@@ -200,7 +167,7 @@ def main() -> int:
     root = pathlib.Path(opt.root)
     runs = []
     for name in opt.builds:
-        lib = build(root, name, BUILDS[name])
+        lib = build(root, BUILDS[name])
         run = Run(lib, name, "-DCT_ZDEVFSE_CLOCK" in BUILDS[name], args)
         run.check(want)
         print(f"{name}: built and equal to the plain version; ptxas: "

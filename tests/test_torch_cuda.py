@@ -29,11 +29,15 @@ routes end to end; the FSE batch encode chain and chunk decode on
 int32 value), the encode chain also on every corpus class, at row
 lengths 2, 18 and 16386 and table logs 1 to 12, with the rows it sends
 to each route counted, batches of 1, 7 and 1025 rows and twenty
-repeated launches, with ``fse.compress_batch`` / ``decompress_batch``
-end to end; CRC-32C and
+repeated launches, the chunk decode also on tables of any int32 entry
+(``corpus.FSE_DEC_WILD``) at k = 2, 6, 32 and 64, on batches of 1, 7 and
+1028 rows of 1, 255, 257 and 512 chunks with rows all live, all dead and
+mixed and the chunks on each route counted, with ``fse.compress_batch`` /
+``decompress_batch`` end to end; CRC-32C and
 xxHash64 on rows of many lengths, prefixes, seeds, batches of 1 and 7 and
-misaligned rows; ``compress_device`` on inputs that are not whole
-jobs; and the two XLA-graph encoders: the tile parse on hostile lengths
+misaligned rows, xxHash64 also on rows that are not a whole number of its
+stages in batches of 1, 255, 257 and 1024 rows; ``compress_device`` on
+inputs that are not whole jobs; and the two XLA-graph encoders: the tile parse on hostile lengths
 (every position 4, matches that end at a tile's end, whole-tile matches,
 raw values, values near INT32_MAX, the S2 engine's own) at tiles 1 to
 700 on its warp route and 4096 and the whole 64 KiB block on its chunked
@@ -1469,6 +1473,84 @@ def test_fse_decode_kernel_repeatable(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 6, 32, 64])
+def test_fse_decode_kernel_wild_tables(cuda_device, k):
+    """Table entries of any int32 value (nb 10-15, new states outside
+    0..511) and cursors past both ends of the window and of int32."""
+    d = corpus.fse_dec_inputs(corpus.FSE_DEC_WILD)
+    d["npair"] = np.minimum(d["npair"], k // 2)
+    _fse_dec(cuda_device, d, k)
+
+
+FSE_TILE = 256      # chunks a CTA of the chunk decode
+
+
+def _fse_dec_rows(N: int, C: int, seed: int, dead: str):
+    """N rows of C chunks from the nb_zero class, their cursors anywhere
+    around the window; ``dead`` "none", "all" or "mixed" (a dead row, a
+    row whose first tile is live and the rest dead, a dead tile then
+    live ones, single dead chunks)."""
+    rng = np.random.default_rng(seed)
+    d = corpus.fse_dec_inputs("nb_zero")
+    idx = rng.integers(0, d["lbit"].shape[1], (N, C))
+    rows = rng.integers(0, d["lbit"].shape[0], (N, C))
+    out = {key: d[key][rows, idx] for key in ("windows", "lbit", "st1",
+                                              "st2", "npair", "nore1",
+                                              "nore2")}
+    out["tables"] = d["tables"][rng.integers(0, 3, N)]
+    out["lbit"] = rng.integers(-40, 500, (N, C)).astype(np.int32)
+    if dead == "all":
+        out["npair"][:] = 0
+    elif dead == "mixed":
+        out["npair"][::3] = 0
+        out["npair"][1::3, FSE_TILE:] = 0
+        out["npair"][2::3, :FSE_TILE] = 0
+        out["npair"][:, 5::7] = 0
+    return out
+
+
+def _fse_routes_want(npair):
+    N, C = npair.shape
+    dead = sum(min(FSE_TILE, C - c0) for r in range(N)
+               for c0 in range(0, C, FSE_TILE)
+               if not (npair[r, c0:c0 + FSE_TILE] > 0).any())
+    return [dead, N * C - dead]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 255, 257, 512])
+@pytest.mark.parametrize("N", [1, 7, 1028])
+def test_fse_decode_kernel_rows_and_routes(cuda_device, N, C):
+    """Batches of 1, 7 and 1028 rows of 1, 255, 257 and 512 chunks (tiles
+    cut short, rows not a multiple of 16 bytes apart at k = 6), rows all
+    live, all dead and mixed, with the chunks on each route counted."""
+    for dead, k in (("none", 32), ("all", 32), ("mixed", 32), ("mixed", 6)):
+        d = _fse_dec_rows(N, C, N * 1000 + C, dead)
+        d["npair"] = np.minimum(d["npair"], k // 2)
+        args = _fse_dec_args(cuda_device, d)
+        routes = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+        got = entropy_dec.fse_decode_chunks(*args, k=k, routes=routes)
+        _same(got, entropy_dec.fse_decode_chunks_ref(*args, k=k))
+        assert routes.tolist() == _fse_routes_want(d["npair"])
+
+
+@pytest.mark.cuda
+def test_fse_decode_kernel_routes_repeatable(cuda_device):
+    """Twenty launches of a mixed batch give the same outputs and add the
+    same route counts each time."""
+    d = _fse_dec_rows(9, 600, 5, "mixed")
+    args = _fse_dec_args(cuda_device, d)
+    routes = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    first = entropy_dec.fse_decode_chunks(*args, routes=routes)
+    _same(first, entropy_dec.fse_decode_chunks_ref(*args))
+    for _ in range(20):
+        _same(entropy_dec.fse_decode_chunks(*args, routes=routes), first)
+    assert routes.tolist() == [21 * v for v in _fse_routes_want(d["npair"])]
+    with pytest.raises(ValueError):
+        entropy_dec.fse_decode_chunks(*args, routes=routes[:1])
+
+
+@pytest.mark.cuda
 def test_fse_kernels_reject_bad_inputs(cuda_device):
     blocks, st, dnb, dfs = (torch.from_numpy(a).to(cuda_device)
                             for a in corpus.fse_enc_inputs("short"))
@@ -1582,6 +1664,41 @@ def test_xxh64_kernel_batch_of_one_misaligned_and_repeatable(cuda_device):
         _same([checksum.xxh64_batch(view, 7)], [got])
     with pytest.raises(ValueError):
         checksum.xxh64_batch(t[:, :48])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [544, 4192, 65536 + 96])
+@pytest.mark.parametrize("B", [1, 255, 257, 1024])
+def test_xxh64_kernel_stages_and_batches(cuda_device, B, n):
+    """Rows whose stripes are not a whole number of the kernel's stages
+    (17, 131 and 2051 stripes of 32 bytes) in batches of 1, 255, 257 and
+    1024 rows, seeds 0 and 2^64 - 1."""
+    from compress_tpu_torch.utils.xxhash64 import xxh64
+
+    rows = np.random.default_rng(B + n).integers(0, 256, (B, n),
+                                                 dtype=np.uint8)
+    rows[0] = 0
+    t = torch.from_numpy(rows).to(cuda_device)
+    for seed in (0, (1 << 64) - 1):
+        got = checksum.xxh64_batch(t, seed)
+        _same([got], [checksum.xxh64_batch_ref(t, seed)])
+        assert [lo | hi << 32 for lo, hi in got[:3].tolist()] == \
+            [xxh64(r.tobytes(), seed) for r in rows[:3]]
+
+
+@pytest.mark.cuda
+def test_xxh64_kernel_views_not_16_byte_aligned_and_repeatable(cuda_device):
+    """A view that starts 8 bytes past a 16-byte boundary (read in place:
+    the kernel loads 8-byte words), and twenty launches."""
+    rows = np.random.default_rng(4).integers(0, 256, (1, 3 * 4096 + 64),
+                                             dtype=np.uint8)
+    t = torch.from_numpy(rows).to(cuda_device)
+    view = t.view(-1)[8:8 + 2 * (4096 + 544)].view(2, -1)
+    assert view.data_ptr() % 16 == 8
+    got = checksum.xxh64_batch(view, 3)
+    _same([got], [checksum.xxh64_batch_ref(view, 3)])
+    for _ in range(20):
+        _same([checksum.xxh64_batch(view, 3)], [got])
 
 
 @pytest.mark.cuda
