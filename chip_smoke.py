@@ -39,9 +39,11 @@ them that starts an odd number of bytes in (``corpus.replica_jobs``):
 9.  holds the finder, parse, repeat-offset, FSE-chain and literal-lookup
     kernels against their plain versions on the path's own intermediate
     tensors (``zenc2._merged_matches`` feeds the parse, as in the
-    encoder): bit-identical;
+    encoder), and the histogram kernel's masked route on the literal
+    stage's literals and ``is_lit``: bit-identical;
 10. runs ``zstd.device.compress_device`` with the launch counters set to 0
-    just before and read just after, prints the frame size and ratio,
+    just before and read just after (the histogram kernel's too: the
+    literal stage's per-block counts), prints the frame size and ratio,
     walks the frame (magic, header, every block header, the last-block
     bit, regenerated sizes summing to the input) and decodes it with the
     port's host zstd decoder (``zstd.decompress``, timed), which must
@@ -50,9 +52,9 @@ them that starts an odd number of bytes in (``corpus.replica_jobs``):
     (long-range channel, codes, literal, pack) with CUDA events, the whole
     call on the host clock, and traces one call; prints the literal
     lookup's achieved GB/s beside its bound's, and times the finder, the
-    parse, the literal lookup, ``torch.gather`` and a fill of the lookup's
-    two outputs alone (the card's write rate on them) by device time too,
-    and the repeat scan and the FSE chain by device time beside the
+    parse, the literal lookup, ``torch.gather``, a fill of the lookup's
+    two outputs alone (the card's write rate on them) and the masked
+    histograms of the literals by device time too, and the repeat scan and the FSE chain by device time beside the
     longest chain.
 
 Device batch decode of what the port encodes:
@@ -72,8 +74,9 @@ Device batch decode of what the port encodes:
     16 KiB, ``compress_4x_batch(shared_table=True, max_log=8)``; holds the
     chunk kernel against its plain version on the prepared windows, runs
     ``decompress_4x_batch`` with the launch counter (one launch, every row
-    equal to its input) and times encode, prep, kernel (also by device
-    time, and with no symbols to decode) and call;
+    equal to its input; the encode's one launch of the histogram kernel
+    counted too) and times encode, prep, kernel (also by device time, and
+    with no symbols to decode) and call;
 15. huff0 4X, table engine (one table per container): the phase-3 corpus
     as 1024 rows of 16 KiB at ``max_log=11``, the same checks and times.
 
@@ -146,19 +149,27 @@ Inputs that are not whole jobs, the FSE batch codec and the checksums:
     runs ``fse.decompress_batch`` with the counters (one launch, exactly
     the 4 log-11 containers on the host, every row equal to its input);
     times both kernels (also by device time), their plain versions,
-    ``fse_encode_blocks``, both whole calls, the 16 MiB histogram
-    (``histogram256_torch``, plain PyTorch, beside ``torch.bincount``)
-    and the per-row histograms, and traces one call of each (the decode's
-    up to three times where the profiler records no device time);
+    ``fse_encode_blocks`` and both whole calls, and traces one call of
+    each (the decode's up to three times where the profiler records no
+    device time); holds the histogram kernel (``csrc/histogram.cu``:
+    ``byte_histograms`` and ``histogram256_torch``) against both plain
+    versions and ``torch.bincount``, counts its launch in
+    ``compress_batch`` (one), and times it (also by device time) on the
+    1024 rows, on 1024 rows each of ``zeros``, ``rand4`` and ``rand256``
+    alone, on the 1024 rows under a random and a prefix mask (the masked
+    route, held against ``byte_histograms_ref`` too), and on the 16 MiB
+    beside ``torch.bincount``, with the bound;
 24. CRC-32C and xxHash64 (``csrc/checksum.cu``) of the phase-3 corpus (256
     rows of 64 KiB): holds ``crc32c_batch`` (whole rows and 65536 - 4097
     bytes) and ``xxh64_batch`` (seeds 0 and 2^64 - 1) against their plain
     versions and 8 rows against the host ``crc32c`` / ``xxh64``; one call
     of each with the launch counters; times both kernels (also by device
     time) and their plain versions, with their bounds; builds
-    ``checksum.cu`` with ``-DCT_XXH64_CLOCK`` (``tools/checksum_clock.py``)
-    and prints xxHash64's cycles a round on its chain and the chain's
-    floor beside the byte bound.
+    ``checksum.cu`` with ``-DCT_XXH64_CLOCK -DCT_CRC32C_CLOCK``
+    (``tools/checksum_clock.py``) and prints xxHash64's cycles a round on
+    its chain and the chain's floor beside the byte bound, and CRC-32C's
+    cycles a CTA by part (table copy, walk, combine) beside its device
+    time.
 
 The two XLA-graph encoders (the reference's CPU engines, which the port
 also runs on the card):
@@ -181,11 +192,13 @@ also runs on the card):
     ``compress_device(engine="v1")`` on ``corpus.replica_jobs(8, 1 MiB)``
     (one launch of 8 jobs, 512 blocks of 16 KiB) at levels 1, 2 and 3,
     with the launch counters set to 0 just before each call and read just
-    after (one launch each of the tile parse, the repeat scan and the FSE
-    scan, ``csrc/zdevfse.cu``); every frame decodes with the port's host
+    after (one launch each of the tile parse, the repeat scan, the FSE
+    scan, ``csrc/zdevfse.cu``, and the histogram kernel on the literals);
+    every frame decodes with the port's host
     decoder to its input and the sizes are monotone (level 3 <= 2 <= 1);
-    holds the three kernels against their plain versions on the level-2
-    call's own inputs; prints the routes (tiles of the parse; rows of the
+    holds the three kernels and the histogram kernel's masked route against
+    their plain versions on the level-2 call's own inputs (the
+    histogram's timed by device time too); prints the routes (tiles of the parse; rows of the
     FSE scan on its one-load and exact steps), CTAs an SM and registers of
     the parse and the FSE scan; times the three (also by device time),
     their plain versions and the whole call (host clock, median of 2) with
@@ -506,11 +519,13 @@ def _exec_bounds(lit_rows, pieces, rstart, n_out: int):
 
 
 def zstd_path(dev) -> list:
-    """Phases 9-11: the zstd v2 path.  Returns its kernels' JSON entries
-    and the finder's numbers on this path (launches, times, error)."""
+    """Phases 9-11: the zstd v2 path.  Returns its kernels' JSON entries,
+    the finder's numbers on this path (launches, times, error), the
+    launches, and the histogram kernel's masked numbers on its literals."""
     from compress_tpu_torch import corpus
     from compress_tpu_torch import zstd as Z
     from compress_tpu_torch.ops import lzkern, zenc2, zparse, zseqenc
+    from compress_tpu_torch.utils import histogram as H
     from compress_tpu_torch.zstd import device as zdevice
 
     job, blk = ZSTD_JOB, zenc2.BLOCK
@@ -551,9 +566,13 @@ def zstd_path(dev) -> list:
     hold("fse_chain", chain, chain_want)
     hold("fse_chain (clamped walk)",
          zseqenc.fse_chain(*chain_in, clamped_only=True), chain_want)
-    packed = zenc2._literal_tables(lits, lit_cnt, blk)[4]
+    lit_tabs = zenc2._literal_tables(lits, lit_cnt, blk)
+    is_lit, packed = lit_tabs[0], lit_tabs[4]
     hold("litlut", zenc2._litlut(lits, packed),
          zenc2._litlut_ref(lits, packed))
+    hold("byte_histograms (masked: literals, is_lit)",
+         [H.byte_histograms(lits, is_lit)],
+         [H.byte_histograms_ref(lits, is_lit)])
     ns = n_seqs.to(torch.int64)
     sum_seqs, max_seqs = int(ns.sum()), int(ns.max())
     _say(f"zstd intermediates: {R} blocks, sequences {sum_seqs} (longest "
@@ -563,7 +582,8 @@ def zstd_path(dev) -> list:
     # ---- 10. main path ------------------------------------------------------
     counted = {"find": lzkern.find_matches_blocks,
                "parse": zparse.parse_blocks, "rep": zseqenc.rep_scan,
-               "fse": zseqenc.fse_chain, "litlut": zenc2._litlut}
+               "fse": zseqenc.fse_chain, "litlut": zenc2._litlut,
+               "hist": H.byte_histograms}
     for f in counted.values():
         f.launches = 0
     t0 = time.perf_counter()
@@ -631,7 +651,9 @@ def zstd_path(dev) -> list:
             *chain_in, clamped_only=True), 10, True),
         "gather": cuda_ms(lambda: torch.gather(tab256, 1, idx), 20, True),
         "fill": cuda_ms(lambda: fill.fill_(7), 20, True),
+        "hist": cuda_ms(lambda: H.byte_histograms(lits, is_lit), 20, True),
     }
+    hist_plain = cuda_ms(lambda: H.byte_histograms_ref(lits, is_lit), 3)
     del fill
     t_call = host_ms(lambda: zdevice.compress_device(data, job=job), 3)
     _say(f"zstd kernel times (ms, {R} blocks): " + ", ".join(
@@ -670,7 +692,10 @@ def zstd_path(dev) -> list:
          f"{dev_t['rep']:.4f}, FSE chain {t['fse']:.4f} / {dev_t['fse']:.4f} "
          f"(longest chain {max_seqs}; device time with the clamped re-walk "
          f"everywhere {dev_t['fse_clamped']:.4f}); a fill of the lookup's "
-         f"two outputs alone {dev_t['fill']:.4f} device time")
+         f"two outputs alone {dev_t['fill']:.4f} device time; masked "
+         f"byte_histograms of the literals ({R} rows of {blk}, "
+         f"{int(lit_cnt.sum())} bytes counted) {dev_t['hist']:.4f} device "
+         f"time (plain {hist_plain:.4f})")
     rows = [
         ("parse_blocks", "parse", "compress_tpu_torch/csrc/zparse.cu",
          "compress_tpu/ops/zparse.py:90", b_parse, None),
@@ -704,7 +729,12 @@ def zstd_path(dev) -> list:
             "zstd_plain_ms": plain["find"], "zstd_bound_ms": b_find[0],
             "zstd_max_abs_err": errs["find_matches"],
             "zstd_device_ms": dev_t["find"]}
-    return out, find, launches
+    # the histogram kernel's masked route on the literal stage's inputs
+    hist = {"v2_masked_max_abs_err":
+            errs["byte_histograms (masked: literals, is_lit)"],
+            "v2_masked_device_ms": dev_t["hist"],
+            "v2_masked_plain_ms": hist_plain, "v2_masked_rows": R}
+    return out, find, launches, hist
 
 
 def s2_decode_path(dev, data: bytes, bodies) -> dict:
@@ -809,6 +839,7 @@ def huff0_path(dev, blocks_np) -> list:
     from compress_tpu_torch.huff0 import batch as hb
     from compress_tpu_torch.ops import entropy_dec as ED
     from compress_tpu_torch.ops import entropy_kern as EK
+    from compress_tpu_torch.utils import histogram as H
 
     row = 16 << 10
     rng = np.random.default_rng(SEED)
@@ -819,17 +850,22 @@ def huff0_path(dev, blocks_np) -> list:
     out = []
     for engine, (rows, shared, max_log) in engines.items():
         n_in = rows.size
+        H.byte_histograms.launches = 0
         t0 = time.perf_counter()
         conts, accel = huff0.compress_4x_batch(
             rows, return_accel=True, shared_table=shared, max_log=max_log)
         torch.cuda.synchronize()
         t_enc = (time.perf_counter() - t0) * 1e3
+        hist_launches = H.byte_histograms.launches
+        if hist_launches != 1:
+            raise AssertionError(f"huff0 {engine} encode: {hist_launches} "
+                                 "launches of the histogram kernel")
         kept = [i for i, c in enumerate(conts) if c is not None]
         ratio = sum(len(conts[i]) for i in kept) / (len(kept) * row)
         _say(f"huff0 {engine}: {len(rows)} rows of {row} bytes ({n_in} "
              f"bytes, max_log {max_log}); {len(rows) - len(kept)} rows None; "
              f"ratio of the others {ratio:.6f}; encode {t_enc:.1f} ms "
-             "(host clock, first call)")
+             f"(host clock, first call), histogram launches {hist_launches}")
         t0 = time.perf_counter()
         cpu_args, metas, _ = hb._prep_decode_batch(conts, accel)
         t_prep = (time.perf_counter() - t0) * 1e3
@@ -912,7 +948,7 @@ def huff0_path(dev, blocks_np) -> list:
             "no_symbols_device_ms": t_empty, "peek_bits": mb,
             "chunks": nc, "encode_ms": t_enc, "prep_ms": t_prep,
             "call_ms": t_call, "none_rows": len(rows) - len(kept),
-            "ratio": ratio})
+            "ratio": ratio, "histogram_launches": hist_launches})
     return out
 
 
@@ -1574,11 +1610,13 @@ def tail_path(zstd_launches: dict) -> None:
     from compress_tpu_torch import corpus
     from compress_tpu_torch import zstd as Z
     from compress_tpu_torch.ops import lzkern, zenc2, zparse, zseqenc
+    from compress_tpu_torch.utils import histogram as H
     from compress_tpu_torch.zstd import device as zdevice
 
     counted = {"find": lzkern.find_matches_blocks,
                "parse": zparse.parse_blocks, "rep": zseqenc.rep_scan,
-               "fse": zseqenc.fse_chain, "litlut": zenc2._litlut}
+               "fse": zseqenc.fse_chain, "litlut": zenc2._litlut,
+               "hist": H.byte_histograms}
     extra = corpus.corpus_blocks(8, SEED + 22).tobytes()
     data = (corpus.replica_jobs(ZSTD_JOBS, ZSTD_JOB, SEED).tobytes()
             + extra[:TAIL_BYTES])
@@ -1609,14 +1647,14 @@ def tail_path(zstd_launches: dict) -> None:
              f"({dec_s:.2f} s)")
 
 
-def fse_path(dev, blocks_np) -> tuple:
+def fse_path(dev, blocks_np) -> list:
     """Phase 23: the FSE batch codec on the phase-3 corpus as 1024 rows of
-    16 KiB.  Returns the two FSE kernels' JSON entries and the histogram's
-    numbers."""
+    16 KiB.  Returns the two FSE kernels' JSON entries and the histogram
+    kernel's two (per-row and whole-input)."""
     from compress_tpu_torch import corpus, fse
     from compress_tpu_torch.ops import entropy as E
     from compress_tpu_torch.ops import entropy_dec as ED
-    from compress_tpu_torch.utils.histogram import histogram256_torch
+    from compress_tpu_torch.utils import histogram as H
 
     row = 16 << 10
     rows = blocks_np.reshape(-1, row)
@@ -1633,14 +1671,16 @@ def fse_path(dev, blocks_np) -> tuple:
     routes = routes.tolist()
     _say(f"fse_encode_chain routes: {routes[0]} rows on the one-load step, "
          f"{routes[1]} on the exact step")
-    E.fse_encode_chain.launches = 0
+    E.fse_encode_chain.launches = H.byte_histograms.launches = 0
     t0 = time.perf_counter()
     conts = fse.compress_batch(rows)
     torch.cuda.synchronize()
     enc_first = (time.perf_counter() - t0) * 1e3
     enc_launches = E.fse_encode_chain.launches
-    if enc_launches != 1:
-        raise AssertionError(f"compress_batch: {enc_launches} launches")
+    hist_launches = H.byte_histograms.launches
+    if enc_launches != 1 or hist_launches != 1:
+        raise AssertionError(f"compress_batch: {enc_launches} launches of "
+                             f"the chain, {hist_launches} of the histogram")
     kept = [i for i, c in enumerate(conts) if c is not None]
     ratio = sum(len(conts[i]) for i in kept) / (len(kept) * row)
     t0 = time.perf_counter()
@@ -1648,7 +1688,8 @@ def fse_path(dev, blocks_np) -> tuple:
               for i in range(FSE_HOST_LOG11)]
     host_s = time.perf_counter() - t0
     _say(f"FSE compress_batch: {N} rows of {row} bytes, launches "
-         f"{enc_launches}; {N - len(kept)} rows None; ratio of the others "
+         f"{enc_launches} (histogram {hist_launches}); {N - len(kept)} rows "
+         f"None; ratio of the others "
          f"{ratio:.6f}; first call {enc_first:.1f} ms; {FSE_HOST_LOG11} host "
          f"fse.compress(table_log=11) containers {host_s:.2f} s")
 
@@ -1742,17 +1783,47 @@ def fse_path(dev, blocks_np) -> tuple:
     t_blocks = cuda_ms(lambda: E.fse_encode_blocks(t), 3)
     enc_call = host_ms(lambda: fse.compress_batch(rows), 2)
     dec_call = host_ms(lambda: fse.decompress_batch(decode, accel=accel), 2)
-    # the histograms: plain PyTorch, torch.bincount the library call
+    # the histogram kernel: both entries against their plain versions and
+    # torch.bincount, on the rows and on 1024 rows of each of a one-value,
+    # a four-value and a random class alone (the contention cases)
     flat = t.reshape(-1)
-    if not torch.equal(histogram256_torch(flat),
+    err_rows = _hold(f"byte_histograms ({N} rows of {row})",
+                     [E.byte_histograms(t)], [E.byte_histograms_ref(t)])
+    err_whole = _hold(f"histogram256_torch ({flat.numel()} bytes)",
+                      [H.histogram256_torch(flat)],
+                      [H.histogram256_torch_ref(flat)])
+    if not torch.equal(H.histogram256_torch(flat),
                        torch.bincount(flat, minlength=256).to(torch.int32)):
         raise AssertionError("histogram256_torch differs from torch.bincount")
-    h_ms = cuda_ms(lambda: histogram256_torch(flat), 20)
-    h_dev = cuda_ms(lambda: histogram256_torch(flat), 20, True)
+    rng = np.random.default_rng([SEED, 23])
+    alone = {}
+    for cls in UNIFORM_CLASSES:
+        ct = torch.from_numpy(np.stack([corpus.make_block(cls, rng) for _ in
+                                        range(len(blocks_np))]).reshape(
+                                            -1, row)).to(dev)
+        err_rows = max(err_rows, _hold(
+            f"byte_histograms ({cls} x {N} rows)", [E.byte_histograms(ct)],
+            [E.byte_histograms_ref(ct)]))
+        alone[cls] = cuda_ms(lambda ct=ct: E.byte_histograms(ct), 20, True)
+    # the masked route on the same rows: a random mask and a prefix mask
+    masks = {"random": torch.from_numpy(rng.random(t.shape) < 0.5).to(dev),
+             "prefix": (torch.arange(row, device=dev)[None, :]
+                        < torch.from_numpy(rng.integers(
+                            0, row + 1, (N, 1))).to(dev))}
+    masked = {}
+    for kind, m in masks.items():
+        err_rows = max(err_rows, _hold(
+            f"byte_histograms ({N} rows, {kind} mask)",
+            [E.byte_histograms(t, m)], [E.byte_histograms_ref(t, m)]))
+        masked[kind] = cuda_ms(lambda m=m: E.byte_histograms(t, m), 20, True)
+    h_ms = cuda_ms(lambda: H.histogram256_torch(flat), 20)
+    h_dev = cuda_ms(lambda: H.histogram256_torch(flat), 20, True)
+    h_plain = cuda_ms(lambda: H.histogram256_torch_ref(flat), 3)
     lib_ms = cuda_ms(lambda: torch.bincount(flat, minlength=256), 20)
     lib_dev = cuda_ms(lambda: torch.bincount(flat, minlength=256), 20, True)
     rows_ms = cuda_ms(lambda: E.byte_histograms(t), 20)
     rows_dev = cuda_ms(lambda: E.byte_histograms(t), 20, True)
+    rows_plain = cuda_ms(lambda: E.byte_histograms_ref(t), 3)
 
     # bounds: kernel 1 reads the rows and tables once and writes the two
     # item arrays; 20 integer operations a symbol pair.  Kernel 2 reads the
@@ -1765,7 +1836,10 @@ def fse_path(dev, blocks_np) -> tuple:
     nc = arrays[1].size
     b_dec = bound(arrays[0].size + 6 * 4 * nc + arrays[7].size * 4
                   + nc * (accel["k"] + 4), 30 * int(arrays[4].sum()))
+    # the histograms read each byte once and write the counts; one
+    # operation a byte
     b_hist = bound(flat.numel() + 256 * 4, flat.numel())
+    b_rows = bound(flat.numel() + N * 256 * 4, flat.numel())
     _say(f"FSE kernel times (ms, CUDA events): encode chain {t_enc:.4f} "
          f"({t_enc_dev:.4f} device time; plain {p_enc:.4f}; {row // 2 - 1} "
          f"dependent steps a row), bound {b_enc[0]:.4f} ({b_enc[1]}); chunk "
@@ -1776,11 +1850,17 @@ def fse_path(dev, blocks_np) -> tuple:
          f"({rows.size / (enc_call * 1e-3) / 1e9:.4f} GB/s of input), "
          f"decompress_batch {dec_call:.4f} "
          f"({len(kept) * row / (dec_call * 1e-3) / 1e9:.4f} GB/s of output)")
-    _say(f"histogram of {flat.numel()} bytes (ms): histogram256_torch "
-         f"{h_ms:.4f} ({h_dev:.4f} device time), torch.bincount {lib_ms:.4f} "
-         f"({lib_dev:.4f} device time), bound {b_hist[0]:.4f} "
-         f"({b_hist[1]}); per-row histograms ({N} rows) {rows_ms:.4f} "
-         f"({rows_dev:.4f} device time)")
+    _say(f"histogram kernel (ms, CUDA events): per-row byte_histograms "
+         f"({N} rows of {row}) {rows_ms:.4f} ({rows_dev:.4f} device time; "
+         f"plain {rows_plain:.4f}), bound {b_rows[0]:.4f} ({b_rows[1]}); "
+         f"device time of {N} rows of one class alone: " + ", ".join(
+             f"{k} {v:.4f}" for k, v in alone.items())
+         + f"; device time of the {N} rows masked (the masked route): "
+         + ", ".join(f"{k} {v:.4f}" for k, v in masked.items())
+         + f"; histogram256_torch of {flat.numel()} bytes {h_ms:.4f} "
+         f"({h_dev:.4f} device time; plain {h_plain:.4f}), torch.bincount "
+         f"{lib_ms:.4f} ({lib_dev:.4f} device time), bound {b_hist[0]:.4f} "
+         f"({b_hist[1]})")
     _say_trace("FSE encode", lambda: fse.compress_batch(rows))
     for _ in range(3):   # tries again where the profiler saw no device
         if _say_trace("FSE decode", lambda: fse.decompress_batch(
@@ -1807,11 +1887,22 @@ def fse_path(dev, blocks_np) -> tuple:
          "device_ms": t_dec_dev, "chunks": nc, "host_containers": host_routed,
          "routes": {"dead": dec_routes[0], "walked": dec_routes[1]},
          "make_accel_s": accel_s, "prep_ms": prep_ms, "call_ms": dec_call,
-         "first_call_ms": dec_first}], {
-        "histogram256_torch_ms": h_ms, "histogram256_torch_device_ms": h_dev,
-        "bincount_ms": lib_ms, "bincount_device_ms": lib_dev,
-        "bound_ms": b_hist[0], "row_histograms_ms": rows_ms,
-        "row_histograms_device_ms": rows_dev}
+         "first_call_ms": dec_first},
+        {"name": "byte_histograms", **common,
+         "source": "compress_tpu_torch/csrc/histogram.cu",
+         "replaces": "compress_tpu/ops/entropy.py:175",
+         "launches": hist_launches, "max_abs_err": err_rows, "ms": rows_ms,
+         "plain_ms": rows_plain, "bound_ms": b_rows[0],
+         "bound_by": b_rows[1], "device_ms": rows_dev, "rows": N,
+         "row_bytes": row, "class_device_ms": alone,
+         "masked_device_ms": masked},
+        {"name": "histogram256_torch", **common,
+         "source": "compress_tpu_torch/csrc/histogram.cu",
+         "replaces": "compress_tpu/utils/histogram.py:22",
+         "launches": 0, "path": "on no path", "max_abs_err": err_whole,
+         "ms": h_ms, "plain_ms": h_plain, "bound_ms": b_hist[0],
+         "bound_by": b_hist[1], "library_ms": lib_ms, "device_ms": h_dev,
+         "library_device_ms": lib_dev, "bytes": flat.numel()}]
 
 
 def checksum_path(blocks) -> list:
@@ -1870,10 +1961,13 @@ def checksum_path(blocks) -> list:
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.split()[0])
-    clocked = XC.Run(XC.build(REPO, ("-DCT_XXH64_CLOCK",)),
-                     "xxh64 clock build", blocks, True)
+    clock_lib = XC.build(REPO, XC.CLOCKS)
+    clocked = XC.Run(clock_lib, "xxh64 clock build", blocks, True)
     clocked.check()
     chain = clocked.clocks(mhz)
+    crc_clocked = XC.CrcRun(clock_lib, "crc32c clock build", blocks, True)
+    crc_clocked.check()
+    crc_parts = crc_clocked.clocks()
     _say(f"xxh64_batch chain: {chain['chain_cycles_a_round']:.2f} cycles a "
          f"round on the chain alone, {chain['loop_cycles_a_round']:.2f} in "
          f"the lanes' loop, median {chain['wait_cycles_median']} cycles "
@@ -1881,6 +1975,10 @@ def checksum_path(blocks) -> list:
          f"lane: chain floor {chain['chain_floor_ms']:.4f} ms at {mhz:.0f} "
          f"MHz beside the byte bound {bnd['xxh'][0]:.4f} ms and the device "
          f"time {dev_t['xxh']:.4f} ms")
+    _say(XC.say_crc("crc32c_batch (clock build)", crc_parts)
+         + f"; {crc_parts['total_cycles_max'] / mhz / 1e3:.4f} ms for the "
+         f"slowest CTA at {mhz:.0f} MHz beside the device time "
+         f"{dev_t['crc']:.4f} ms")
     rows = [("crc32c_batch", "crc", "compress_tpu/ops/checksum.py:84",
              ("crc None", "crc " + str(n - 4097))),
             ("xxh64_batch", "xxh", "compress_tpu/ops/checksum.py:242",
@@ -1894,15 +1992,17 @@ def checksum_path(blocks) -> list:
              "device_ms": dev_t[key],
              **({"chain_floor_ms": chain["chain_floor_ms"],
                  "chain_cycles_a_round": chain["chain_cycles_a_round"]}
-                if key == "xxh" else {})}
+                if key == "xxh" else {"clock_cycles": crc_parts})}
             for name, key, replaces, es in rows]
 
 
 class _Capture:
     """Record the arguments of each call of ``module.name`` (a kernel
     wrapper, called through its module) while the block runs.  The
-    wrapper still runs; it counts its launches on the module's name, so
-    the spy carries the count and hands it back on exit."""
+    wrapper still runs; it counts its launches on its own module's name.
+    Where that is ``module``, the spy stands there, so it carries the
+    count and hands it back on exit; a wrapper imported into ``module``
+    from elsewhere keeps counting on itself."""
 
     def __init__(self, module, name: str):
         self.module, self.name = module, name
@@ -1911,6 +2011,7 @@ class _Capture:
     def __enter__(self):
         self.orig = getattr(self.module, self.name)
         orig, calls = self.orig, self.calls
+        self.carry = orig.__module__ == self.module.__name__
 
         def spy(*args, **kw):
             calls.append(args)
@@ -1921,7 +2022,8 @@ class _Capture:
         return self
 
     def __exit__(self, *exc):
-        self.orig.launches = getattr(self.module, self.name).launches
+        if self.carry:
+            self.orig.launches = getattr(self.module, self.name).launches
         setattr(self.module, self.name, self.orig)
 
 
@@ -2084,30 +2186,33 @@ def zstd_v1_path(dev) -> tuple:
     from compress_tpu_torch import corpus
     from compress_tpu_torch import zstd as Z
     from compress_tpu_torch.ops import lz2, zdev, zseqenc
+    from compress_tpu_torch.utils import histogram as H
     from compress_tpu_torch.zstd import device as zdevice
 
     job = zdev.JOB
     data = corpus.replica_jobs(ZSTD_JOBS, job, SEED).tobytes()
     n = len(data)
     counted = {"parse": (lz2, "tile_parse"), "rep": (zseqenc, "rep_scan"),
-               "fse": (zdev, "fse_scan")}
+               "fse": (zdev, "fse_scan"), "hist": (H, "byte_histograms")}
     sizes, caps, launches = {}, {}, {}
     for level in (1, 2, 3):
         for mod, name in counted.values():
             getattr(mod, name).launches = 0
         with _Capture(lz2, "tile_parse") as c_p, \
                 _Capture(zseqenc, "rep_scan") as c_r, \
-                _Capture(zdev, "fse_scan") as c_f:
+                _Capture(zdev, "fse_scan") as c_f, \
+                _Capture(zdev, "byte_histograms") as c_h:
             t0 = time.perf_counter()
             frame = zdevice.compress_device(data, engine="v1", level=level)
             torch.cuda.synchronize()
             call_s = time.perf_counter() - t0
         launches[level] = {k: getattr(mod, name).launches
                            for k, (mod, name) in counted.items()}
-        if launches[level] != {"parse": 1, "rep": 1, "fse": 1}:
+        if launches[level] != {"parse": 1, "rep": 1, "fse": 1, "hist": 1}:
             raise AssertionError(f"zstd v1 (level {level}): launches "
                                  f"{launches[level]}")
-        caps[level] = (c_p.calls[0], c_r.calls[0], c_f.calls[0])
+        caps[level] = (c_p.calls[0], c_r.calls[0], c_f.calls[0],
+                       c_h.calls[0])
         t0 = time.perf_counter()
         if Z.decompress(frame) != data:
             raise AssertionError(f"zstd v1 (level {level}): the frame does "
@@ -2122,13 +2227,18 @@ def zstd_v1_path(dev) -> tuple:
         raise AssertionError(f"zstd v1 sizes not monotone in level: {sizes}")
 
     # the kernels against their plain versions on the path's own inputs
-    (L_t, tile), rep_in, fse_in = caps[2]
+    (L_t, tile), rep_in, fse_in, hist_in = caps[2]
     err_parse = _hold("tile_parse (v1, level 2)", lz2.tile_parse(L_t, tile),
                       lz2.tile_parse_ref(L_t, tile))
     err_rep = _hold("rep_scan (v1, level 2)", [zseqenc.rep_scan(*rep_in)],
                     [zseqenc.rep_scan_ref(*rep_in)])
     err_fse = _hold("fse_scan (v1, level 2)", zdev.fse_scan(*fse_in),
                     zdev.fse_scan_ref(*fse_in))
+    err_hist = _hold("byte_histograms (v1, level 2: jobs, lit_b)",
+                     [H.byte_histograms(*hist_in)],
+                     [H.byte_histograms_ref(*hist_in)])
+    hist_dev = cuda_ms(lambda: H.byte_histograms(*hist_in), 20, True)
+    hist_plain = cuda_ms(lambda: H.byte_histograms_ref(*hist_in), 3)
     syms, n_seqs = fse_in[0], fse_in[1]
     R, _, MS = syms.shape
     ns = n_seqs.to(torch.int64)
@@ -2171,7 +2281,11 @@ def zstd_v1_path(dev) -> tuple:
              f"{k} {t[k]:.4f} / {dev_t[k]:.4f} / {plain[k]:.4f} / "
              f"{b[0]:.4f} ({b[1]})"
              for k, b in (("parse", b_parse), ("rep", b_rep),
-                          ("fse", b_fse))))
+                          ("fse", b_fse)))
+         + f"; masked byte_histograms of the literals "
+         f"({hist_in[0].shape[0]} rows of {hist_in[0].shape[1]}, "
+         f"{int(hist_in[1].sum())} bytes counted) {hist_dev:.4f} device "
+         f"time (plain {hist_plain:.4f})")
     row = {"name": "fse_scan", "route": "cuda",
            "source": "compress_tpu_torch/csrc/zdevfse.cu",
            "replaces": "compress_tpu/ops/zdev.py:445",
@@ -2193,7 +2307,12 @@ def zstd_v1_path(dev) -> tuple:
              "rep": {"v1_launches": launches[2]["rep"],
                      "v1_max_abs_err": err_rep, "v1_ms": t["rep"],
                      "v1_device_ms": dev_t["rep"], "v1_plain_ms": plain["rep"],
-                     "v1_bound_ms": b_rep[0], "v1_longest_chain": max_seqs}}
+                     "v1_bound_ms": b_rep[0], "v1_longest_chain": max_seqs},
+             "hist": {"v1_launches": launches[2]["hist"],
+                      "v1_masked_max_abs_err": err_hist,
+                      "v1_masked_device_ms": hist_dev,
+                      "v1_masked_plain_ms": hist_plain,
+                      "v1_masked_rows": hist_in[0].shape[0]}}
     return row, extra
 
 
@@ -2708,7 +2827,7 @@ def main() -> int:
          "ctas_per_sm": ctas["emit_blocks"]},
     ]
 
-    zstd_kernels, zstd_find, zstd_launches = zstd_path(dev)
+    zstd_kernels, zstd_find, zstd_launches, zstd_hist = zstd_path(dev)
     kernels[0].update(zstd_find)
     kernels += zstd_kernels
     kernels.append(s2_decode_path(dev, data, bodies))
@@ -2735,9 +2854,14 @@ def main() -> int:
     hist_row["accel_call"] = acc["accel_call"]
     kernels.append(hist_row)
     tail_path(zstd_launches)
-    fse_rows, hist_numbers = fse_path(dev, blocks_np)
-    fse_rows[0]["histograms"] = hist_numbers
+    fse_rows = fse_path(dev, blocks_np)
     fse_rows[0]["ctas_per_sm"] = ctas["fse_encode_chain"]
+    hist = next(r for r in fse_rows if r["name"] == "byte_histograms")
+    hist["zstd_v2_launches"] = zstd_launches["hist"]
+    hist.update(zstd_hist)
+    hist["huff0_launches"] = {row["engine"]: row["histogram_launches"]
+                              for row in kernels
+                              if "histogram_launches" in row}
     kernels += fse_rows
     kernels += checksum_path(blocks)
     kernels.append(s2_xla_path(dev, data, blocks, bodies))
@@ -2747,6 +2871,12 @@ def main() -> int:
         if row["name"] == "rep_scan":
             row.update(v1["rep"])
     kernels.append(fse_scan_row)
+    for row in kernels:
+        if row["name"] == "byte_histograms":
+            row.update(v1["hist"])
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     row["v2_masked_max_abs_err"],
+                                     row["v1_masked_max_abs_err"])
     acc_items["s2_bodies"] = (
         [bytes(hdr) + b for b in bodies[:32]],
         [data[i * lz2.B:(i + 1) * lz2.B] for i in range(32)])

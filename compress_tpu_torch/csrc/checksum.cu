@@ -7,16 +7,29 @@
 //
 // CRC-32C (`ct_crc32c_batch`).  Function: for each row r of `rows` (B rows
 // `stride` bytes apart), the CRC-32C (initial and final 0xFFFFFFFF) of its
-// first n bytes, as int64.  Design: a CTA of 256 threads a row; thread t
-// takes chunk t of 256 chunks of lc bytes aligned to the end of the n
-// bytes, [n - (256 - t) lc, n - (255 - t) lc).  Bytes before 0 are leading
-// zeros, which leave a raw CRC (state 0, no conditioning) at 0, so a chunk
-// cut at 0 still counts as lc bytes.  Each thread runs a slicing-by-8
-// table CRC over its chunk (the 8 tables built by the CTA in shared
-// memory; 8 words loaded at a time); a tree of 8 levels joins neighbours, raw(AB) = raw(A) *
-// x^(8|B|) mod P xor raw(B), from the host's x^(8 lc) squared at each
-// level; the conditioning is one xor with the host's constant for n.
-// Polynomial products are in the reflected form (bit 31 holds x^0).
+// first n bytes, as int64.  Polynomial products are in the reflected form
+// (bit 31 holds x^0).
+//
+// Design: a CTA of 256 threads a row; thread t takes chunk t of 256 chunks
+// of lc bytes aligned to the end of the n bytes, [n - (256 - t) lc, n -
+// (255 - t) lc).  Bytes before 0 are leading zeros, which leave a raw CRC
+// (state 0, no conditioning) at 0, so a chunk cut at 0 still counts as lc
+// bytes.  A CRC is linear, so the row's raw CRC is the XOR over t of
+// raw(chunk t) * x^(8 lc (255 - t)) mod P: the host passes those 256
+// shift constants (a device buffer cached per n), each thread makes one
+// product, and the CTA XORs the 256 terms (a warp reduction, then 8 words
+// in shared memory and one barrier); the conditioning is one xor with the
+// host's constant for n.  The slicing-by-8 tables (8 KiB) are a constant of
+// the device image, copied into shared memory by 16-byte cp.async while
+// the first 16-byte words of the chunk load; each thread keeps its chunk's
+// next CRC_AHEAD words in flight while it steps through the current ones.
+//
+// Bound on the H100: memory (each input byte read once: 16.8 MB at 256
+// rows of 64 KiB, 0.005 ms at 3.35 TB/s).  What is left above it is the
+// table walk: 8 shared-memory lookups at data-dependent addresses a 8
+// bytes, one a byte (16.8 million for those rows), with the bank conflicts
+// of random indices; tools/checksum_clock.py times the table copy, the
+// walk and the combine of each CTA apart.
 //
 // xxHash64 (`ct_xxh64_batch`).  Function: for each row of n bytes (n a
 // multiple of 32), the xxHash64 digest with `seed`, as its low and high
@@ -25,12 +38,10 @@
 // added and the digest avalanched.  Native 64-bit integers: the
 // reference's 16-bit limbs are the TPU's, not needed here.
 //
-// Bound on the H100: memory for both (each input byte read once: 16.8 MB
-// at 256 rows of 64 KiB, 0.005 ms at 3.35 TB/s).  Both are latency-bound
-// well above that: a CRC thread's chunk is a chain of dependent table
-// steps, and an xxHash64 lane is a chain of n / 32 dependent rounds,
-// which no layout shortens: 2,048 rounds at 64 KiB, so a round's latency
-// sets the floor (tools/checksum_clock.py measures it).
+// xxHash64's bound is memory too (16.8 MB at 256 rows of 64 KiB, 0.005
+// ms), but a lane is a chain of n / 32 dependent rounds, which no layout
+// shortens: 2,048 rounds at 64 KiB, so a round's latency sets the floor
+// (tools/checksum_clock.py measures it).
 //
 // xxHash64's design: a CTA of two warps serves XXH_ROWS rows, lane 4 i +
 // q of each warp lane q of row i: 8 rows a CTA, so 256 rows take 32 CTAs
@@ -56,16 +67,42 @@
 // Built with -DCT_XXH64_CLOCK (tools/checksum_clock.py) the library also
 // exports ct_xxh64_batch_clock, whose `clk` output receives each lane's
 // cycles (clock64) in its loop, on the same number of rounds with no
-// loads (the chain alone) and waiting on FULL.  The library's build does
-// not define it.
-#include "ct_common.cuh"
+// loads (the chain alone) and waiting on FULL; with -DCT_CRC32C_CLOCK,
+// ct_crc32c_batch_clock, whose `clk` output receives each CTA's cycles
+// for the table copy, the walk and the combine, and thread 0's walk of
+// its steps again on words in registers (the chain alone).  The
+// library's build defines neither.
+#include "ct_tiles.cuh"
 
 namespace {
 
 constexpr uint32_t CRC_POLY = 0x82F63B78u;
 constexpr int CRC_THREADS = 256;  // = chunks a row
-constexpr int CRC_LEVELS = 8;     // log2(CRC_THREADS)
-constexpr int CRC_AHEAD = 8;      // 8-byte words loaded ahead of their steps
+constexpr int CRC_WARPS = CRC_THREADS / 32;
+constexpr int CRC_AHEAD = 8;      // 16-byte words loaded ahead of their steps
+
+struct CrcTables {
+  uint32_t t[8][256];
+};
+
+// Slicing-by-8: t[0] the byte table, t[k][i] the CRC of byte i followed by
+// k zero bytes.
+__host__ __device__ constexpr CrcTables crc_tables() {
+  CrcTables r{};
+  for (int i = 0; i < 256; ++i) {
+    uint32_t c = (uint32_t)i;
+    for (int k = 0; k < 8; ++k) c = (c & 1u) ? (c >> 1) ^ CRC_POLY : c >> 1;
+    r.t[0][i] = c;
+  }
+  for (int k = 1; k < 8; ++k)
+    for (int i = 0; i < 256; ++i)
+      r.t[k][i] = (r.t[k - 1][i] >> 8) ^ r.t[0][r.t[k - 1][i] & 255];
+  return r;
+}
+
+__device__ __align__(16) const CrcTables kCrcTables = crc_tables();
+static_assert(sizeof(CrcTables) == 16 * 2 * CRC_THREADS,
+              "two 16-byte copies a thread");
 
 __device__ __forceinline__ uint32_t mulmodp(uint32_t a, uint32_t b) {
   uint32_t p = 0;
@@ -77,64 +114,116 @@ __device__ __forceinline__ uint32_t mulmodp(uint32_t a, uint32_t b) {
   return p;
 }
 
-// Slicing-by-8: the CRC after the 8 bytes of w.
+// Slicing-by-8: the CRC after the 8 bytes of (lo, hi).
 __device__ __forceinline__ uint32_t step8(const uint32_t (*tab)[256],
-                                          uint32_t crc, uint2 w) {
-  const uint32_t lo = w.x ^ crc, hi = w.y;
+                                          uint32_t crc, uint32_t lo,
+                                          uint32_t hi) {
+  lo ^= crc;
   return tab[7][lo & 255] ^ tab[6][(lo >> 8) & 255] ^
          tab[5][(lo >> 16) & 255] ^ tab[4][lo >> 24] ^ tab[3][hi & 255] ^
          tab[2][(hi >> 8) & 255] ^ tab[1][(hi >> 16) & 255] ^ tab[0][hi >> 24];
 }
 
+__device__ __forceinline__ uint32_t step16(const uint32_t (*tab)[256],
+                                           uint32_t crc, uint4 w) {
+  return step8(tab, step8(tab, crc, w.x, w.y), w.z, w.w);
+}
+
+__device__ __forceinline__ uint32_t step1(const uint32_t (*tab)[256],
+                                          uint32_t crc, uint8_t v) {
+  return tab[0][(crc ^ v) & 255] ^ (crc >> 8);
+}
+
+// shifts: (256,) uint32, shifts[t] = x^(8 lc (255 - t)) mod P; clk: null,
+// or with CT_CRC32C_CLOCK (B, 6) int64.
 __global__ void __launch_bounds__(CRC_THREADS)
     crc32c_kernel(const uint8_t* __restrict__ rows, long long stride, int n,
-                  int lc, uint32_t x1, uint32_t cond,
-                  long long* __restrict__ out) {
-  __shared__ uint32_t tab[8][256];
-  __shared__ uint32_t part[CRC_THREADS];
+                  int lc, const uint32_t* __restrict__ shifts, uint32_t cond,
+                  long long* __restrict__ out, long long* __restrict__ clk) {
+  __shared__ __align__(16) uint32_t tab[8][256];
+  __shared__ uint32_t part[CRC_WARPS];
   const int t = threadIdx.x;
-  uint32_t c = t;
-  for (int k = 0; k < 8; ++k) c = (c & 1u) ? (c >> 1) ^ CRC_POLY : c >> 1;
-  tab[0][t] = c;
-  __syncthreads();
-  for (int k = 1; k < 8; ++k) {
-    c = (c >> 8) ^ tab[0][c & 255];
-    tab[k][t] = c;
+#ifdef CT_CRC32C_CLOCK
+  const long long c0 = clock64();
+#endif
+  {
+    const uint4* src = reinterpret_cast<const uint4*>(&kCrcTables);
+    uint4* dst = reinterpret_cast<uint4*>(&tab[0][0]);
+    ct::cp_async16(dst + t, src + t);
+    ct::cp_async16(dst + CRC_THREADS + t, src + CRC_THREADS + t);
+    ct::cp_async_commit();
   }
-  __syncthreads();
-
+  const uint32_t shift = __ldg(shifts + t);
+  // the chunk [p, e): a head of bytes to a 16-byte boundary, nw 16-byte
+  // words from a, a tail of bytes
   const uint8_t* row = rows + (size_t)blockIdx.x * (size_t)stride;
-  const long long b = (long long)n - (long long)(CRC_THREADS - 1 - t) * lc;
-  long long p = b - lc < 0 ? 0 : b - lc;
+  const long long e = (long long)n - (long long)(CRC_THREADS - 1 - t) * lc;
+  long long p = e - lc < 0 ? 0 : e - lc;
+  long long a = p + ((16 - (long long)(reinterpret_cast<uintptr_t>(row + p) &
+                                       15)) & 15);
+  if (a > e) a = e;
+  const int nw = (int)((e - a) >> 4);
+  const uint4* w4 = reinterpret_cast<const uint4*>(row + a);
+  uint4 next[CRC_AHEAD];
+#pragma unroll
+  for (int u = 0; u < CRC_AHEAD; ++u)
+    if (u < nw) next[u] = __ldg(w4 + u);
+  ct::cp_async_wait<0>();
+  __syncthreads();
+#ifdef CT_CRC32C_CLOCK
+  const long long c1 = clock64();
+#endif
   uint32_t crc = 0;
-  while (p < b && (reinterpret_cast<uintptr_t>(row + p) & 7)) {
-    crc = tab[0][(crc ^ row[p]) & 255] ^ (crc >> 8);
-    ++p;
-  }
-  // CRC_AHEAD words loaded before their steps: the loads of a batch
-  // overlap instead of each step waiting on its own
-  for (; p + 8 * CRC_AHEAD <= b; p += 8 * CRC_AHEAD) {
-    uint2 w[CRC_AHEAD];
+  for (; p < a; ++p) crc = step1(tab, crc, row[p]);
+  for (int i = 0; i < nw; i += CRC_AHEAD) {
+    uint4 cur[CRC_AHEAD];
+#pragma unroll
+    for (int u = 0; u < CRC_AHEAD; ++u) cur[u] = next[u];
 #pragma unroll
     for (int u = 0; u < CRC_AHEAD; ++u)
-      w[u] = __ldg(reinterpret_cast<const uint2*>(row + p) + u);
+      if (i + CRC_AHEAD + u < nw) next[u] = __ldg(w4 + i + CRC_AHEAD + u);
 #pragma unroll
-    for (int u = 0; u < CRC_AHEAD; ++u) crc = step8(tab, crc, w[u]);
+    for (int u = 0; u < CRC_AHEAD; ++u)
+      if (i + u < nw) crc = step16(tab, crc, cur[u]);
   }
-  for (; p + 8 <= b; p += 8)
-    crc = step8(tab, crc, __ldg(reinterpret_cast<const uint2*>(row + p)));
-  for (; p < b; ++p) crc = tab[0][(crc ^ row[p]) & 255] ^ (crc >> 8);
-  part[t] = crc;
+  for (p = a + 16 * (long long)nw; p < e; ++p) crc = step1(tab, crc, row[p]);
+#ifdef CT_CRC32C_CLOCK
   __syncthreads();
-
-  uint32_t x = x1;  // x^(8 lc 2^level)
-  for (int level = 0; level < CRC_LEVELS; ++level) {
-    const int h = 1 << level;
-    if ((t & (2 * h - 1)) == 0) part[t] = mulmodp(part[t], x) ^ part[t + h];
-    x = mulmodp(x, x);
-    __syncthreads();
+  const long long c2 = clock64();
+#endif
+  // the row's raw CRC: the XOR of every chunk's, each shifted past the
+  // chunks after it
+  const uint32_t term = __reduce_xor_sync(0xffffffffu, mulmodp(crc, shift));
+  if ((t & 31) == 0) part[t >> 5] = term;
+  __syncthreads();
+#ifdef CT_CRC32C_CLOCK
+  const long long c3 = clock64();
+  if (t == 0) {
+    // thread 0's steps again on words in registers: the chain alone
+    uint32_t z = crc;
+    uint4 w = make_uint4((uint32_t)c3, (uint32_t)c2, (uint32_t)c1, 0u);
+    const int steps = lc / 16;
+    const long long c4 = clock64();
+    for (int s = 0; s < steps; ++s) {
+      z = step16(tab, z, w);
+      w.x += 0x9E3779B9u;
+    }
+    const long long c5 = clock64();
+    long long* o = clk + 6 * (size_t)blockIdx.x;
+    o[0] = c1 - c0;  // the table copy (with the first loads' issue)
+    o[1] = c2 - c1;  // the walk (loads and steps), to the barrier
+    o[2] = c3 - c2;  // the combine
+    o[3] = c3 - c0;  // in all
+    o[4] = c5 - c4;  // thread 0's steps alone, 16 bytes a step
+    o[5] = steps + ((long long)z << 32);  // steps; the chain's result kept
   }
-  if (t == 0) out[blockIdx.x] = (long long)(part[0] ^ cond);
+#endif
+  if (t == 0) {
+    uint32_t x = cond;
+#pragma unroll
+    for (int w = 0; w < CRC_WARPS; ++w) x ^= part[w];
+    out[blockIdx.x] = (long long)x;
+  }
 }
 
 constexpr uint64_t P1 = 0x9E3779B185EBCA87ull;
@@ -352,19 +441,38 @@ __global__ void __launch_bounds__(64)
 extern "C" {
 
 // rows: B rows `stride` bytes apart, any address; n <= the row length;
-// lc = max(1, ceil(n / 256)); x1 = x^(8 lc) mod P and cond = x^(8 n) *
-// 0xFFFFFFFF mod P xor 0xFFFFFFFF (reflected), from the host; out (B,)
-// int64.
-int ct_crc32c_batch(const uint8_t* rows, long long stride, int B, int n,
-                    int lc, unsigned int x1, unsigned int cond,
-                    long long* out, cudaStream_t stream) {
+// lc = max(1, ceil(n / 256)); shifts (256,) uint32 on the device,
+// shifts[t] = x^(8 lc (255 - t)) mod P, and cond = x^(8 n) * 0xFFFFFFFF
+// mod P xor 0xFFFFFFFF (reflected), from the host; out (B,) int64.
+static int crc32c_launch(const uint8_t* rows, long long stride, int B, int n,
+                         int lc, const unsigned int* shifts,
+                         unsigned int cond, long long* out, long long* clk,
+                         cudaStream_t stream) {
   if (B <= 0) return 0;
   if (n < 0 || lc < 1 || (long long)lc * CRC_THREADS < n)
     return (int)cudaErrorInvalidValue;
-  crc32c_kernel<<<B, CRC_THREADS, 0, stream>>>(rows, stride, n, lc, x1, cond,
-                                                out);
+  crc32c_kernel<<<B, CRC_THREADS, 0, stream>>>(rows, stride, n, lc, shifts,
+                                                cond, out, clk);
   return (int)cudaGetLastError();
 }
+
+int ct_crc32c_batch(const uint8_t* rows, long long stride, int B, int n,
+                    int lc, const unsigned int* shifts, unsigned int cond,
+                    long long* out, cudaStream_t stream) {
+  return crc32c_launch(rows, stride, B, n, lc, shifts, cond, out, nullptr,
+                       stream);
+}
+
+#ifdef CT_CRC32C_CLOCK
+// ct_crc32c_batch, and clk (B, 6) int64 receives each CTA's cycles.
+int ct_crc32c_batch_clock(const uint8_t* rows, long long stride, int B,
+                          int n, int lc, const unsigned int* shifts,
+                          unsigned int cond, long long* out, long long* clk,
+                          cudaStream_t stream) {
+  return crc32c_launch(rows, stride, B, n, lc, shifts, cond, out, clk,
+                       stream);
+}
+#endif
 
 // rows: (B, n) u8, contiguous and 8-byte aligned, n a positive multiple
 // of 32; out (B, 2) int64.

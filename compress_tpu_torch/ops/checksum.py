@@ -11,10 +11,13 @@ CRC-32C: each row's first ``n`` bytes are cut into NCHUNK chunks of ``lc``
 bytes aligned to the end (chunk t is [n - (NCHUNK - t) lc, n - (NCHUNK -
 1 - t) lc)); bytes before 0 are leading zeros, which leave a raw CRC
 (state 0, no conditioning) at 0.  Each chunk's raw CRC comes from a byte
-table; a tree of log2(NCHUNK) levels joins neighbours, raw(AB) = raw(A) *
-x^(8 |B|) mod P xor raw(B); the conditioning (initial and final
-0xFFFFFFFF) is one xor with a constant of n alone.  Polynomial products
-are in the reflected form (bit 31 holds x^0).
+table.  The plain version joins neighbours by a tree of log2(NCHUNK)
+levels, raw(AB) = raw(A) * x^(8 |B|) mod P xor raw(B); the kernel, by
+linearity, XORs every chunk's raw CRC times its shift constant
+x^(8 lc (NCHUNK - 1 - t)) mod P (``crc_shifts``, a device buffer cached
+per n and device).  The conditioning (initial and final 0xFFFFFFFF) is one
+xor with a constant of n alone.  Polynomial products are in the reflected
+form (bit 31 holds x^0).
 
 xxHash64: four lanes fold the 8-byte words of every 32-byte stripe in
 order, then merge, add the length and avalanche, in wrapping 64-bit
@@ -30,7 +33,7 @@ import torch
 
 from compress_tpu_torch import _cuda
 
-__all__ = ["crc32c_batch", "crc32c_batch_ref", "xxh64_batch",
+__all__ = ["crc32c_batch", "crc32c_batch_ref", "crc_shifts", "xxh64_batch",
            "xxh64_batch_ref"]
 
 POLY = 0x82F63B78        # CRC-32C, reflected
@@ -76,6 +79,27 @@ def _crc_consts(n: int):
     """(lc, x^(8 lc), conditioning constant) for rows of n bytes."""
     lc = max(1, -(-n // NCHUNK))
     return lc, xpow8(lc), mulmodp(xpow8(n), _M32) ^ _M32
+
+
+@functools.lru_cache(maxsize=256)
+def crc_shifts(n: int) -> tuple:
+    """The kernel's shift constants for rows of n bytes: entry t is
+    x^(8 lc (NCHUNK - 1 - t)) mod P, the operator that moves chunk t's raw
+    CRC past the chunks after it (the last entry is 1, bit 31)."""
+    _, x1, _ = _crc_consts(n)
+    out = [1 << 31]
+    for _ in range(NCHUNK - 1):
+        out.append(mulmodp(out[-1], x1))
+    return tuple(out[::-1])
+
+
+@functools.lru_cache(maxsize=64)
+def _shift_buffer(n: int, device: torch.device) -> torch.Tensor:
+    """``crc_shifts(n)`` on ``device``: (NCHUNK,) int32 holding the 32-bit
+    values."""
+    return torch.tensor([v - (1 << 32) if v >> 31 else v
+                         for v in crc_shifts(n)], dtype=torch.int32,
+                        device=device)
 
 
 def _crc_args(blocks: torch.Tensor, length):
@@ -142,7 +166,7 @@ def crc32c_batch(blocks: torch.Tensor, length: int | None = None):
     ``crc32c_batch_ref``."""
     if blocks.device.type == "cpu":
         return crc32c_batch_ref(blocks, length)
-    n, lc, x1, cond = _crc_args(blocks, length)
+    n, lc, _, cond = _crc_args(blocks, length)
     dev = blocks.device
     if dev.type != "cuda":
         raise ValueError(f"crc32c_batch: expected a CUDA tensor, got {dev}")
@@ -151,9 +175,11 @@ def crc32c_batch(blocks: torch.Tensor, length: int | None = None):
     B = blocks.shape[0]
     out = torch.empty(B, dtype=_I64, device=dev)
     with torch.cuda.device(dev):
+        shifts = _shift_buffer(n, torch.device("cuda",
+                                               torch.cuda.current_device()))
         rc = _cuda.library().ct_crc32c_batch(
-            blocks.data_ptr(), blocks.stride(0), B, n, lc, x1, cond,
-            out.data_ptr(), _cuda.stream(dev))
+            blocks.data_ptr(), blocks.stride(0), B, n, lc, shifts.data_ptr(),
+            cond, out.data_ptr(), _cuda.stream(dev))
     _cuda.check(rc, "crc32c_batch")
     crc32c_batch.launches += 1
     return out

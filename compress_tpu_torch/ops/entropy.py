@@ -9,7 +9,9 @@ first), one bit-pack, and the decode checkpoints (the remaining-bit
 offset of every stream at every HUFF_CKPT_K-th symbol).  The reference
 computes this as XLA graphs with bf16 one-hot sums; here it is plain
 PyTorch on whatever device the blocks are on, with integer histograms and
-gathers giving the same integers.
+gathers giving the same integers; the per-row histograms
+(``byte_histograms``, from ``utils/histogram.py``) are a CUDA kernel on
+CUDA tensors.
 
 FSE: per-block tables over the byte alphabet (``_fse_tables_bytes``, the
 construction of ``zdev._fse_build`` at 256 symbols), then the classic
@@ -30,6 +32,8 @@ from compress_tpu_torch.ops.common import floor_log2, wrap32
 from compress_tpu_torch.ops.zdev import (_bitpack_rows, _canonical_codes_dev,
                                          _huff_build, _normalize_count,
                                          _unsort)
+from compress_tpu_torch.utils.histogram import (  # noqa: F401 (re-exported)
+    byte_histograms, byte_histograms_ref)
 
 FSE_LOG = 9       # fixed accuracy log for the batched device path
 HUFF_CKPT_K = 32  # symbols per decode-checkpoint chunk (side channel)
@@ -87,16 +91,6 @@ def huff0_encode_blocks(blocks: torch.Tensor, shared_table: bool = False,
 # ---------------------------------------------------------------------------
 # raw FSE (2-state interleaved, byte alphabet)
 # ---------------------------------------------------------------------------
-
-
-def byte_histograms(blocks: torch.Tensor) -> torch.Tensor:
-    """(N, L) uint8 -> (N, 256) int32 per-row byte counts (the reference's
-    one-hot sum, as a scatter-add)."""
-    b = blocks.to(_I64)
-    hist = torch.zeros((blocks.shape[0], 256), dtype=_I64,
-                       device=blocks.device)
-    hist.scatter_add_(1, b, torch.ones_like(b))
-    return hist.to(_I32)
 
 
 def _fse_tables_bytes(hist: torch.Tensor, log: int):

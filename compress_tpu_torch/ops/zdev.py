@@ -30,6 +30,7 @@ from compress_tpu_torch import _cuda
 from compress_tpu_torch.ops import lz2, zseqenc
 from compress_tpu_torch.ops.common import (compact, floor_log2, route_tiles,
                                            wrap32)
+from compress_tpu_torch.utils.histogram import byte_histograms
 
 JOB = 1 << 20          # device job (window) size
 BLOCK = 1 << 14        # zstd block size -> 64 blocks a job
@@ -565,8 +566,7 @@ def zstd_encode_jobs(jobs, job: int = JOB, block: int = BLOCK,
     byte_b = jobs.reshape(R, block).to(_I64)
     lit_cnt = lit_b.sum(dim=1)
     _, (lits,) = compact(lit_b, [torch.where(lit_b, byte_b, 0)])
-    hist = torch.zeros((R, 256), dtype=_I64, device=dev)
-    hist.scatter_add_(1, byte_b, lit_b.to(_I64))
+    hist = byte_histograms(jobs.reshape(R, block), lit_b).to(_I64)
 
     nbits_t, max_bits, huff_ok = _huff_build(hist)       # per block
     codes_t = _canonical_codes_dev(nbits_t, max_bits)

@@ -33,6 +33,7 @@ from compress_tpu_torch.ops.common import mul32, wrap32
 from compress_tpu_torch.ops.zdev import (_bitpack_rows, _canonical_codes_dev,
                                          _fse_build, _huff_build, _ll_code,
                                          _lut, _ml_code, _of_code)
+from compress_tpu_torch.utils.histogram import byte_histograms
 from compress_tpu_torch.zstd import seqs as S
 
 BLOCK = 1 << 16         # 64 KiB zstd blocks
@@ -206,8 +207,7 @@ def _literal_tables(lits: torch.Tensor, lit_cnt: torch.Tensor, bs: int):
     R = lits.shape[0]
     idx = torch.arange(bs, device=lits.device, dtype=_I64)[None, :]
     is_lit = idx < lit_cnt.to(_I64)[:, None]
-    hist = torch.zeros((R, 256), dtype=_I64, device=lits.device)
-    hist.scatter_add_(1, lits.to(_I64), is_lit.to(_I64))
+    hist = byte_histograms(lits, is_lit).to(_I64)
     nbits_t, max_bits, huff_ok = _huff_build(hist)
     codes_t = _canonical_codes_dev(nbits_t, max_bits)
     packed_tab = (codes_t | (nbits_t << 16)).view(R, 2, 128).contiguous()

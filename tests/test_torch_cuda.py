@@ -35,8 +35,16 @@ repeated launches, the chunk decode also on tables of any int32 entry
 mixed and the chunks on each route counted, with ``fse.compress_batch`` /
 ``decompress_batch`` end to end; CRC-32C and
 xxHash64 on rows of many lengths, prefixes, seeds, batches of 1 and 7 and
-misaligned rows, xxHash64 also on rows that are not a whole number of its
-stages in batches of 1, 255, 257 and 1024 rows; ``compress_device`` on
+misaligned rows, CRC-32C also on one row of 16 MiB, batches of 257 and
+1024 rows and lengths one either side of a whole number of its 256
+chunks, xxHash64 also on rows that are not a whole number of its
+stages in batches of 1, 255, 257 and 1024 rows; the byte histograms
+(``byte_histograms`` at batches of 1, 7, 1024 and 4097 rows of 2, 16383,
+16 KiB and 64 KiB bytes, every corpus class, all-zeros and all-255 rows,
+masks all false, all true, a prefix and random, misaligned and strided
+views, and ``histogram256_torch`` on every dtype it reads, 16 MiB of
+zeros and an empty input, against their plain versions and
+``torch.bincount``), each with its launch count and twenty repeats; ``compress_device`` on
 inputs that are not whole jobs; and the two XLA-graph encoders: the tile parse on hostile lengths
 (every position 4, matches that end at a tile's end, whole-tile matches,
 raw values, values near INT32_MAX, the S2 engine's own) at tiles 1 to
@@ -71,6 +79,7 @@ from compress_tpu_torch.ops import (checksum, entropy, entropy_dec,
                                     lzkern, zenc2, zparse, zseq_kern,
                                     zseqenc)
 from compress_tpu_torch.s2 import block as s2_block
+from compress_tpu_torch.utils import histogram
 from compress_tpu_torch.utils.crc import crc32c
 from compress_tpu_torch.s2.device_dec import decode_blocks_device as \
     s2_decode_blocks_device
@@ -1633,6 +1642,161 @@ def test_crc32c_kernel_batch_of_one_misaligned_and_repeatable(cuda_device):
           [checksum.crc32c_batch_ref(strided)])
     for _ in range(20):
         _same([checksum.crc32c_batch(t)], [first])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", [(1, 16 << 20), (257, 4097), (1024, 4096),
+                                 (1024, 65536 - 1), (3, 256 * 7 - 1),
+                                 (3, 256 * 7 + 1), (3, 256 * 300 - 1),
+                                 (3, 256 * 300 + 1)])
+def test_crc32c_kernel_batches_and_chunk_edges(cuda_device, B, n):
+    """One row of 16 MiB (a thread walks 64 KiB), batches of 257 and 1024
+    rows, and lengths one either side of a whole number of 256 chunks;
+    twenty repeated launches equal the first."""
+    rows = np.random.default_rng(B + n).integers(0, 256, (B, n),
+                                                 dtype=np.uint8)
+    rows[0, : n // 3] = 0
+    t, first = _crc(cuda_device, rows)
+    assert first[: min(B, 3)].tolist() == [_host_crc(r) for r in rows[:3]]
+    for _ in range(20):
+        _same([checksum.crc32c_batch(t)], [first])
+
+
+def _hist_rows(N, L, seed):
+    """N rows of L bytes: the corpus classes, all-zeros and all-255 rows,
+    and random bytes."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, 256, (N, L), dtype=np.uint8)
+    kinds = len(corpus.CLASSES) + 2
+    for i in range(min(N, kinds)):
+        if i < len(corpus.CLASSES):
+            blk = corpus.make_block(corpus.CLASSES[i], rng)
+            rows[i] = np.resize(blk, L)
+        else:
+            rows[i] = 0 if i == len(corpus.CLASSES) else 255
+    return rows
+
+
+def _hist(t, mask=None):
+    before = histogram.byte_histograms.launches
+    got = histogram.byte_histograms(t, mask)
+    assert histogram.byte_histograms.launches == before + 1
+    want = histogram.byte_histograms_ref(t, mask)
+    _same([got], [want])
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [2, 16383, 16384, 65536])
+@pytest.mark.parametrize("N", [1, 7, 1024, 4097])
+def test_byte_histograms_kernel_matches_plain(cuda_device, N, L):
+    """Every corpus class, all-zeros and all-255 rows and random rows, at
+    batch sizes 1, 7, 1024 and 4097 and row lengths 2, 16383, 16 KiB and
+    64 KiB; unmasked rows also equal torch.bincount row by row."""
+    t = torch.from_numpy(_hist_rows(N, L, N * 7 + L)).to(cuda_device)
+    got = _hist(t)
+    assert int(got.sum()) == N * L
+    for i in range(min(N, 12)):
+        assert torch.equal(got[i], torch.bincount(
+            t[i], minlength=256).to(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["false", "true", "prefix", "random"])
+def test_byte_histograms_kernel_masks(cuda_device, kind):
+    """Masks all false, all true, a prefix a row (the literal stage's) and
+    random, on rows of 64 KiB (a zeros row puts 65,536 in one bin) and of
+    16 KiB + 5, read in place and from views that start 3 bytes in."""
+    for N, L in ((9, 65536), (33, 16389)):
+        rng = np.random.default_rng(L + len(kind))
+        t = torch.from_numpy(_hist_rows(N, L, L)).to(cuda_device)
+        if kind == "prefix":
+            m = (np.arange(L)[None, :] <
+                 rng.integers(0, L + 1, (N, 1))).astype(bool)
+            m[0] = True
+        else:
+            m = {"false": np.zeros((N, L), bool),
+                 "true": np.ones((N, L), bool),
+                 "random": rng.random((N, L)) < 0.5}[kind]
+        mask = torch.from_numpy(m).to(cuda_device)
+        got = _hist(t, mask)
+        assert int(got.sum()) == int(m.sum())
+        # misaligned views of the rows and of the mask, apart and together
+        big = torch.zeros((N, L + 8), dtype=torch.uint8, device=cuda_device)
+        big[:, 3:3 + L] = t
+        bigm = torch.zeros((N, L + 8), dtype=torch.bool, device=cuda_device)
+        bigm[:, 5:5 + L] = mask
+        _hist(big[:, 3:3 + L], mask)
+        _hist(t, bigm[:, 5:5 + L])
+        _hist(big[:, 3:3 + L], bigm[:, 5:5 + L])
+        bigm[:, 3:3 + L] = mask       # both 3 bytes in: read in place
+        _hist(big[:, 3:3 + L], bigm[:, 3:3 + L])
+
+
+@pytest.mark.cuda
+def test_byte_histograms_kernel_views_and_repeats(cuda_device):
+    """Rows at a stride that is not a multiple of 16, a transposed (not
+    unit-stride) view, an empty batch and empty rows, and twenty repeated
+    launches equal to the first."""
+    rows = _hist_rows(64, 70000, 5)
+    t = torch.from_numpy(rows).to(cuda_device)
+    _hist(t[:, 7:16000])
+    _hist(t[::3, 1:40001])
+    _hist(t[:40, :40].t())
+    _hist(t[:, :0])
+    assert histogram.byte_histograms(t[:0]).shape == (0, 256)
+    first = _hist(t)
+    for _ in range(20):
+        _same([histogram.byte_histograms(t)], [first])
+    with pytest.raises(ValueError):
+        histogram.byte_histograms(t.to(torch.int32))
+    with pytest.raises(ValueError):
+        histogram.byte_histograms(t, torch.ones(3, dtype=torch.bool,
+                                                device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8, torch.int16,
+                                   torch.int32, torch.int64])
+def test_histogram256_kernel_dtypes(cuda_device, dtype):
+    """Every dtype the kernel reads, with values outside 0..255 (not
+    counted), at lengths that cut a 16-byte word, from views that start
+    one element in and strided views; twenty repeated launches equal the
+    first."""
+    info = torch.iinfo(dtype)
+    rng = np.random.default_rng(info.bits)
+    for n in (1, 15, 4099, (1 << 20) + 3):
+        x = rng.integers(max(info.min, -600), min(info.max, 600) + 1, n + 1)
+        x[: n // 4] = 0
+        t = torch.from_numpy(x).to(dtype).to(cuda_device)
+        for v in (t, t[1:], t[::2]):
+            before = histogram.histogram256_torch.launches
+            got = histogram.histogram256_torch(v)
+            assert histogram.histogram256_torch.launches == before + 1
+            _same([got], [histogram.histogram256_torch_ref(v)])
+    first = histogram.histogram256_torch(t)
+    for _ in range(20):
+        _same([histogram.histogram256_torch(t)], [first])
+
+
+@pytest.mark.cuda
+def test_histogram256_kernel_zeros_empty_and_bincount(cuda_device):
+    """16 MiB of zeros (16,777,216 in one bin), an empty input (one launch,
+    all zeros), a 2-D input and the corpus against torch.bincount; a dtype
+    the kernel does not read raises."""
+    z = torch.zeros(16 << 20, dtype=torch.uint8, device=cuda_device)
+    got = histogram.histogram256_torch(z)
+    assert int(got[0]) == 16 << 20 and int(got[1:].abs().sum()) == 0
+    before = histogram.histogram256_torch.launches
+    _same([histogram.histogram256_torch(z[:0])],
+          [torch.zeros(256, dtype=torch.int32, device=cuda_device)])
+    assert histogram.histogram256_torch.launches == before + 1
+    c = torch.from_numpy(corpus.corpus_blocks(64, 3)).to(cuda_device)
+    for x in (c, c[:, 5:], c.reshape(-1)[3:]):
+        _same([histogram.histogram256_torch(x)],
+              [torch.bincount(x.reshape(-1), minlength=256).to(torch.int32)])
+    with pytest.raises(ValueError):
+        histogram.histogram256_torch(c.to(torch.float32))
 
 
 @pytest.mark.cuda
