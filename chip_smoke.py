@@ -2,14 +2,18 @@
 """Drive the PyTorch/CUDA port's device paths on one GPU.
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
-with one CUDA card and ``nvcc``.  It builds the kernels from
+with one CUDA card, ``nvcc`` and ``g++``.  It builds the host core from
+``compress_tpu_torch/_native/src`` and the kernels from
 ``compress_tpu_torch/csrc`` and then drives the paths below.
 
 Device S2 block encode, on a 16 MiB seeded corpus (256 blocks of 64 KiB
 mixing every class of ``compress_tpu_torch.corpus``):
 
 1. prints the device (name, count, ``nvidia-smi`` name and power limit);
-2. builds the kernels and prints the seconds it took, each kernel's
+2. builds the host core (``compress_tpu_torch/_native``: ``g++``) and
+   prints its seconds, its compiler line, the machine, the compiler's
+   version and whether it took the BMI2 flags; builds the kernels and
+   prints the seconds it took, each kernel's
    registers and spills (ptxas), and the CTAs per SM of the exec, zstd
    parse, emit, repeat-scan, FSE-chain, huff0 chunk, sequence and
    history-execute kernels (the runtime's occupancy query; huff0 at
@@ -66,7 +70,8 @@ Device batch decode of what the port encodes:
     just before and read just after (one launch per arena class, no
     host-decoded block, every block equal to its input), times the kernel
     (also by device time), its plain version and the whole call, traces
-    one call, and prints the bytes the call copies to the card (the
+    one call (up to three where the profiler records no device time), and
+    prints the bytes the call copies to the card (the
     compact plan must stay under 0.1 GB) with the copy's device ms from
     the trace, and the kernel's bound on live pieces beside the bound of
     the earlier exec kernel, which read the padded plan;
@@ -83,7 +88,8 @@ Device batch decode of what the port encodes:
 Batched zstd frame decode (``zstd.device_dec.decompress_frames_device``):
 
 16. frames: 128 seeded ``text`` blocks of 64 KiB, 64 encoded by the port's
-    host encoder (``zstd.encoder.compress``, level 1) with its own table
+    host encoder (``zstd.encoder.compress``, level 1: the host core's
+    ladder) with its own table
     choice and 64 under ``predef_seq_tables()``, and 3 frames of shapes
     that go to the host decoder (a ``rand256`` block: a raw block; a
     ``zeros`` block: RLE literals; 192 KiB of text: two blocks); times the
@@ -96,7 +102,8 @@ Batched zstd frame decode (``zstd.device_dec.decompress_frames_device``):
     host sequence decode;
 18. runs ``decompress_frames_device`` on the 131 frames with the launch
     counters set to 0 just before and read just after (one launch each of
-    the huff0 chunk, sequence and execute kernels; 3 host-decoded frames;
+    the huff0 chunk, sequence and execute kernels; the host-decoded
+    frames exactly those ``_route`` sends to the host, the 3 among them;
     every frame equal to its input), times each kernel and its plain
     version on the path's own inputs with CUDA events (the huff0, both
     sequence modes and exec by device time too, exec on the compact
@@ -114,7 +121,7 @@ Batched zstd frame decode (``zstd.device_dec.decompress_frames_device``):
     ``accel``, no call of the host walks (``_hwalk``, ``seq_accel``),
     launches {huff0 1, exec 1, sequences 0}, every item equal to its
     input; times the whole call on the host clock (median of 2), prints
-    its stages and traces one call;
+    its stages and traces one call (up to three, as phase 13);
 21. the multi-block accel route: ``corpus.history_streams`` (8 streams of
     1 MiB, 4 if their encode takes over ``ENCODE_CUT_S``), each through
     ``compress_accel(level=1, multi_block=True, hist_blocks=8)``: one
@@ -126,7 +133,7 @@ Batched zstd frame decode (``zstd.device_dec.decompress_frames_device``):
     plain version on the path's own packed plan, times both (the kernel
     by device time too), prints the history pieces and bytes, the
     kernel's bound and the whole call's GB/s of output (median of 2),
-    and traces one call.
+    and traces one call (up to three, as phase 13).
 
 Inputs that are not whole jobs, the FSE batch codec and the checksums:
 
@@ -233,6 +240,21 @@ paths above:
     padding path) and ``parallel.dryrun.dryrun_multichip``; prints each
     rank's times and launches.  Both phases' numbers are printed as one
     ``{"sharded": ...}`` line before the kernels line.
+
+The host core (``compress_tpu_torch/_native``), after phase 26:
+
+29. holds each native entry against its plain Python version on this
+    machine's host, with both times (host clock): the S2 plans of phase
+    6's bodies (``native_plan`` / ``s2.plan.build_plan``, payload for
+    payload); the sidecar payloads of 8 of phase 20's frames
+    (``accel.sidecar_payload`` / ``sidecar.build_payload``); CRC-32C and
+    xxHash64 of the phase-3 corpus, whole and as 256 rows (the rows also
+    equal to ``crc32c_batch`` / ``xxh64_batch`` on the card); the host
+    decode of phase 10's frame (``zstd.decompress`` / ``decompress_py``);
+    ``zstd.compress`` at levels 1-4 on 8 of the text blocks, its frames
+    decoded by the Python decoder (beside the ``Matcher``'s,
+    ``compress_matcher``); job assembly on phase 26's first job
+    (``device._assemble_job`` / ``_assemble_job_py``).
 
 The routes no path sends, which take the inputs the reference takes
 (run after every main path):
@@ -460,22 +482,26 @@ def _hold(name, got, want) -> int:
     return err
 
 
-def _say_trace(what: str, fn, warm: bool = True, every_name: bool = False):
+def _say_trace(what: str, fn, warm: bool = True, every_name: bool = False,
+               tries: int = 1):
     """Print one traced call's device busy time, idle share and largest
     items (every item with ``every_name``); return the device ms of its
     copies to the card (None when the profiler recorded no device
-    time)."""
-    busy, wall, by_name = trace_path(fn, warm)
-    if busy > 0:
-        h2d = sum(v for k, v in by_name if "HtoD" in k)
-        _say(f"{what} trace: device busy {busy:.4f} ms of {wall:.4f} ms wall, "
-             f"idle share {1 - busy / wall:.4f}; copies to the card "
-             f"{h2d:.4f} ms; by name (ms): " + ", ".join(
-                 f"{k[:60]} {v:.4f}"
-                 for k, v in (by_name if every_name else by_name[:8])))
-        return h2d
-    _say(f"{what} trace: the profiler recorded no device time "
-         f"({trace_path.events} events in all; not measured)")
+    time).  A call whose trace holds no device time is traced again, up
+    to ``tries`` calls (``PERF.md`` §7: the profiler sometimes keeps a
+    trace's CPU events and loses its device events)."""
+    for _ in range(tries):
+        busy, wall, by_name = trace_path(fn, warm)
+        if busy > 0:
+            h2d = sum(v for k, v in by_name if "HtoD" in k)
+            _say(f"{what} trace: device busy {busy:.4f} ms of {wall:.4f} ms "
+                 f"wall, idle share {1 - busy / wall:.4f}; copies to the "
+                 f"card {h2d:.4f} ms; by name (ms): " + ", ".join(
+                     f"{k[:60]} {v:.4f}"
+                     for k, v in (by_name if every_name else by_name[:8])))
+            return h2d
+        _say(f"{what} trace: the profiler recorded no device time "
+             f"({trace_path.events} events in all; not measured)")
     return None
 
 
@@ -521,7 +547,8 @@ def _exec_bounds(lit_rows, pieces, rstart, n_out: int):
 def zstd_path(dev) -> list:
     """Phases 9-11: the zstd v2 path.  Returns its kernels' JSON entries,
     the finder's numbers on this path (launches, times, error), the
-    launches, and the histogram kernel's masked numbers on its literals."""
+    launches, the histogram kernel's masked numbers on its literals, and
+    the frame with its input (for phase 29)."""
     from compress_tpu_torch import corpus
     from compress_tpu_torch import zstd as Z
     from compress_tpu_torch.ops import lzkern, zenc2, zparse, zseqenc
@@ -734,7 +761,7 @@ def zstd_path(dev) -> list:
             errs["byte_histograms (masked: literals, is_lit)"],
             "v2_masked_device_ms": dev_t["hist"],
             "v2_masked_plain_ms": hist_plain, "v2_masked_rows": R}
-    return out, find, launches, hist
+    return out, find, launches, hist, (frame, data)
 
 
 def s2_decode_path(dev, data: bytes, bodies) -> dict:
@@ -800,7 +827,8 @@ def s2_decode_path(dev, data: bytes, bodies) -> dict:
          f"on the host clock ({len(data) / (t_call * 1e-3) / 1e9:.4f} GB/s), "
          f"of which the host plan {plan_ms:.4f}")
     h2d_ms = _say_trace("S2 decode",
-                        lambda: device_dec.decode_blocks_device(blocks))
+                        lambda: device_dec.decode_blocks_device(blocks),
+                        tries=3)
     plan_b = sum(v["plan_bytes"] for v in stats["classes"].values())
     lit_b = sum(c["lit_rows"].nbytes for c in classes)
     _say(f"S2 decode copies to the card: compact plan {plan_b} bytes "
@@ -1108,9 +1136,12 @@ def zstd_decode_path(dev):
     _say(f"zstd decode main path launches: {launches}, other sequence "
          f"launches {other}, host frames {host_frames}; routes "
          f"{stats['routes']} (first call {first_s:.2f} s)")
-    if any(v != 1 for v in launches.values()) or host_frames != 3:
+    want_host = sum(DD._route(f)[0] == "host" for f in frames)
+    if any(v != 1 for v in launches.values()) or host_frames != want_host \
+            or want_host < len(host_data):
         raise AssertionError(f"zstd decode: launches {launches}, host frames "
-                             f"{host_frames}")
+                             f"{host_frames} (routed to the host: "
+                             f"{want_host})")
     bad = [i for i, (g, d) in enumerate(zip(out, datas)) if g != d]
     if bad:
         raise AssertionError(f"zstd decode: frames {bad[:8]} differ from "
@@ -1339,11 +1370,8 @@ def _call_times(items, n_out: int, what: str):
          f"{', '.join(f'{t:.4f}' for t in times)}), "
          f"{n_out / (t_call * 1e-3) / 1e9:.4f} GB/s of output; stages (s): "
          + ", ".join(f"{k} {v:.4f}" for k, v in stats["s"].items()))
-    for _ in range(2):   # a second try where the profiler saw no device
-        h2d = _say_trace(what, lambda: DD.decompress_frames_device(items),
-                         warm=False, every_name=True)
-        if h2d is not None:
-            break
+    h2d = _say_trace(what, lambda: DD.decompress_frames_device(items),
+                     warm=False, every_name=True, tries=3)
     return {"call_ms": t_call, "calls_ms": times, "stages_s": stats["s"],
             "h2d_ms": h2d}
 
@@ -1862,10 +1890,8 @@ def fse_path(dev, blocks_np) -> list:
          f"{lib_ms:.4f} ({lib_dev:.4f} device time), bound {b_hist[0]:.4f} "
          f"({b_hist[1]})")
     _say_trace("FSE encode", lambda: fse.compress_batch(rows))
-    for _ in range(3):   # tries again where the profiler saw no device
-        if _say_trace("FSE decode", lambda: fse.decompress_batch(
-                decode, accel=accel), warm=False) is not None:
-            break
+    _say_trace("FSE decode", lambda: fse.decompress_batch(decode, accel=accel),
+               warm=False, tries=3)
     common = {"route": "cuda", "library_ms": None, "equal_to_plain": True}
     return [
         {"name": "fse_encode_chain", **common,
@@ -2316,6 +2342,163 @@ def zstd_v1_path(dev) -> tuple:
     return row, extra
 
 
+def host_core_build() -> dict:
+    """Phase 2's first half: builds the host core (``_native``) with
+    ``g++`` and prints the seconds, the compiler line, the machine and the
+    compiler's version.  Returns them."""
+    from compress_tpu_torch import _native
+
+    t0 = time.perf_counter()
+    so = _native.build()
+    _native.library()
+    core_s = time.perf_counter() - t0
+    line = " ".join(_native.command(str(so)))
+    gxx = subprocess.run([_native.CXX, "--version"], check=True,
+                         capture_output=True, text=True).stdout.splitlines()[0]
+    machine = os.uname().machine
+    bmi2 = "-mbmi2" in _native.flags()
+    _say(f"host core build: {core_s:.1f} s -> {so.name}; machine {machine}, "
+         f"{gxx}; BMI2 flags {'on' if bmi2 else 'off'}")
+    _say(f"  {line}")
+    return {"build_s": core_s, "command": line, "machine": machine,
+            "cxx": gxx, "bmi2": bmi2}
+
+
+def _both_ms(native, plain, reps: int = 1):
+    """(native result, plain result, native ms, plain ms) on the host
+    clock: the native call's median of ``reps`` calls, the plain call
+    once."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        got = native()
+        times.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    want = plain()
+    return got, want, statistics.median(times), \
+        (time.perf_counter() - t0) * 1e3
+
+
+def host_core_path(dev, core: dict, data: bytes, blocks, bodies, zframe,
+                   texts) -> dict:
+    """Phase 29: each entry of the host core held against its plain Python
+    version on this machine's host, on the inputs of earlier phases, with
+    both times (host clock, ms).  Raises on any difference."""
+    from compress_tpu_torch import corpus
+    from compress_tpu_torch import zstd as Z
+    from compress_tpu_torch.ops import checksum as CK
+    from compress_tpu_torch.ops import lz2, zdev
+    from compress_tpu_torch.s2 import device_dec as SD
+    from compress_tpu_torch.s2 import plan as SP
+    from compress_tpu_torch.utils import crc, xxhash64
+    from compress_tpu_torch.zstd import accel as AC
+    from compress_tpu_torch.zstd import device as zdevice
+    from compress_tpu_torch.zstd import encoder as E
+    from compress_tpu_torch.zstd import sidecar
+    from compress_tpu_torch.zstd.frame import parse_frame_header
+
+    t_phase = time.perf_counter()
+    res = {"build_s": core["build_s"]}
+
+    def report(what, t_n, t_p, note=""):
+        res[what] = {"native_ms": t_n, "python_ms": t_p}
+        _say(f"host core {what}: native {t_n:.4f} ms, Python {t_p:.4f} ms "
+             f"({t_p / max(t_n, 1e-9):.1f}x){note}")
+
+    # S2 plans of phase 6's bodies, payload for payload
+    n = lz2.B
+    got, want, t_n, t_p = _both_ms(
+        lambda: [SD.native_plan(b, n) for b in bodies],
+        lambda: [SP.build_plan(b, n) for b in bodies])
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g is None or w is None or g[0] != w[0] or g[1] != w[1] \
+                or g[5] != w[5] or not all(np.array_equal(a, b)
+                                           for a, b in zip(g[2:5], w[2:5])):
+            raise AssertionError(f"S2 plan of body {i}: native and Python "
+                                 "differ")
+    report(f"S2 plan ({len(bodies)} bodies)", t_n, t_p)
+
+    # the sidecars of 8 of phase 20's frames
+    frames = [E.compress(t, level=1) for t in texts[:8]]
+    heads = [parse_frame_header(f).header_size for f in frames]
+    got, want, t_n, t_p = _both_ms(
+        lambda: [AC.sidecar_payload(f[h:]) for f, h in zip(frames, heads)],
+        lambda: [sidecar.build_payload(f[h:]) for f, h in zip(frames, heads)])
+    if got != want or None in got:
+        raise AssertionError("a sidecar payload: native and Python differ")
+    report("sidecar payload (8 frames of 64 KiB)", t_n, t_p)
+
+    # CRC-32C and xxHash64 of the corpus, whole and as rows
+    rows = [data[i * lz2.B:(i + 1) * lz2.B] for i in range(len(bodies))]
+    for name, nat, py in (("CRC-32C", crc.crc32c, crc.crc32c_py),
+                          ("xxHash64", xxhash64.xxh64, xxhash64.xxh64_py)):
+        g, w, t_n, t_p = _both_ms(lambda: nat(data), lambda: py(data), 3)
+        if g != w:
+            raise AssertionError(f"{name} of the corpus: native {g}, "
+                                 f"Python {w}")
+        report(f"{name} ({len(data)} bytes)", t_n, t_p)
+        k = len(rows) if t_p < 30e3 else 32   # the Python rows' depth
+        g, w, t_n, t_p = _both_ms(lambda: [nat(r) for r in rows],
+                                  lambda: [py(r) for r in rows[:k]], 3)
+        if g[:k] != w:
+            raise AssertionError(f"{name} rows: native and Python differ")
+        if name == "CRC-32C":
+            card = CK.crc32c_batch(blocks).tolist()
+        else:
+            card = [lo | hi << 32 for lo, hi in
+                    CK.xxh64_batch(blocks).tolist()]
+        if g != card:
+            raise AssertionError(f"{name} rows: the host core differs from "
+                                 "the kernel's rows")
+        report(f"{name} ({len(rows)} rows)", t_n, t_p,
+               f"; Python on {k} rows; equal to the kernel's rows")
+
+    # the host decode of phase 10's frame
+    frame, fdata = zframe
+    g, w, t_n, t_p = _both_ms(lambda: Z.decompress(frame),
+                              lambda: Z.decompress_py(frame))
+    if not g == w == fdata:
+        raise AssertionError("phase 10's frame: the host decoders differ")
+    report(f"zstd decode ({len(fdata)}-byte v2 frame)", t_n, t_p)
+
+    # the ladder's frames through the Python decoder
+    sizes = {}
+    for level in (1, 2, 3, 4):
+        g, w, t_n, t_p = _both_ms(
+            lambda: [E.compress(t, level=level) for t in texts[:8]],
+            lambda: [E.compress_matcher(t, level=level) for t in texts[:8]])
+        if [Z.decompress_py(f) for f in g] != texts[:8] \
+                or [Z.decompress(f) for f in w] != texts[:8]:
+            raise AssertionError(f"level {level}: a frame does not decode "
+                                 "to its input")
+        sizes[level] = (sum(map(len, g)), sum(map(len, w)))
+        report(f"zstd encode, level {level} (8 x 64 KiB; native frames "
+               "decoded by the Python decoder)", t_n, t_p,
+               f"; bytes: ladder {sizes[level][0]}, Matcher "
+               f"{sizes[level][1]}")
+    res["encode_bytes"] = sizes
+
+    # job assembly on phase 26's first job (level 2)
+    job = zdev.JOB
+    jdata = corpus.replica_jobs(ZSTD_JOBS, job, SEED).tobytes()[:job]
+    src = torch.frombuffer(bytearray(jdata), dtype=torch.uint8)
+    jobs, prefixes, has_prefix = zdevice.launch_inputs(src, 0, 1, job)
+    t = zdev.zstd_encode_jobs(jobs.to(dev), job=job, block=zdev.BLOCK,
+                              prefixes=prefixes.to(dev),
+                              has_prefix=has_prefix.to(dev), level=2)
+    t = {k: v.cpu().numpy() for k, v in t.items()}
+    g, w, t_n, t_p = _both_ms(
+        lambda: zdevice._assemble_job(jdata, t, 0, zdev.BLOCK),
+        lambda: zdevice._assemble_job_py(jdata, t, 0, zdev.BLOCK), 3)
+    if g != w:
+        raise AssertionError("job assembly: native and Python differ")
+    report(f"job assembly ({job}-byte job, {len(g)} blocks)", t_n, t_p)
+    res["phase_s"] = time.perf_counter() - t_phase
+    _say(f"host core phase: every entry equal to its plain version "
+         f"({res['phase_s']:.1f} s)")
+    return res
+
+
 def _sharded_counters():
     """The launch counters of the kernels on the sharded paths: rows 6,
     9-12, 17 and 18 of PERF.md's table."""
@@ -2655,6 +2838,7 @@ def main() -> int:
     _say(f"nvidia-smi: {smi}")
 
     # ---- 2. build ----------------------------------------------------------
+    core = host_core_build()
     t0 = time.perf_counter()
     _cuda.library()
     build_s = time.perf_counter() - t0
@@ -2827,7 +3011,8 @@ def main() -> int:
          "ctas_per_sm": ctas["emit_blocks"]},
     ]
 
-    zstd_kernels, zstd_find, zstd_launches, zstd_hist = zstd_path(dev)
+    zstd_kernels, zstd_find, zstd_launches, zstd_hist, zstd_frame = \
+        zstd_path(dev)
     kernels[0].update(zstd_find)
     kernels += zstd_kernels
     kernels.append(s2_decode_path(dev, data, bodies))
@@ -2877,6 +3062,7 @@ def main() -> int:
             row["max_abs_err"] = max(row["max_abs_err"],
                                      row["v2_masked_max_abs_err"],
                                      row["v1_masked_max_abs_err"])
+    host_core_path(dev, core, data, blocks, bodies, zstd_frame, texts)
     acc_items["s2_bodies"] = (
         [bytes(hdr) + b for b in bodies[:32]],
         [data[i * lz2.B:(i + 1) * lz2.B] for i in range(32)])

@@ -1,6 +1,8 @@
 """Standalone FSE (tANS) block codec of the port (counterpart of the JAX
 package's ``fse/__init__.py``): the host codec ``compress`` /
-``decompress`` (pure Python; the native branches are not copied), and the
+``decompress`` (``decompress`` decodes a container in one call of the
+host core's ``ct_fse_decompress_body``, and where it refuses the
+container, in Python: ``decompress_py``), and the
 batch codec on the device: ``compress_batch`` (``ops/entropy``
 ``fse_encode_blocks``), ``make_accel`` (a host walk that records the decode
 checkpoints) and ``decompress_batch`` (``ops/entropy_dec``
@@ -17,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from compress_tpu_torch import _native
 from compress_tpu_torch._cuda import resolve_device
 from compress_tpu_torch.fse import core
 from compress_tpu_torch.ops import entropy as E
@@ -24,7 +27,7 @@ from compress_tpu_torch.ops import entropy_dec as ED
 from compress_tpu_torch.utils.histogram import histogram256
 from compress_tpu_torch.utils.varint import put_uvarint, read_uvarint
 
-__all__ = ["compress", "decompress", "compress_batch", "make_accel",
+__all__ = ["compress", "decompress", "decompress_py", "compress_batch", "make_accel",
            "prep_decode_batch", "decompress_batch", "IncompressibleError",
            "UseRLEError", "core"]
 
@@ -71,8 +74,24 @@ def decompress(blob, max_size: int = 64 << 20) -> bytes:
     n, pos = read_uvarint(blob)
     if n > max_size:
         raise ValueError("decoded size exceeds limit")
+    if n >= 2:
+        sp, sn = _native.pad_scratch(blob, pos)
+        out = np.empty(n, np.uint8)
+        if _native.library().ct_fse_decompress_body(sp, sn, _native.ptr(out),
+                                                    n) == 0:
+            return out.tobytes()
     norm, tl, pos = core.read_ncount(blob, pos, max_symbol=255)
     return core.decode_interleaved2(blob[pos:], norm, tl, n).tobytes()
+
+
+def decompress_py(blob, max_size: int = 64 << 20) -> bytes:
+    """``decompress`` in Python alone."""
+    blob = bytes(blob)
+    n, pos = read_uvarint(blob)
+    if n > max_size:
+        raise ValueError("decoded size exceeds limit")
+    norm, tl, pos = core.read_ncount(blob, pos, max_symbol=255)
+    return core.decode_interleaved2_py(blob[pos:], norm, tl, n).tobytes()
 
 
 def compress_batch(blocks, table_log: int = E.FSE_LOG, device=None) -> list:

@@ -2,12 +2,18 @@
 §4.1.1), table construction and the 2-state interleaved codec (frame
 assembly, huff0 weights and the standalone FSE codec of ``fse``).
 
-Pure-Python copies of the JAX package's ``fse/core.py`` functions of the
-same names."""
+Copies of the JAX package's ``fse/core.py`` functions of the same names.
+As there, ``write_ncount``, ``encode_interleaved2`` and
+``decode_interleaved2`` run the host core (``ct_fse_write_ncount``,
+``ct_fse_encode_i2``, ``ct_fse_decode_i2``) and, where it refuses an
+input, the Python loop, which gives the reference's result or precise
+error; the ``_py`` functions are those loops alone, the plain versions."""
 
 from __future__ import annotations
 
 import numpy as np
+
+from compress_tpu_torch import _native
 
 MIN_TABLELOG = 5
 MAX_TABLELOG = 12  # standalone fse; zstd sequence tables cap lower
@@ -99,8 +105,24 @@ def normalize_count(hist: np.ndarray, table_log: int, total: int,
 # ---------------------------------------------------------------------------
 
 
+def _norm256(norm: np.ndarray) -> np.ndarray:
+    nrm = np.zeros(256, np.int16)
+    nrm[:len(norm)] = norm
+    return nrm
+
+
 def write_ncount(norm: np.ndarray, table_log: int) -> bytes:
     """Serialize a normalized count table (accuracy-log header + counts)."""
+    arr, dst = _native.out_buf(1024)
+    r = _native.library().ct_fse_write_ncount(
+        _native.ptr(_norm256(norm)), len(norm) - 1, int(table_log), dst, 1024)
+    if r >= 0:
+        return arr[:r].tobytes()
+    return write_ncount_py(norm, table_log)
+
+
+def write_ncount_py(norm: np.ndarray, table_log: int) -> bytes:
+    """``write_ncount`` in Python."""
     out = bytearray()
     bit_stream = 0
     bit_count = 0
@@ -388,11 +410,28 @@ class BitReaderReverse:
         return self.bitpos < 0
 
 
-def encode_interleaved2(symbols: np.ndarray, norm: np.ndarray, table_log: int) -> bytes:
+def encode_interleaved2(symbols: np.ndarray, norm: np.ndarray,
+                        table_log: int) -> bytes:
     """Encode symbols (last-to-first) with two interleaved states.
 
     Stream layout matches the classic FSE block codec: states flushed at the
     end (c2 then c1), so the decoder reads state1 first."""
+    if len(symbols) >= 2:
+        sym = np.ascontiguousarray(symbols, dtype=np.uint8)
+        n = len(sym)
+        cap = 2 * n + 64
+        arr, dst = _native.out_buf(cap)
+        r = _native.library().ct_fse_encode_i2(
+            _native.ptr(sym), n, _native.ptr(_norm256(norm)), len(norm) - 1,
+            int(table_log), dst, cap)
+        if r >= 0:
+            return arr[:r].tobytes()
+    return encode_interleaved2_py(symbols, norm, table_log)
+
+
+def encode_interleaved2_py(symbols: np.ndarray, norm: np.ndarray,
+                           table_log: int) -> bytes:
+    """``encode_interleaved2`` in Python."""
     state_table, delta_nb, delta_fs = build_ctable(norm, table_log)
     bw = BitWriter()
     n = len(symbols)
@@ -437,9 +476,23 @@ def encode_interleaved2(symbols: np.ndarray, norm: np.ndarray, table_log: int) -
 
 def decode_interleaved2(stream: bytes, norm: np.ndarray, table_log: int,
                         out_len: int) -> np.ndarray:
-    """Inverse of encode_interleaved2; out_len symbols (the reference's
-    Python loop).  Each state's final emission has no encoder-side
-    transition, so the last two symbols reload no state."""
+    """Inverse of encode_interleaved2; out_len symbols."""
+    if out_len >= 2 and stream:
+        sp, sn = _native.pad_scratch(stream)
+        out = np.empty(out_len, np.uint8)
+        r = _native.library().ct_fse_decode_i2(
+            sp, sn, _native.ptr(_norm256(norm)), len(norm) - 1,
+            int(table_log), _native.ptr(out), out_len)
+        if r == 0:
+            return out
+    return decode_interleaved2_py(stream, norm, table_log, out_len)
+
+
+def decode_interleaved2_py(stream: bytes, norm: np.ndarray, table_log: int,
+                           out_len: int) -> np.ndarray:
+    """``decode_interleaved2`` in Python (the reference's loop).  Each
+    state's final emission has no encoder-side transition, so the last two
+    symbols reload no state."""
     spread, nb, new_state = build_dtable(norm, table_log)
     spread, nb, new_state = spread.tolist(), nb.tolist(), new_state.tolist()
     br = BitReaderReverse(stream)

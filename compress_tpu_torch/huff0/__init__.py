@@ -1,5 +1,6 @@
-"""huff0 of the port: pure-Python code lengths, table serialization and
-host stream codec, and the 4X batch codec on the device."""
+"""huff0 of the port: code lengths, table serialization and the host
+stream codec (on the host core, each beside its Python plain version),
+and the 4X batch codec on the device."""
 
 from compress_tpu_torch.huff0.batch import (compress_4x_batch, decompress_1x,
                                             decompress_4x,

@@ -1,9 +1,12 @@
 """huff0 4X batch codec on the device (counterpart of the JAX package's
 ``huff0.compress_4x_batch``, ``make_accel``, ``_prep_decode_batch``,
-``shared_packed_table`` and ``decompress_4x_batch``), with pure-Python
-copies of its host stream codec (``_encode_stream``, ``_decode_stream``,
-``decompress_1x``, ``decompress_4x``; the native branches are not
-copied).
+``shared_packed_table`` and ``decompress_4x_batch``), with copies of its
+host stream codec (``_encode_stream``, ``_decode_stream``,
+``decompress_1x``, ``decompress_4x``).  As there, these run the host core
+(``ct_huf0_encode_stream``, ``ct_huf0_decode_stream``,
+``ct_huf0_decompress_body``) and, where it refuses an input, the Python
+path, which gives the reference's precise error; the ``_py`` functions
+are the Python paths alone, the plain versions.
 
 Container: [uvarint n][table][jump6: the first three stream sizes]
 [stream 1..4]; the input splits into 4 segments of ceil(n / 4) bytes (the
@@ -18,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from compress_tpu_torch import _native
 from compress_tpu_torch._cuda import resolve_device
 from compress_tpu_torch.fse import core as fse_core
 from compress_tpu_torch.huff0.table import (CorruptError, IncompressibleError,
@@ -43,6 +47,21 @@ def _peek(data: bytes, bitpos: int, max_bits: int) -> int:
 
 def _decode_stream(stream: bytes, sym_t, nb_t, max_bits: int,
                    out_len: int) -> np.ndarray:
+    """Decode one stream (``ct_huf0_decode_stream``)."""
+    if out_len and stream:
+        st = np.ascontiguousarray(sym_t, np.uint8)
+        nbt = np.ascontiguousarray(nb_t, np.uint8)
+        sp, sn = _native.pad_scratch(stream)
+        out = np.empty(out_len, np.uint8)
+        if _native.library().ct_huf0_decode_stream(
+                sp, sn, _native.ptr(st), _native.ptr(nbt), int(max_bits),
+                _native.ptr(out), out_len) == 0:
+            return out
+    return _decode_stream_py(stream, sym_t, nb_t, max_bits, out_len)
+
+
+def _decode_stream_py(stream: bytes, sym_t, nb_t, max_bits: int,
+                      out_len: int) -> np.ndarray:
     """Decode one stream symbol by symbol (the reference's Python loop)."""
     br = fse_core.BitReaderReverse(stream)
     out = np.zeros(out_len, dtype=np.uint8)
@@ -61,6 +80,22 @@ def _decode_stream(stream: bytes, sym_t, nb_t, max_bits: int,
 
 def _encode_stream(data: np.ndarray, codes: np.ndarray,
                    nbits: np.ndarray) -> bytes:
+    """One stream (``ct_huf0_encode_stream``)."""
+    if len(data):
+        d = np.ascontiguousarray(data, np.uint8)
+        c = np.ascontiguousarray(codes, np.uint16)
+        nb = np.ascontiguousarray(nbits, np.uint8)
+        cap = 2 * len(d) + 64
+        arr, dst = _native.out_buf(cap)
+        r = _native.library().ct_huf0_encode_stream(
+            _native.ptr(d), len(d), _native.ptr(c), _native.ptr(nb), dst, cap)
+        if r >= 0:
+            return arr[:r].tobytes()
+    return _encode_stream_py(data, codes, nbits)
+
+
+def _encode_stream_py(data: np.ndarray, codes: np.ndarray,
+                      nbits: np.ndarray) -> bytes:
     """One stream: the symbols' codes written last symbol first (so that
     the decoder emits forward), LSB-first, then the 1-bit end marker.
     The reference's bit writer, vectorized: the same bytes."""
@@ -73,12 +108,27 @@ def _encode_stream(data: np.ndarray, codes: np.ndarray,
                        bitorder="little").tobytes()
 
 
+def _decompress_body(blob: bytes, pos: int, n: int, fourx: int):
+    """A container's table and streams decoded in one call of
+    ``ct_huf0_decompress_body``, or None where it refuses them."""
+    if n == 0:
+        return None
+    sp, sn = _native.pad_scratch(blob, pos)
+    out = np.empty(n, np.uint8)
+    r = _native.library().ct_huf0_decompress_body(sp, sn, fourx,
+                                                  _native.ptr(out), n)
+    return out.tobytes() if r == 0 else None
+
+
 def decompress_1x(blob, max_size: int = 64 << 20) -> bytes:
     """Host decode of one 1X container ([uvarint n][table][stream])."""
     blob = bytes(blob)
     n, pos = read_uvarint(blob)
     if n > max_size:
         raise ValueError("decoded size exceeds limit")
+    res = _decompress_body(blob, pos, n, 0)
+    if res is not None:
+        return res
     sym_t, nb_t, max_bits, pos = read_table(blob, pos)
     return _decode_stream(blob[pos:], sym_t, nb_t, max_bits, n).tobytes()
 
@@ -97,6 +147,9 @@ def decompress_4x(blob, max_size: int = 64 << 20) -> bytes:
     n, pos = read_uvarint(blob)
     if n > max_size:
         raise ValueError("decoded size exceeds limit")
+    res = _decompress_body(blob, pos, n, 1)
+    if res is not None:
+        return res
     sym_t, nb_t, max_bits, pos = read_table(blob, pos)
     if pos + 6 > len(blob):
         raise CorruptError("jump table truncated")

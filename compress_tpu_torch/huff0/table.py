@@ -1,8 +1,10 @@
 """huff0 code lengths and table serialization (RFC 8878 §4.2.1):
-pure-Python copies of the JAX package's ``huff0.build_nbits`` (its
-package-merge code lengths), ``canonical_codes``, ``write_table`` and
-``read_table`` and the helpers they need (``weights_to_nbits``,
-``build_dtable``).
+copies of the JAX package's ``huff0.build_nbits`` (its package-merge code
+lengths), ``canonical_codes``, ``write_table`` and ``read_table`` and the
+helpers they need (``weights_to_nbits``, ``build_dtable``).  As there,
+``package_merge_lengths`` and ``write_table`` run the host core
+(``ct_huf0_package_merge``, ``ct_huf_write_table``) and, where it refuses
+an input, the Python path (the ``_py`` functions, their plain versions).
 
 weight(s) = max_bits + 1 - nbits(s), 0 for an unused symbol; the last
 present symbol's weight is implied.  The weights are written FSE-compressed
@@ -13,6 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from compress_tpu_torch import _native
 from compress_tpu_torch.fse import core as fse_core
 
 
@@ -33,6 +36,18 @@ class UseRLEError(ValueError):
 
 def package_merge_lengths(freqs: np.ndarray, limit: int) -> np.ndarray:
     """Optimal length-limited code lengths (<= limit) for nonzero freqs."""
+    if len(freqs) <= 256:
+        f = np.zeros(256, np.int64)
+        f[:len(freqs)] = freqs
+        lengths = np.zeros(256, np.int32)
+        if _native.library().ct_huf0_package_merge(
+                _native.ptr(f), int(limit), _native.ptr(lengths)) == 0:
+            return lengths[:len(freqs)].copy()
+    return package_merge_lengths_py(freqs, limit)
+
+
+def package_merge_lengths_py(freqs: np.ndarray, limit: int) -> np.ndarray:
+    """``package_merge_lengths`` in Python (the same tie order)."""
     sym = np.nonzero(freqs)[0]
     n = len(sym)
     if n == 0:
@@ -92,6 +107,18 @@ def nbits_to_weights(nbits: np.ndarray, max_bits: int) -> np.ndarray:
 
 def write_table(nbits: np.ndarray, max_bits: int) -> bytes:
     """Serialize weights: FSE-compressed if smaller, else raw nibbles."""
+    arr = np.zeros(256, np.int32)
+    arr[:min(len(nbits), 256)] = nbits[:256]
+    out, dst = _native.out_buf(256)
+    r = _native.library().ct_huf_write_table(_native.ptr(arr), int(max_bits),
+                                             dst, 256)
+    if r > 0:
+        return out[:r].tobytes()
+    return write_table_py(nbits, max_bits)
+
+
+def write_table_py(nbits: np.ndarray, max_bits: int) -> bytes:
+    """``write_table`` in Python."""
     weights = nbits_to_weights(nbits, max_bits)
     last = int(np.nonzero(nbits)[0][-1])
     w_explicit = weights[:last]  # last present symbol's weight implied

@@ -49,7 +49,7 @@ from compress_tpu_torch.utils.xxhash64 import xxh64
 from compress_tpu_torch.zstd import encoder as E
 from compress_tpu_torch.zstd import frame as F
 from compress_tpu_torch.zstd import device_dec
-from compress_tpu_torch.zstd.device import (_assemble_job_py, emit_blocks,
+from compress_tpu_torch.zstd.device import (_assemble_job, emit_blocks,
                                             tail_bodies)
 
 MAGIC_CHUNK_S2 = b"\xff\x06\x00\x00S2sTwO"
@@ -250,10 +250,10 @@ def s2_stream_encode_device(data, mesh: BlockMesh | None = None) -> bytes:
         enc, lens = enc.cpu().numpy(), lens.cpu().tolist()
         bodies += [enc[i, :lens[i]].tobytes() for i in range(full)]
     for i in range(full, nb):   # mesh remainder blocks on the host
-        bodies.append(s2block._encode_block_py(data[i * lz.B:(i + 1) * lz.B]))
+        bodies.append(s2block.encode_body(data[i * lz.B:(i + 1) * lz.B]))
     tail = data[nb * lz.B:]
     if tail:
-        bodies.append(s2block._encode_block_py(tail))
+        bodies.append(s2block.encode_body(tail))
 
     pos = 0
     for body in bodies:
@@ -332,7 +332,7 @@ def zstd_encode_sharded(data, mesh: BlockMesh | None = None,
     t2 = time.perf_counter()
     mine = []
     for j in range(k):
-        mine += _assemble_job_py(data[(lo + j) * job:(lo + j + 1) * job], t,
+        mine += _assemble_job(data[(lo + j) * job:(lo + j + 1) * job], t,
                                  j, block)
     t3 = time.perf_counter()
     bodies = gather_items(mesh, mine)

@@ -1,21 +1,20 @@
-"""S2/Snappy block codec on the host (pure Python).
+"""S2/Snappy block codec on the host.
 
-A copy of the JAX package's host codec (``s2/block.py``): the decoder
-(``decode``, ``_decode_block_py``, ``CorruptError``), so that users of the
-port and ``chip_smoke.py`` can check the device encoder's bodies, and the
-fast-tier S2 encoder (``encode``: the emitters and ``_encode_block_py``),
-which packs the zstd accel sidecar (``zstd/accel.py``).  The reference
-specifies its Python path and its native core to give the same bytes, so
-``encode`` equals the reference's ``s2.encode``.  Without its native
-branch; the ``better`` and ``best`` tiers and snappy mode are not copied.
-Format: the reference's s2/s2.go tag spec and its repeat-offset
-extension.
+The JAX package's host codec (``s2/block.py``) for S2 mode at its fast
+tier: ``encode`` and ``decode`` run the host core (``ct_s2_encode_block``,
+``ct_s2_decode_block``), as the reference's do by default.  The reference
+specifies its Python path and its native core to give the same bytes; its
+Python path is copied here as their plain versions (``_encode_block_py``,
+``_decode_block_py``).  The ``better`` and ``best`` tiers and snappy-mode
+encode are not ported.  Format: the reference's s2/s2.go tag spec and its
+repeat-offset extension.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from compress_tpu_torch import _native
 from compress_tpu_torch.utils.varint import put_uvarint, read_uvarint
 
 _MODE_S2 = 0
@@ -114,12 +113,18 @@ def decode(block, *, allow_repeat: bool = True) -> bytes:
     dlen, pos = read_uvarint(block)
     if dlen > (1 << 32) - 1:
         raise CorruptError("decoded length too large")
-    mode = _MODE_S2 if allow_repeat else _MODE_SNAPPY
-    return _decode_block_py(dlen, block[pos:], mode)
+    body = block[pos:]
+    arr, dst = _native.out_buf(dlen)
+    rc = _native.library().ct_s2_decode_block(dst, dlen, body, len(body),
+                                              1 if allow_repeat else 0)
+    if rc != 0:
+        raise CorruptError("corrupt block")
+    return arr.tobytes()
 
 
 # ---------------------------------------------------------------------------
-# Encoder: the reference's pure-Python fast tier, S2 mode
+# Encoder: the fast tier, S2 mode (the host core; the reference's Python
+# path below is its plain version)
 # ---------------------------------------------------------------------------
 
 _MUL = 0x9E3779B185EBCA87
@@ -295,10 +300,23 @@ def _encode_block_py(src: bytes) -> bytes:
             table[hashes[s - d]] = s - d
 
 
+def encode_body(src) -> bytes:
+    """The S2 block body of src, without the length (host core)."""
+    src = bytes(src)
+    n = len(src)
+    if n > 0xFFFFFFFF:
+        raise ValueError("block too large")
+    arr, dst = _native.out_buf(32 + n + n // 6)
+    m = _native.library().ct_s2_encode_block(dst, src, n, _MODE_S2)
+    if m < 0:
+        raise MemoryError("native s2 encode failed")
+    return arr[:m].tobytes()
+
+
 def encode(src) -> bytes:
     """S2 block encode (repeat offsets allowed): the uvarint length, then
     the body.  Reference: s2.Encode."""
     src = bytes(src)
     out = bytearray()
     put_uvarint(out, len(src))
-    return bytes(out) + _encode_block_py(src)
+    return bytes(out) + encode_body(src)

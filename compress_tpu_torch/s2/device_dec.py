@@ -2,8 +2,10 @@
 package's ``s2/device_dec.py`` ``decode_blocks_device``).
 
 The host parses each block's tag stream (the inherently serial byte
-work) into its literal bytes and a round-annotated execute plan
-(``s2/plan.py``), packed into a compact plan (live pieces only,
+work) into its literal bytes and a round-annotated execute plan with one
+call of the host core's ``ct_s2_build_plan`` a block (``native_plan``, as
+the reference plans; ``s2/plan.build_plan`` is its plain version), packed
+into a compact plan (live pieces only,
 ``execute.pack_pieces``); the byte movement then runs as one arena
 execute per arena class over every block of that class at once
 (``ops/execute.py``, the CUDA kernel ``csrc/exec.cu`` on the card).  Blocks the planner cannot
@@ -16,13 +18,49 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from compress_tpu_torch import _native
 from compress_tpu_torch._cuda import resolve_device
 from compress_tpu_torch.ops import execute as X
 from compress_tpu_torch.s2 import block as B
-from compress_tpu_torch.s2.plan import MAX_LEN, arena_class, build_plan
+from compress_tpu_torch.s2.plan import MAX_LEN, arena_class
 from compress_tpu_torch.utils.varint import read_uvarint
 
-__all__ = ["plan_blocks", "decode_blocks_device"]
+__all__ = ["native_plan", "plan_blocks", "decode_blocks_device"]
+
+
+def _parse_payload(payload: bytes):
+    """The native plan payload: u32 total, u32 nlit, the literals, u32
+    n_pieces, u8 n_rounds, i32 src[n], u8 len[n], u8 round[n]."""
+    total, nlit = np.frombuffer(payload, np.uint32, 2, 0)
+    pos = 8
+    lit = payload[pos:pos + int(nlit)]
+    pos += int(nlit)
+    n_pieces = int.from_bytes(payload[pos:pos + 4], "little")
+    pos += 4
+    n_rounds = payload[pos]
+    pos += 1
+    src = np.frombuffer(payload, np.int32, n_pieces, pos).copy()
+    pos += 4 * n_pieces
+    length = np.frombuffer(payload, np.uint8, n_pieces, pos).astype(np.int32)
+    pos += n_pieces
+    rnd = np.frombuffer(payload, np.uint8, n_pieces, pos).astype(np.int32)
+    return int(total), lit, src, length, rnd, int(n_rounds)
+
+
+def native_plan(body: bytes, dlen: int, allow_repeat: bool = True,
+                max_rounds: int = 4):
+    """``s2.plan.build_plan`` on the host core: (total, lit bytes, src,
+    len, round, n_rounds), or None where ``ct_s2_build_plan`` refuses the
+    block (or ``dlen`` is outside 1..256 KiB)."""
+    if not 0 < dlen <= MAX_LEN:
+        return None
+    body = bytes(body)
+    cap = 8 + dlen + 6 * (4 * dlen + 2048) + 64
+    oarr, out = _native.out_buf(cap)
+    r = _native.library().ct_s2_build_plan(body, len(body), dlen,
+                                           1 if allow_repeat else 0,
+                                           int(max_rounds), out, cap)
+    return _parse_payload(oarr[:r].tobytes()) if r > 0 else None
 
 
 def plan_blocks(blocks, *, allow_repeat: bool = True, max_rounds: int = 4):
@@ -38,9 +76,7 @@ def plan_blocks(blocks, *, allow_repeat: bool = True, max_rounds: int = 4):
     for i, blk in enumerate(blocks):
         blk = bytes(blk)
         dlen, pos = read_uvarint(blk)
-        plan = None
-        if 0 < dlen <= MAX_LEN:
-            plan = build_plan(blk[pos:], dlen, allow_repeat, max_rounds)
+        plan = native_plan(blk[pos:], dlen, allow_repeat, max_rounds)
         if plan is None:
             results[i] = B.decode(blk, allow_repeat=allow_repeat)
         else:

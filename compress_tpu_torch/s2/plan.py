@@ -1,6 +1,7 @@
-"""Host planner of the S2/Snappy device decode: a Python copy of the JAX
-package's native ``ct_s2_build_plan`` (``_native/src/zstd_dec.cpp``: the
-tag parse, ``plan_ops`` and ``plan_emit``).
+"""Host planner of the S2/Snappy device decode, the plain version of the
+native ``ct_s2_build_plan`` (``_native/src/zstd_dec.cpp``: the tag parse,
+``plan_ops`` and ``plan_emit``) that ``s2.device_dec.native_plan`` calls:
+a Python copy of it.
 
 The tag stream of one block (s2/s2.go's tag spec with the repeat-offset
 extension, or strict snappy) becomes decode-order ops (literal runs and

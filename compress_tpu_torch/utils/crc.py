@@ -1,10 +1,13 @@
-"""CRC-32C (Castagnoli): a copy of the JAX package's numpy slicing-by-16
-path (``utils/crc.py`` ``crc32c`` without its native branch) and its
-``crc32c_masked``."""
+"""CRC-32C (Castagnoli) and the snappy framing checksum, as the JAX
+package's ``utils/crc.py`` computes them: ``crc32c`` runs the host core's
+``ct_crc32c`` (SSE4.2 CRC32 instruction); ``crc32c_py``, a copy of the
+reference's slicing-by-16 tables, is its plain version."""
 
 from __future__ import annotations
 
 import numpy as np
+
+from compress_tpu_torch import _native
 
 _CASTAGNOLI_POLY = 0x82F63B78  # reflected
 
@@ -26,7 +29,13 @@ _TBL = _make_tables(_CASTAGNOLI_POLY)
 
 
 def crc32c(data, crc: int = 0) -> int:
-    """CRC-32C of data, continuing from ``crc``."""
+    """CRC-32C of data, continuing from ``crc`` (host core)."""
+    buf = bytes(data)
+    return _native.library().ct_crc32c(buf, len(buf), crc & 0xFFFFFFFF)
+
+
+def crc32c_py(data, crc: int = 0) -> int:
+    """CRC-32C of data, continuing from ``crc`` (slicing-by-16 in Python)."""
     buf = bytes(data)
     crc = (crc ^ 0xFFFFFFFF) & 0xFFFFFFFF
     t = _TBL

@@ -1,8 +1,11 @@
-"""xxHash64 (the zstd frame content checksum keeps its low 32 bits): a
-pure-Python copy of the JAX package's ``utils/xxhash64.py`` one-shot
-digest."""
+"""xxHash64 (the zstd frame content checksum keeps its low 32 bits), as
+the JAX package's ``utils/xxhash64.py`` computes it: ``xxh64`` runs the
+host core's ``ct_xxh64``; ``xxh64_py``, a copy of the reference's Python
+rounds, is its plain version."""
 
 from __future__ import annotations
+
+from compress_tpu_torch import _native
 
 _P1 = 0x9E3779B185EBCA87
 _P2 = 0xC2B2AE3D27D4EB4F
@@ -27,7 +30,13 @@ def _merge_round(acc: int, val: int) -> int:
 
 
 def xxh64(data, seed: int = 0) -> int:
-    """xxHash64 digest of data (bytes-like)."""
+    """xxHash64 digest of data (bytes-like; host core)."""
+    b = bytes(data)
+    return _native.library().ct_xxh64(b, len(b), seed & _M64)
+
+
+def xxh64_py(data, seed: int = 0) -> int:
+    """xxHash64 digest of data (bytes-like; Python rounds)."""
     data = bytes(data)
     n = len(data)
     if n >= 32:

@@ -1,23 +1,29 @@
 """zstd of the port: the host frame codec (RFC 8878) that the device
 encoder and the batched device decoder need beside them.
 
-``decompress`` is a copy of the JAX package's pure-Python per-frame
-decoder (``zstd/__init__.py``; it has no native path here), ``compress``
-the pure-Python encoder (``zstd/encoder.py``).  Dictionaries are not
-supported: a frame that names a dictionary raises ``ZstdError``.
+``decompress`` is a copy of the JAX package's decoder
+(``zstd/__init__.py``): the whole stream in one call of the host core
+(``native_dec.decode_all``), else frame by frame, each frame's blocks on
+the host core (``native_dec.decode_frame_body``) or, where it refuses
+them, through the pure-Python block decoder, which gives the precise
+error.  ``decompress_py`` runs the pure-Python decoder alone: the plain
+version.  ``compress`` is the host encoder (``zstd/encoder.py``).
+Dictionaries are not supported: a frame that names a dictionary raises
+``ZstdError``.
 """
 
 from __future__ import annotations
 
 from compress_tpu_torch.utils.xxhash64 import xxh64
 from compress_tpu_torch.zstd import block as B
+from compress_tpu_torch.zstd import native_dec
 from compress_tpu_torch.zstd.block import BlockError, History
 from compress_tpu_torch.zstd.frame import (FrameError, Header,
                                            parse_frame_header)
 
 MAX_DECODED_SIZE = 64 << 30
 
-__all__ = ["compress", "decompress", "predef_seq_tables", "ZstdError",
+__all__ = ["compress", "decompress", "decompress_py", "predef_seq_tables", "ZstdError",
            "FrameError", "BlockError", "Header", "History",
            "parse_frame_header", "MAX_DECODED_SIZE", "compress_accel",
            "decompress_accel"]
@@ -32,6 +38,26 @@ def decompress(data, max_size: int = MAX_DECODED_SIZE,
                ignore_checksum: bool = False) -> bytes:
     """Decode all frames in data (skippable frames are skipped)."""
     data = bytes(data)
+    if data:
+        res = native_dec.decode_all(data, max_size, max_window,
+                                    ignore_checksum)
+        if res is not None:
+            return res
+    return _decode_frames(data, max_size, max_window, ignore_checksum, True)
+
+
+def decompress_py(data, max_size: int = MAX_DECODED_SIZE,
+                  max_window: int = 1 << 31,
+                  ignore_checksum: bool = False) -> bytes:
+    """``decompress`` in Python alone (the reference's Python decoder)."""
+    return _decode_frames(bytes(data), max_size, max_window,
+                          ignore_checksum, False)
+
+
+def _decode_frames(data: bytes, max_size: int, max_window: int,
+                   ignore_checksum: bool, native: bool) -> bytes:
+    """Frame by frame; with ``native``, each frame's blocks on the host
+    core where it takes them."""
     pos = 0
     out_all = bytearray()
     # empty input decodes to empty output
@@ -53,53 +79,16 @@ def decompress(data, max_size: int = MAX_DECODED_SIZE,
             raise ZstdError("decoded size exceeds limit")
         if h.dict_id:
             raise ZstdError(f"frame needs dictionary id {h.dict_id}")
-        hist = History(window_size=max(h.window_size, 1024))
-        frame_out = bytearray()
-        while True:
-            if pos + 3 > len(data):
-                raise ZstdError("truncated block header")
-            bh = int.from_bytes(data[pos:pos + 3], "little")
-            pos += 3
-            last = bh & 1
-            btype = (bh >> 1) & 3
-            bsize = bh >> 3
-            max_out = min(B.MAX_BLOCK_SIZE, h.window_size or B.MAX_BLOCK_SIZE)
-            if h.frame_content_size is not None:
-                max_out = min(max(max_out, 1), B.MAX_BLOCK_SIZE)
-            if btype == B.BLOCK_RAW:
-                if pos + bsize > len(data):
-                    raise ZstdError("truncated raw block")
-                out = data[pos:pos + bsize]
-                pos += bsize
-            elif btype == B.BLOCK_RLE:
-                if pos >= len(data):
-                    raise ZstdError("truncated RLE block")
-                if bsize > B.MAX_BLOCK_SIZE:
-                    raise ZstdError("RLE block too large")
-                out = bytes([data[pos]]) * bsize
-                pos += 1
-            elif btype == B.BLOCK_COMPRESSED:
-                if bsize > B.MAX_BLOCK_SIZE:
-                    raise ZstdError("compressed block too large")
-                if pos + bsize > len(data):
-                    raise ZstdError("truncated compressed block")
-                try:
-                    out = B.decode_block(data[pos:pos + bsize], hist,
-                                         B.MAX_BLOCK_SIZE)
-                except (ValueError, IndexError) as e:
-                    raise ZstdError(f"block decode failed: {e}") from e
-                pos += bsize
-            else:
-                raise ZstdError("reserved block type")
-            # Block_Maximum_Size = min(Window_Size, 128 KiB)
-            if len(out) > max_out:
-                raise ZstdError("block exceeds window maximum")
-            hist.append(out)
-            frame_out += out
-            if len(out_all) + len(frame_out) > max_size:
-                raise ZstdError("decoded size exceeds limit")
-            if last:
-                break
+        res = None
+        if native:
+            res = native_dec.decode_frame_body(
+                data, pos, max(h.window_size, 1024), max_size - len(out_all),
+                expected=h.frame_content_size)
+        if res is not None:
+            frame_out, pos = res
+        else:
+            frame_out, pos = _decode_blocks(data, pos, h, max_size
+                                            - len(out_all))
         if (h.frame_content_size is not None
                 and len(frame_out) != h.frame_content_size):
             raise ZstdError("frame content size mismatch")
@@ -113,6 +102,60 @@ def decompress(data, max_size: int = MAX_DECODED_SIZE,
             pos += 4
         out_all += frame_out
     return bytes(out_all)
+
+
+def _decode_blocks(data: bytes, pos: int, h: Header, max_size: int):
+    """(output, position after the last block) of the frame whose first
+    block header is at pos, in Python; ``max_size`` is what the output
+    may still hold."""
+    hist = History(window_size=max(h.window_size, 1024))
+    frame_out = bytearray()
+    while True:
+        if pos + 3 > len(data):
+            raise ZstdError("truncated block header")
+        bh = int.from_bytes(data[pos:pos + 3], "little")
+        pos += 3
+        last = bh & 1
+        btype = (bh >> 1) & 3
+        bsize = bh >> 3
+        max_out = min(B.MAX_BLOCK_SIZE, h.window_size or B.MAX_BLOCK_SIZE)
+        if h.frame_content_size is not None:
+            max_out = min(max(max_out, 1), B.MAX_BLOCK_SIZE)
+        if btype == B.BLOCK_RAW:
+            if pos + bsize > len(data):
+                raise ZstdError("truncated raw block")
+            out = data[pos:pos + bsize]
+            pos += bsize
+        elif btype == B.BLOCK_RLE:
+            if pos >= len(data):
+                raise ZstdError("truncated RLE block")
+            if bsize > B.MAX_BLOCK_SIZE:
+                raise ZstdError("RLE block too large")
+            out = bytes([data[pos]]) * bsize
+            pos += 1
+        elif btype == B.BLOCK_COMPRESSED:
+            if bsize > B.MAX_BLOCK_SIZE:
+                raise ZstdError("compressed block too large")
+            if pos + bsize > len(data):
+                raise ZstdError("truncated compressed block")
+            try:
+                out = B.decode_block(data[pos:pos + bsize], hist,
+                                     B.MAX_BLOCK_SIZE)
+            except (ValueError, IndexError) as e:
+                raise ZstdError(f"block decode failed: {e}") from e
+            pos += bsize
+        else:
+            raise ZstdError("reserved block type")
+        # Block_Maximum_Size = min(Window_Size, 128 KiB)
+        if len(out) > max_out:
+            raise ZstdError("block exceeds window maximum")
+        hist.append(out)
+        frame_out += out
+        if len(frame_out) > max_size:
+            raise ZstdError("decoded size exceeds limit")
+        if last:
+            break
+    return frame_out, pos
 
 
 def _frame_extent(data: bytes, pos: int):

@@ -1,6 +1,7 @@
 """The accel sidecar: a copy of the JAX package's ``zstd/accel.py``.
-``build_sidecar`` writes it (its payload from ``zstd/sidecar.py``, the
-port's copy of the reference's native builder), ``compress_accel`` and
+``build_sidecar`` writes it (its payload from the host core's
+``ct_zstd_build_sidecar``, ``sidecar_payload``; ``zstd/sidecar.py``
+``build_payload`` is its plain version), ``compress_accel`` and
 ``split_stream_accel`` encode a stream with sidecars and cut it into the
 items of the batched device decode, and ``split_sidecar``,
 ``parse_sidecar`` and ``accel_plan`` read it back.
@@ -26,10 +27,11 @@ from __future__ import annotations
 
 import numpy as np
 
+from compress_tpu_torch import _native
 from compress_tpu_torch.ops.execute import ARENA_ROWS, HIST_BASE, OUT_BASE
 from compress_tpu_torch.s2 import block as s2block
 from compress_tpu_torch.utils.crc import crc32c
-from compress_tpu_torch.zstd import _frame_extent, sidecar
+from compress_tpu_torch.zstd import _frame_extent
 from compress_tpu_torch.zstd.encoder import compress, compress_frame_bs
 from compress_tpu_torch.zstd.frame import parse_frame_header
 
@@ -38,10 +40,31 @@ ACCEL_MAGIC = b"CTA3"
 SEG = 1 << 16  # one 64 KiB block per execute step
 
 
+def sidecar_payload(body: bytes, max_rounds: int = 4, seq_cks: bool = False,
+                    hist_blocks: int = 0) -> bytes | None:
+    """The sidecar payload ('CTA3') of a frame's body (the bytes after its
+    header), from one call of ``ct_zstd_build_sidecar`` (retried with 4
+    times the room while it reports too little), or None where it refuses
+    the frame.  ``sidecar.build_payload`` is its plain version."""
+    body = bytes(body)
+    padded = body + b"\x00" * 16     # the native bit readers' over-read
+    cap = 16 * len(body) + (1 << 16)
+    lib = _native.library()
+    while True:
+        oarr, out = _native.out_buf(cap)
+        r = lib.ct_zstd_build_sidecar(padded, len(body), int(max_rounds),
+                                      1 if seq_cks else 0, int(hist_blocks),
+                                      out, cap)
+        if r != -3:           # E_SPACE
+            break
+        cap *= 4
+    return oarr[:r].tobytes() if r > 0 else None
+
+
 def build_sidecar(frame: bytes, max_rounds: int = 4, seq_cks: bool = False,
                   hist_blocks: int = 0) -> bytes | None:
     """The accel sidecar of one zstd frame, as a whole skippable frame, or
-    None where the frame is not eligible (``zstd/sidecar.py``).  A
+    None where the frame is not eligible (``sidecar_payload``).  A
     multi-block frame is eligible when every block but the last decodes
     to exactly 64 KiB and every offset reaches back at most
     ``hist_blocks`` blocks; ``seq_cks`` also writes the sequence
@@ -49,9 +72,9 @@ def build_sidecar(frame: bytes, max_rounds: int = 4, seq_cks: bool = False,
     then CRC-32C wrapped ('CTAC'): a corrupt sidecar is ignored, never
     planned."""
     h = parse_frame_header(frame)
-    payload = sidecar.build_payload(frame[h.header_size:], max_rounds,
-                                    seq_cks, hist_blocks)
-    if payload is None:
+    payload = sidecar_payload(frame[h.header_size:], max_rounds, seq_cks,
+                              hist_blocks)
+    if payload is None or not payload[8] & 1:   # first block not eligible
         return None
     packed = b"CTA2" + s2block.encode(payload)
     if len(packed) < len(payload):
@@ -72,9 +95,8 @@ def compress_accel(data, level: int = 1, max_rounds: int = 4,
     frame of 64 KiB blocks whose matches reach back ``hist_blocks`` blocks
     (at most the frame's blocks less one), which the device decodes with a
     carried history; where that frame has no sidecar the input is cut as
-    by default.  The frames come from the port's encoder, so they differ
-    from the reference's native ones; each sidecar equals the reference's
-    sidecar of the same frame."""
+    by default.  The frames are the host core's ladder's, as the
+    reference's are."""
     data = bytes(data)
     if multi_block and len(data) > SEG:
         n_blocks = -(-len(data) // SEG)

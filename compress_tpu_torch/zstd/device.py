@@ -7,7 +7,9 @@ encoder (``ops/zenc2.py``, 64 KiB blocks, FSE tables shared by a launch)
 on CUDA, the v1 encoder (``ops/zdev.py``, 16 KiB blocks, FSE tables per
 job) elsewhere, as the reference picks v2 on an accelerator and v1 on a
 CPU.  This module is the host's byte plumbing, one assembly for both
-engines' dicts: it picks raw, RLE or compressed per section, writes the
+engines' dicts (``_assemble_job``: the host core's
+``ct_zstd_assemble_job``, as in the reference; ``_assemble_job_py`` is its
+plain version): it picks raw, RLE or compressed per section, writes the
 headers, splices the device streams and sets the end-of-stream bit of
 each.
 
@@ -17,16 +19,19 @@ repeat state.  A job's first compressed block with sequences carries the
 FSE tables, later ones repeat them.
 
 An input shorter than one job goes through the host encoder
-(``encoder.compress`` at level 1); the sub-job tail after the device jobs
+(``encoder.compress`` at level 1, the ladder); the sub-job tail after the device jobs
 goes through the host matcher in blocks of ``encoder.BLOCK_SIZE`` with
 rep-free offsets (``tail_bodies``), as in the reference.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from compress_tpu_torch import _native
 from compress_tpu_torch._cuda import resolve_device
 from compress_tpu_torch.fse import core as fse_core
 from compress_tpu_torch.huff0.table import write_table
@@ -93,6 +98,44 @@ def _huff_table_blob(nbits, max_bits: int):
         except Exception:  # noqa: BLE001 - any unwritable table: raw literals
             _TABLE_CACHE[key] = None
     return _TABLE_CACHE[key]
+
+
+def _assemble_job(job_bytes: bytes, t, j: int, block: int):
+    """Per-block bodies for job j, as ``_assemble_job_py`` gives them, from
+    one call of ``ct_zstd_assemble_job``."""
+    def i32(x):
+        return np.ascontiguousarray(np.asarray(x), np.int32)
+
+    nblk = len(job_bytes) // block
+    arrs = [i32(t[k][j]) for k in (
+        "n_seqs", "lit_cnt", "huff_ok", "nbits", "max_bits", "stream_bits",
+        "lit_halves", "seq_halves", "seq_total_bits", "ll", "ml")]
+    ns, lc, ok, nb, mb, sb, lh, sh, tb, ll, ml = arrs
+    hdr = _first_seq_hdr(t, j)
+    cap = len(job_bytes) + nblk * 64 + (1 << 16)
+    oarr, out = _native.out_buf(cap)
+    blk_len = (ctypes.c_longlong * nblk)()
+    p = _native.ptr
+    r = _native.library().ct_zstd_assemble_job(
+        job_bytes, len(job_bytes), int(block), int(nblk),
+        p(ns), p(lc), p(ok), p(nb), p(mb), p(sb), p(lh), lh.shape[-1],
+        p(sh), sh.shape[-1], p(tb), p(ll), p(ml), ll.shape[-1], hdr,
+        len(hdr), out, cap, blk_len)
+    if r < 0:
+        raise RuntimeError(f"ct_zstd_assemble_job refused job {j} ({r})")
+    raw = oarr[:r].tobytes()
+    res = []
+    pos = 0
+    for bl in blk_len:
+        if bl == -1:
+            res.append(None)
+        elif bl == -2:
+            res.append(("rle", raw[pos:pos + 1]))
+            pos += 1
+        else:
+            res.append(raw[pos:pos + bl])
+            pos += bl
+    return res
 
 
 def _assemble_job_py(job_bytes: bytes, t, j: int, block: int):
@@ -289,7 +332,7 @@ def compress_device(data, *, checksum: bool = False, job: int | None = None,
         t = {k: v.cpu().numpy() for k, v in t.items()}
         for j in range(hi - c):
             jb = data[(c + j) * job : (c + j + 1) * job]
-            bodies += _assemble_job_py(jb, t, j, block)
+            bodies += _assemble_job(jb, t, j, block)
     tail_b, tail_r = tail_bodies(data[n_jobs * job:])
     emit_blocks(out, data, bodies + tail_b,
                 [block] * len(bodies) + tail_r)

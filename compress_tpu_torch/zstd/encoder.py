@@ -1,15 +1,19 @@
-"""zstd host encoder: a greedy repeat-aware matcher and block assembly
-(RFC 8878).  A copy of the path the JAX package's ``zstd/encoder.py``
-takes without its native library (``compress``'s Python branch: the
-``Matcher``, literal and sequence sections, frame assembly), byte for byte
-the same frames.  Dictionaries, custom window logs and the concurrent job
-engine are not copied.  ``compress_frame_bs`` writes the frame of 64 KiB
-blocks and a capped window that the accel encode's multi-block mode needs
-(the reference writes it with its native ladder, ``zstd_enc.cpp``
-``ct_zstd_compress_frame_bs``), with this matcher.
+"""zstd host encoder (RFC 8878), as the JAX package's ``zstd/encoder.py``
+encodes by default.  ``compress`` sends levels 1-4 (an input over 16
+bytes) through the host core's ladder (``ct_zstd_compress_level``:
+greedy, double-fast, lazy and deep-lazy parses, ``zstd_enc.cpp``) and
+everything else through the greedy repeat-aware ``Matcher`` and the block
+assembly copied from the reference's Python branch (``compress_matcher``,
+byte for byte the reference's frames on that branch).  The device encoder
+writes its sub-job tail with the ``Matcher`` too (``device.tail_bodies``).
+``compress_frame_bs`` is the ladder's frame of 64 KiB blocks and a capped
+window that the accel encode's multi-block mode needs
+(``ct_zstd_compress_frame_bs``).  Dictionaries, custom window logs and the
+concurrent job engine are not ported.
 
 ``predef_seq_tables()`` pins every sequence section to the predefined FSE
-tables (mode 0): the frames the shared-table sequence decoder
+tables (mode 0), in the ladder (its ``ct_zstd_force_predef`` flag) and in
+the ``Matcher`` path: the frames the shared-table sequence decoder
 (``ops/zseq_kern.py``) reads.  The predefined alphabets cover every code,
 so any parse stays encodable.
 """
@@ -20,6 +24,7 @@ import contextlib
 
 import numpy as np
 
+from compress_tpu_torch import _native
 from compress_tpu_torch.fse import core as fse_core
 from compress_tpu_torch.huff0 import table as HT
 from compress_tpu_torch.huff0.batch import _encode_stream
@@ -36,15 +41,18 @@ _FORCE_PREDEF = False
 
 @contextlib.contextmanager
 def predef_seq_tables():
-    """Within the scope, ``_choose_table`` returns the predefined table
-    (mode 0) for every sequence section.  Process-global: do not
-    interleave with encodes that must keep their own tables."""
+    """Within the scope, the ladder and ``_choose_table`` write the
+    predefined table (mode 0) for every sequence section.  Process-global:
+    do not interleave with encodes that must keep their own tables."""
     global _FORCE_PREDEF
+    lib = _native.library()
     _FORCE_PREDEF = True
+    lib.ct_zstd_force_predef(1)
     try:
         yield
     finally:
         _FORCE_PREDEF = False
+        lib.ct_zstd_force_predef(0)
 
 
 def _hashes(buf: np.ndarray, bits: int) -> tuple[np.ndarray, np.ndarray]:
@@ -69,13 +77,12 @@ _LEVEL_PARAMS = {
 class Matcher:
     """Greedy repeat-aware matcher with its hash table shared across the
     blocks of a frame.  Sequences never span a block end (matches are
-    capped at it); candidates may reference any earlier position within
-    ``window`` bytes (None: the whole input).  The scan loop reads Python
-    lists (the reference indexes numpy arrays; the values are the
-    same)."""
+    capped at it); candidates may reference any earlier position of the
+    input (the reference's ``window`` is not ported: no port caller caps
+    it).  The scan loop reads Python lists (the reference indexes numpy
+    arrays; the values are the same)."""
 
-    def __init__(self, src: bytes, level: int = 2,
-                 window: int | None = None):
+    def __init__(self, src: bytes, level: int = 2):
         self.src = src
         self.buf = np.frombuffer(src, dtype=np.uint8)
         p = _LEVEL_PARAMS.get(level, _LEVEL_PARAMS[2])
@@ -85,7 +92,6 @@ class Matcher:
             bits += 1
         self.bits = bits
         self.insert = p["insert"]
-        self.window = window
         if n >= 4:
             h, v = _hashes(self.buf, bits)
             self.hashes, self.v32 = h.tolist(), v.tolist()
@@ -99,7 +105,6 @@ class Matcher:
         if end - start < 16:
             return (np.array([], np.int64),) * 3 + (src[start:end],)
         hashes, v32, table = self.hashes, self.v32, self.table
-        window = self.window if self.window is not None else end
         s = max(start, 1)
         next_emit = start
         r1 = self.r1
@@ -121,7 +126,7 @@ class Matcher:
                     break
                 # c < s: after backward extension a short match can leave
                 # the scan behind a stale table entry
-                if 0 <= c < s and v32[c] == v32[s] and s - c <= window:
+                if 0 <= c < s and v32[c] == v32[s]:
                     cand = c
                     break
                 s += 1 + ((s - next_emit) >> 6)
@@ -310,18 +315,17 @@ def encode_sequences_section(lls, mls, ofvals) -> bytes:
     return bytes(out)
 
 
-def _encode_blocks(data: bytes, level: int, block: int,
-                   window: int | None) -> bytes:
-    """The blocks of a frame of data (not empty): ``block`` bytes each but
-    the last, sequences from one ``Matcher`` over the whole input."""
+def _encode_blocks(data: bytes, level: int) -> bytes:
+    """The blocks of a frame of data (not empty): ``BLOCK_SIZE`` bytes each
+    but the last, sequences from one ``Matcher`` over the whole input."""
     n = len(data)
     out = bytearray()
-    matcher = Matcher(data, level, window)
+    matcher = Matcher(data, level)
     reps = (1, 4, 8)
     pos = 0
     while pos < n:
         blk_start = pos
-        blk_end = min(pos + block, n)
+        blk_end = min(pos + BLOCK_SIZE, n)
         lls, mls, offs, tail = matcher.next_block(blk_start, blk_end)
         pos = blk_end
         last = pos >= n
@@ -353,8 +357,27 @@ def _encode_blocks(data: bytes, level: int, block: int,
 
 
 def compress(data, level: int = 2, checksum: bool = False) -> bytes:
-    """Encode data as one zstd frame (levels 1-4 differ in the matcher's
-    hash width and insert depth)."""
+    """Encode data as one zstd frame: levels up to 4 of an input over 16
+    bytes on the host core's ladder (a level below 1 as level 1), the
+    rest through ``compress_matcher``."""
+    data = bytes(data)
+    n = len(data)
+    if level > 4 or n <= 16:
+        return compress_matcher(data, level, checksum)
+    cap = n + n // 8 + 256
+    arr, dst = _native.out_buf(cap)
+    xx = (xxh64(data) & 0xFFFFFFFF) if checksum else 0
+    r = _native.library().ct_zstd_compress_level(
+        data, n, dst, cap, 1 if checksum else 0, xx, max(level, 1))
+    if r < 0:
+        raise RuntimeError(f"ct_zstd_compress_level failed on {n} bytes")
+    return arr[:r].tobytes()
+
+
+def compress_matcher(data, level: int = 2, checksum: bool = False) -> bytes:
+    """Encode data as one zstd frame with the ``Matcher`` (levels 1-4
+    differ in its hash width and insert depth): the reference's Python
+    branch."""
     data = bytes(data)
     n = len(data)
     single = n <= (1 << 20)
@@ -365,7 +388,7 @@ def compress(data, level: int = 2, checksum: bool = False) -> bytes:
         if checksum:
             out += (xxh64(b"") & 0xFFFFFFFF).to_bytes(4, "little")
         return bytes(out)
-    out += _encode_blocks(data, level, BLOCK_SIZE, None)
+    out += _encode_blocks(data, level)
     if checksum:
         out += (xxh64(data) & 0xFFFFFFFF).to_bytes(4, "little")
     return bytes(out)
@@ -374,30 +397,19 @@ def compress(data, level: int = 2, checksum: bool = False) -> bytes:
 def compress_frame_bs(data, level: int, block_log: int,
                       max_window: int) -> bytes:
     """One frame of blocks of ``1 << block_log`` bytes (the last one
-    shorter) whose matches reach back at most ``max_window`` bytes: the
-    frame the reference's native ``ct_zstd_compress_frame_bs``
-    (zstd_enc.cpp:1476) lays out, from this encoder's matcher and blocks.
-    Header: no single segment, the window descriptor of min(input, 8 MiB,
-    max_window) (at least 1 KiB) rounded up as the native code rounds it,
-    a 4-byte content size, no checksum.  The input must hold more than 16
-    bytes and fewer than 2^32."""
+    shorter) whose matches reach back at most ``max_window`` bytes
+    (``ct_zstd_compress_frame_bs``): no single segment, the window
+    descriptor of min(input, 8 MiB, max_window), at least 1 KiB, a 4-byte
+    content size, no checksum.  The input must hold more than 16 bytes
+    and fewer than 2^32."""
     data = bytes(data)
     n = len(data)
     if n <= 16 or n >= 1 << 32:
         raise ValueError(f"compress_frame_bs: {n} bytes")
-    window = max(min(n, 8 << 20, max_window if max_window > 0 else n), 1024)
-    wlog = 10
-    while 1 << (wlog + 1) <= window:
-        wlog += 1
-    wbase = 1 << wlog
-    mantissa = (window - wbase) // (wbase >> 3)
-    if wbase + mantissa * (wbase >> 3) < window:
-        mantissa += 1
-    if mantissa > 7:
-        mantissa, wlog = 0, wlog + 1
-    out = bytearray(F.MAGIC.to_bytes(4, "little"))
-    out += bytes([2 << 6, ((wlog - 10) << 3) | mantissa])
-    out += n.to_bytes(4, "little")
-    out += _encode_blocks(data, level, 1 << block_log,
-                          max_window if max_window > 0 else None)
-    return bytes(out)
+    cap = n + n // 2 + (1 << 16)
+    arr, dst = _native.out_buf(cap)
+    r = _native.library().ct_zstd_compress_frame_bs(
+        data, n, dst, cap, 0, 0, int(level), int(block_log), int(max_window))
+    if r <= 0:
+        raise RuntimeError(f"ct_zstd_compress_frame_bs failed on {n} bytes")
+    return arr[:r].tobytes()

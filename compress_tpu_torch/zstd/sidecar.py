@@ -1,8 +1,8 @@
-"""The accel sidecar builder: a copy, in Python and numpy, of the JAX
-package's native ``ct_zstd_build_sidecar`` (``_native/src/zstd_dec.cpp``:
+"""The accel sidecar builder's plain version: a copy, in Python and
+numpy, of the native ``ct_zstd_build_sidecar`` (``_native/src/zstd_dec.cpp``:
 the frame walk :1848, ``side_block`` :1509, ``huf_walk_cks`` :1139 and the
-planner with history, ``plan_ops`` :1225), which that package's
-``zstd/accel.build_sidecar`` wraps.
+planner with history, ``plan_ops`` :1225), which ``zstd/accel.build_sidecar``
+calls through ``accel.sidecar_payload``, as the JAX package's does.
 
 One walk of a frame's blocks writes the payload ``zstd/accel.py``
 describes ('CTA3'): per block the huff0 stream checkpoints every 32

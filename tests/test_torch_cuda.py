@@ -57,9 +57,12 @@ uneven rows, part-full CTAs), both with the tiles or rows on each route
 equal to the CPU models' (``tests/test_torch_tileparse_model.py``,
 ``tests/test_torch_zdevfse_model.py``), the repeat scan at v1's shapes,
 and both engines and ``compress_device``'s v1 on the card against the
-CPU; and the block-parallel engine
+CPU; the block-parallel engine
 (``parallel``) on one NCCL rank and on two gloo ranks sharing the card,
-against the unsharded calls.
+against the unsharded calls; and the host core (``_native``) built on
+the card's machine, each entry against its plain Python version (the
+checksums also against the checksum kernels' rows, job assembly on a job
+the v2 kernels encoded).
 Without a card every test here skips.
 
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -894,7 +897,9 @@ def test_zstd_frame_decode_on_cuda_matches_cpu(cuda_device, blocks_np):
     stats = {}
     got = decompress_frames_device(frames, stats=stats)
     assert got == decompress_frames_device(frames, device="cpu") == data
-    assert stats["routes"]["dev"] == 4
+    routes = [zdevice_dec._route(f)[0] for f in frames]
+    assert routes[:4] == ["dev"] * 4
+    assert stats["routes"] == {k: routes.count(k) for k in set(routes)}
 
 
 @pytest.mark.cuda
@@ -2351,3 +2356,106 @@ def test_sharded_two_gloo_ranks_on_one_card(cuda_device,
     assert per_rank[0][2][1]["halo"] is None
     assert per_rank[1][2][1]["halo"] == PAR_DATA[
         2 * PAR_JOB - PAR_JOB // 8:2 * PAR_JOB]
+
+
+# ---- the host core on the card's machine ------------------------------------
+
+@pytest.mark.cuda
+def test_host_core_checksums_match_kernels_and_plain(cuda_device,
+                                                     blocks_np):
+    from compress_tpu_torch.utils import crc as crc_mod
+    from compress_tpu_torch.utils import xxhash64 as xxh_mod
+
+    rows = torch.from_numpy(blocks_np.copy()).to(cuda_device)
+    crcs = checksum.crc32c_batch(rows).tolist()
+    xxs = [lo | hi << 32 for lo, hi in checksum.xxh64_batch(rows, 5).tolist()]
+    for r, c, x in zip(blocks_np, crcs, xxs):
+        b = r.tobytes()
+        assert c == crc_mod.crc32c(b) == crc_mod.crc32c_py(b)
+        assert x == xxh_mod.xxh64(b, 5) == xxh_mod.xxh64_py(b, 5)
+    whole = blocks_np.tobytes()
+    assert crc_mod.crc32c(whole) == crc_mod.crc32c_py(whole)
+    assert xxh_mod.xxh64(whole) == xxh_mod.xxh64_py(whole)
+
+
+@pytest.mark.cuda
+def test_host_core_s2_and_plan_match_plain(cuda_device, blocks_np):
+    from compress_tpu_torch.s2 import device_dec as s2dd
+    from compress_tpu_torch.s2 import plan as s2plan
+
+    bodies = lz2.encode_blocks_np(blocks_np.tobytes())
+    for r, body in zip(blocks_np, bodies):
+        src = r.tobytes()
+        assert s2_block.encode_body(src) == s2_block._encode_block_py(src)
+        got = s2dd.native_plan(body, len(src))
+        want = s2plan.build_plan(body, len(src))
+        assert got[0] == want[0] and got[1] == want[1] and got[5] == want[5]
+        assert all(np.array_equal(a, b) for a, b in zip(got[2:5], want[2:5]))
+        assert s2_block._decode_block_py(len(src), body, 0) == src
+
+
+@pytest.mark.cuda
+def test_host_core_zstd_matches_plain(cuda_device):
+    from compress_tpu_torch.zstd import sidecar
+
+    texts = [corpus.make_block("text", np.random.default_rng(s)).tobytes()
+             for s in range(3)]
+    for level in (1, 2, 3, 4):
+        frame = zencoder.compress(texts[level % 3], level=level,
+                                  checksum=level % 2 == 1)
+        assert zstd_host.decompress(frame) == texts[level % 3] == \
+            zstd_host.decompress_py(frame)
+        body = frame[zstd_host.parse_frame_header(frame).header_size:]
+        assert zaccel.sidecar_payload(body) == sidecar.build_payload(body)
+    frame = zencoder.compress_frame_bs(b"".join(texts), 1, 16, 2 << 16)
+    body = frame[zstd_host.parse_frame_header(frame).header_size:]
+    assert zaccel.sidecar_payload(body, hist_blocks=2) == \
+        sidecar.build_payload(body, hist_blocks=2)
+    assert zstd_host.decompress_py(frame) == b"".join(texts)
+
+
+@pytest.mark.cuda
+def test_host_core_assembles_a_v2_job_as_plain(cuda_device):
+    job = 2 * zenc2.BLOCK
+    data = corpus.replica_jobs(2, job, 3).tobytes()
+    src = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    jobs, prefixes, has_prefix = zdevice.launch_inputs(src, 0, 2, job)
+    t = zenc2.zstd_encode_jobs_v2(jobs.to(cuda_device), job=job,
+                                  prefixes=prefixes.to(cuda_device),
+                                  has_prefix=has_prefix.to(cuda_device))
+    t = {k: v.cpu().numpy() for k, v in t.items()}
+    for j in range(2):
+        jb = data[j * job:(j + 1) * job]
+        assert zdevice._assemble_job(jb, t, j, zenc2.BLOCK) == \
+            zdevice._assemble_job_py(jb, t, j, zenc2.BLOCK)
+
+
+@pytest.mark.cuda
+def test_host_core_entropy_matches_plain(cuda_device, blocks_np):
+    from compress_tpu_torch.huff0 import batch as hbatch
+    from compress_tpu_torch.huff0 import table as htable
+
+    for r in blocks_np[:4]:
+        data = r.tobytes()[:16384]
+        buf = np.frombuffer(data, np.uint8)
+        hist = np.bincount(buf, minlength=256).astype(np.int64)
+        if (hist > 0).sum() < 2:
+            continue
+        nbits, mb = htable.build_nbits(hist, 11)
+        assert np.array_equal(nbits, htable.package_merge_lengths_py(hist,
+                                                                     11))
+        try:
+            table = htable.write_table(nbits, mb)
+        except htable.IncompressibleError:
+            with pytest.raises(htable.IncompressibleError):
+                htable.write_table_py(nbits, mb)
+            continue
+        assert table == htable.write_table_py(nbits, mb)
+        codes = htable.canonical_codes(nbits, mb)
+        assert hbatch._encode_stream(buf, codes, nbits) == \
+            hbatch._encode_stream_py(buf, codes, nbits)
+        try:
+            blob = fse.compress(data)
+        except ValueError:
+            continue
+        assert fse.decompress(blob) == fse.decompress_py(blob) == data

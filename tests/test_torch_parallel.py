@@ -16,10 +16,11 @@ equal:
 - ``zstd_encode_sharded`` at job 8 KiB / block 4 KiB, levels 1-3, with
   and without the checksum, on a multiple of size x job, on inputs whose
   leftover jobs go to the host matcher (with the window widened to them
-  at size 4), below one job and empty: equal to JAX's frame (the JAX
-  host encoder's native core patched out where the frame is the host
-  encoder's, below one job and empty), decoded by ``zstandard`` and the
-  port's ``zstd.decompress``; the halo bytes each rank received;
+  at size 4), below one job and empty: equal to JAX's frame (where the
+  frame is the host encoder's, below one job, the port's Matcher path
+  against JAX's with its native core patched out, and the ranks' frame,
+  the ladder's, against JAX's unpatched), decoded by ``zstandard`` and
+  the port's ``zstd.decompress``; the halo bytes each rank received;
 - ``zstd_decode_sharded`` on 11 mixed accel and plain items and on
   multi-block accel streams: equal to JAX's and to the inputs;
 - ``decode_blocks_device`` and ``zstd.decompress_accel`` with a mesh:
@@ -56,6 +57,7 @@ from compress_tpu_torch.s2 import device_dec as SD  # noqa: E402
 from compress_tpu_torch.zstd import accel as A  # noqa: E402
 from compress_tpu_torch.zstd import device as ZD  # noqa: E402
 from compress_tpu_torch.zstd import device_dec as DD  # noqa: E402
+from compress_tpu_torch.zstd import encoder as E  # noqa: E402
 
 SIZES = (1, 2, 4)
 RUN_TIMEOUT_S = 300   # one group's run of every case
@@ -204,17 +206,25 @@ def test_s2_stream_matches_jax(inp, ranks):
 
 # ---- zstd encode -----------------------------------------------------------
 
-@pytest.mark.parametrize("case", Z_CASES, ids=Z_IDS)
-def test_zstd_encode_sharded_matches_jax(inp, ranks, case, monkeypatch):
+@pytest.mark.parametrize("case,native", [
+    *(pytest.param(c, False, id=i) for c, i in zip(Z_CASES, Z_IDS)),
+    *(pytest.param(c, True, id=f"native-{i}")
+      for c, i in zip(Z_CASES, Z_IDS) if c[0] == "small")])
+def test_zstd_encode_sharded_matches_jax(inp, ranks, case, native,
+                                         monkeypatch):
+    """Where the jobs do not fill the mesh (0 < n < size jobs) the frame is
+    the host encoder's: the port's Matcher path equals the JAX package's
+    with its native ladder patched out, and the ranks' frame (the ladder,
+    ``native``) the unpatched one."""
     size, res = ranks
     c, level, checksum = case
     data = inp.z_data[:_zn(c, size)]
-    if 0 < len(data) < size * JOB:
-        # the frame is the host encoder's, whose native core writes other
-        # bytes than its Python path (the port's); equal on empty input
+    got = _one(res[case])
+    if 0 < len(data) < size * JOB and not native:
         monkeypatch.setattr(jax_enc, "_native_compress",
                             lambda *a, **k: None)
-    got = _one(res[case])
+        assert got == E.compress(data, level=1, checksum=checksum)
+        got = E.compress_matcher(data, level=1, checksum=checksum)
     want = J.zstd_encode_sharded(data, _jax_mesh(size), job=JOB, block=BLOCK,
                                  checksum=checksum, level=level)
     assert got == want

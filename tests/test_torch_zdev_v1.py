@@ -12,9 +12,10 @@
   JAX one at job 32 KiB / block 8 KiB and at job 64 KiB / block 16 KiB
   (MS = 2,731), levels 1-3, with and without prefixes.
 - ``compress_device`` on the CPU (``engine="auto"``, which is v1 there)
-  equals the JAX ``compress_device(engine="v1")`` byte for byte (the JAX
-  native ladder patched out for inputs shorter than a job), and the frame
-  decodes with ``zstandard`` and the port's host decoder."""
+  equals the JAX ``compress_device(engine="v1")`` byte for byte, with the
+  JAX native ladder patched out (the port's Matcher path for inputs
+  shorter than a job) and unpatched (the port's default, the ladder), and
+  the frame decodes with ``zstandard`` and the port's host decoder."""
 
 import numpy as np
 import pytest
@@ -31,6 +32,7 @@ from compress_tpu_torch import corpus  # noqa: E402
 from compress_tpu_torch import zstd as port_zstd  # noqa: E402
 from compress_tpu_torch.ops import zdev, zseqenc  # noqa: E402
 from compress_tpu_torch.zstd import device  # noqa: E402
+from compress_tpu_torch.zstd import encoder as E  # noqa: E402
 
 
 def _same(got, want, what=""):
@@ -176,12 +178,18 @@ FRAME_CASES = [(2, False, 8), (1, True, 8), (3, False, 1)]
 FRAME_IDS = ["level2", "level1-checksum", "level3-launch-per-job"]
 
 
-@pytest.mark.parametrize("case", FRAME_CASES, ids=FRAME_IDS)
-def test_compress_device_auto_on_cpu_matches_jax_v1(case, frame_data,
+@pytest.mark.parametrize("case,native", [
+    *(pytest.param(c, False, id=i) for c, i in zip(FRAME_CASES, FRAME_IDS)),
+    pytest.param(FRAME_CASES[0], True, id=f"native-{FRAME_IDS[0]}")])
+def test_compress_device_auto_on_cpu_matches_jax_v1(case, native, frame_data,
                                                     monkeypatch):
+    """The frame (device jobs, the Matcher's tail) equals the JAX package's
+    with its native ladder patched out, and (``native``) unpatched."""
     from compress_tpu.zstd import encoder as jax_enc
 
-    monkeypatch.setattr(jax_enc, "_native_compress", lambda *a, **k: None)
+    if not native:
+        monkeypatch.setattr(jax_enc, "_native_compress",
+                            lambda *a, **k: None)
     level, checksum, mlj = case
     job, block = 32 << 10, 8 << 10
     port = device.compress_device(frame_data, job=job, block=block,
@@ -224,13 +232,26 @@ def test_auto_on_cpu_is_v1_at_its_defaults(monkeypatch):
 
 
 def test_short_input_at_v1_default_job_matches_jax(monkeypatch):
-    """Below v1's 1 MiB default job both go to the host encoder."""
+    """Below v1's 1 MiB default job both go to the host encoder: the
+    port's Matcher path equals the JAX package's with its native ladder
+    patched out."""
     from compress_tpu.zstd import encoder as jax_enc
 
     monkeypatch.setattr(jax_enc, "_native_compress", lambda *a, **k: None)
     data = corpus.corpus_blocks(2, 3).reshape(-1)[:100_003].tobytes()
+    port = E.compress_matcher(data, level=1)
+    assert port == jax_device.compress_device(data, engine="v1")
+    assert port_zstd.decompress(port) == data
+
+
+@pytest.mark.parametrize("n", [100_003, 17])
+def test_short_input_at_v1_default_job_matches_jax_native(n):
+    """The port's default (the ladder) equals the JAX package's unpatched
+    frame below v1's default job."""
+    data = corpus.corpus_blocks(2, 3).reshape(-1)[:n].tobytes()
     port = device.compress_device(data, device="cpu")
     assert port == jax_device.compress_device(data, engine="v1")
+    assert port == E.compress(data, level=1)
     assert port_zstd.decompress(port) == data
 
 

@@ -7,7 +7,8 @@ long-range channel) and a job of an all-zero block (an RLE block) and a
 random block (a raw block); and on inputs that are not whole jobs: a
 sub-job tail of one and of two host blocks after the device jobs, an input
 shorter than one job and the empty input, which go through the host
-encoder (the JAX package's native ladder patched out).  Every frame
+encoder: its ladder equals the JAX package's unpatched, its Matcher path
+the JAX package's with the native ladder patched out.  Every frame
 decodes with ``zstandard``."""
 
 import functools
@@ -26,6 +27,7 @@ from compress_tpu_torch.fse import core as port_fse  # noqa: E402
 from compress_tpu_torch.huff0 import table as port_huff  # noqa: E402
 from compress_tpu_torch.utils import xxhash64 as port_xxh  # noqa: E402
 from compress_tpu_torch.zstd import device, frame  # noqa: E402
+from compress_tpu_torch.zstd import encoder as E  # noqa: E402
 
 BS = 1 << 16
 JOB = 128 << 10
@@ -146,7 +148,7 @@ def test_huff_table_and_ncount_match_jax_python_paths(monkeypatch):
             np.bincount(rng.choice(256, k, replace=False),
                         weights=hist, minlength=256).astype(np.int64), 11)
         nbits[:] = nb
-        assert port_huff.write_table(nbits, mb) == \
+        assert port_huff.write_table_py(nbits, mb) == \
             jax_huff0.write_table(nbits, mb)
     for log in (5, 6, 7):
         norm = np.array([10, 0, 0, 1, -1, 5] + [0] * 10, np.int64)
@@ -201,21 +203,33 @@ def test_sub_job_tail_matches_jax(n, checksum, tail_data):
 
 SHORT = [(JOB // 2 + 7, JOB, False), (JOB // 2 + 7, JOB, True),
          (0, JOB, False), (0, JOB, True), (JOB, None, False)]
+SHORT_IDS = ["half_job", "half_job_checksum", "empty", "empty_checksum",
+             "one_small_job_default"]
+SHORT_CASES = [pytest.param(*c, False, id=i)
+               for c, i in zip(SHORT, SHORT_IDS)] + [
+    pytest.param(*c, True, id=f"native-{i}")
+    for c, i in zip(SHORT, SHORT_IDS) if c[0]]
 
 
-@pytest.mark.parametrize("n,job,checksum", SHORT,
-                         ids=["half_job", "half_job_checksum", "empty",
-                              "empty_checksum", "one_small_job_default"])
-def test_input_shorter_than_a_job_matches_jax(n, job, checksum, tail_data,
-                                              monkeypatch):
+@pytest.mark.parametrize("n,job,checksum,native", SHORT_CASES)
+def test_input_shorter_than_a_job_matches_jax(n, job, checksum, native,
+                                              tail_data, monkeypatch):
     """``n < job`` goes through the host encoder at level 1 (at the
-    default 4 MiB job too), with the JAX package's native ladder off."""
+    default 4 MiB job too).  The port's Matcher path
+    (``compress_matcher``) equals the JAX package's frame with its native
+    ladder off; the port's ``compress_device`` (``native``: the ladder)
+    equals the JAX package's unpatched one."""
     from compress_tpu.zstd import encoder as jax_enc
 
-    monkeypatch.setattr(jax_enc, "_native_compress", lambda *a, **k: None)
+    if not native:
+        monkeypatch.setattr(jax_enc, "_native_compress",
+                            lambda *a, **k: None)
     data = tail_data[:n]
     port = device.compress_device(data, checksum=checksum, job=job,
                                   device="cpu", engine="v2")
+    if not native:
+        assert port == E.compress(data, level=1, checksum=checksum)
+        port = E.compress_matcher(data, level=1, checksum=checksum)
     ref = jax_device.compress_device(data, checksum=checksum,
                                      job=job or device.DEFAULT_JOB,
                                      block=BS, encode_fn=_memo_encode)

@@ -8,10 +8,12 @@ byte.
   1, 3, 19), multi-block frames with raw and RLE blocks, skippable frames
   and the port's own device v2 frames; corrupt inputs raise
   ``ZstdError`` where JAX raises.
-- ``encoder.compress`` is byte-equal to the JAX encoder's Python path
-  (its native encoder patched out) on every corpus class, levels 1-4;
-  under ``predef_seq_tables`` every sequence section has modes byte 0 and
-  the frames decode with ``zstandard``."""
+- ``encoder.compress_matcher`` is byte-equal to the JAX encoder's Python
+  path (its native encoder patched out) and ``encoder.compress`` (the host
+  core's ladder) to the unpatched JAX encoder, on every corpus class,
+  levels 1-4; under ``predef_seq_tables`` every sequence section has modes
+  byte 0, in the ladder's frames and the Matcher's, and the frames decode
+  with ``zstandard``."""
 
 import numpy as np
 import pytest
@@ -146,18 +148,26 @@ def test_corrupt_inputs_raise_where_jax_raises():
         jax_z.decompress(dict_frame)
 
 
-@pytest.mark.parametrize("level", [1, 2, 3, 4])
-def test_encoder_matches_jax_python_path(level, monkeypatch):
-    monkeypatch.setattr(jax_enc, "_native_compress", lambda *a, **k: None)
+ENCODER_CASES = [pytest.param(lv, False, id=str(lv)) for lv in (1, 2, 3, 4)] \
+    + [pytest.param(lv, True, id=f"native-{lv}") for lv in (1, 2, 3, 4)]
+
+
+@pytest.mark.parametrize("level,native", ENCODER_CASES)
+def test_encoder_matches_jax_python_path(level, native, monkeypatch):
+    """The port's Matcher path (``compress_matcher``) equals the JAX
+    encoder's Python path (its native ladder patched out); the port's
+    default ``compress`` (``native``) equals the unpatched JAX encoder."""
+    fn = E.compress if native else E.compress_matcher
+    if not native:
+        monkeypatch.setattr(jax_enc, "_native_compress", lambda *a, **k: None)
     for i, cls in enumerate(corpus.CLASSES):
         data = _block(cls, 12000 + 1000 * i, level * 10 + i)
         for checksum in (False, True):
             want = jax_enc.compress(data, level=level, checksum=checksum)
-            got = E.compress(data, level=level, checksum=checksum)
+            got = fn(data, level=level, checksum=checksum)
             assert got == want, (cls, checksum)
     for data in (b"", b"abc", _mixed(200000, level)):
-        assert E.compress(data, level=level) == jax_enc.compress(
-            data, level=level)
+        assert fn(data, level=level) == jax_enc.compress(data, level=level)
 
 
 def _seq_modes(frame):
@@ -182,15 +192,16 @@ def _seq_modes(frame):
 
 def test_predef_seq_tables_frames():
     data = _block("text", 65536, 5) + _block("rand4", 30000, 5)
-    plain = E.compress(data, level=1)
-    with E.predef_seq_tables():
-        frame = E.compress(data, level=1)
-    assert not E._FORCE_PREDEF
-    modes = _seq_modes(frame)
-    assert modes and all(m == 0 for m in modes)
-    assert any(m != 0 for m in _seq_modes(plain))
-    assert zstandard.ZstdDecompressor().decompress(frame) == data
-    _check(frame, data)
+    for fn in (E.compress, E.compress_matcher):
+        plain = fn(data, level=1)
+        with E.predef_seq_tables():
+            frame = fn(data, level=1)
+        assert not E._FORCE_PREDEF
+        modes = _seq_modes(frame)
+        assert modes and all(m == 0 for m in modes)
+        assert any(m != 0 for m in _seq_modes(plain))
+        assert zstandard.ZstdDecompressor().decompress(frame) == data
+        _check(frame, data)
 
 
 def test_huff0_host_pieces_match_jax():
