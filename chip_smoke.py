@@ -219,9 +219,9 @@ paths above:
     ``encode_step_stats`` of the phase-3 corpus (equal to
     ``s2_encode_blocks``; the total is the lengths' sum);
     ``s2_stream_encode_device`` of the corpus and a 12,345-byte tail,
-    walked chunk by chunk (type, length, masked CRC-32C, body through the
-    port's S2 decoder) back to the input; ``zstd_encode_sharded`` of the
-    phase-26 jobs and a 300,001-byte tail, equal to
+    read back to the input by the port's S2 ``Reader`` (each chunk's
+    masked CRC-32C checked, no chunk over 64 KiB);
+    ``zstd_encode_sharded`` of the phase-26 jobs and a 300,001-byte tail, equal to
     ``compress_device(engine="v1", level=2)`` byte for byte (its halo,
     encode, assembly and gather times, and one trace with its idle
     share); ``zstd_decode_sharded`` of phase 20's and 21's items and of
@@ -256,6 +256,30 @@ The host core (``compress_tpu_torch/_native``), after phase 26:
     ``compress_matcher``); job assembly on phase 26's first job
     (``device._assemble_job`` / ``_assemble_job_py``).
 
+The stream tier (``s2/stream.py``, ``index.py``, ``seek.py``,
+``zstd/stream.py``, ``zstd/dict.py``, ``zstd/snappy_convert.py``: host
+code around device-made data), after phase 19:
+
+30. ``parallel.s2_stream_encode_device`` of the phase-3 corpus and a
+    12,345-byte tail (one rank: the tile parse and the XLA engine's
+    stages on the card), read back by the port's S2 ``Reader``, indexed
+    by ``index_stream`` and seeked by ``ReadSeeker`` at 8 seeded offsets
+    (4 KiB each); its compressed 64 KiB chunks (whole S2 blocks) through
+    ``s2.decode_blocks_device``, equal to the Reader's chunks; the S2
+    ``Writer(add_index=True)`` at levels 1-3 with 1 and 4 workers (equal
+    bytes, read back); ``compress_device`` (v2) of 8 jobs of 1 MiB read
+    by the zstd ``Reader`` in 1 MiB steps; the zstd ``Writer`` at levels
+    1-4 with checksums and once with a dictionary that ``build_dict`` made
+    from 32 seeded 4 KiB samples, each read back by the ``Reader``, by
+    ``decompress(dicts=...)`` and (the four without a dictionary, with the
+    device frames) by ``decode_concurrent``; ``snappy_convert.convert`` of
+    a snappy-mode S2 stream of 4 MiB, decoded by ``zstd.decompress``.
+    Prints each call's host seconds and bytes and the launches it made
+    (counters set to 0 just before and read just after, under the
+    kernels line's names: the tile parse, the execute and the v2
+    kernels, each must launch), and one ``{"stream_tier": ...}`` line
+    before the kernels line.  It adds no kernel.
+
 The routes no path sends, which take the inputs the reference takes
 (run after every main path):
 
@@ -280,6 +304,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import io
 import json
 import multiprocessing
 import os
@@ -2528,38 +2553,6 @@ def _count_launches(fn):
                  for k, fns in counters.items()}
 
 
-def _walk_s2_stream(stream: bytes) -> bytes:
-    """The input of an .s2 framed stream: the stream magic, then chunks of
-    a type byte, a 3-byte length and a masked CRC-32C of the chunk's
-    input; a compressed chunk's body decodes through ``s2.block.decode``,
-    a stored chunk is its input."""
-    from compress_tpu_torch.parallel.engine import MAGIC_CHUNK_S2
-    from compress_tpu_torch.s2 import block as s2block
-    from compress_tpu_torch.utils.crc import crc32c_masked
-
-    if not stream.startswith(MAGIC_CHUNK_S2):
-        raise AssertionError("S2 stream: no stream magic")
-    pos, out = len(MAGIC_CHUNK_S2), bytearray()
-    while pos < len(stream):
-        kind = stream[pos]
-        n = int.from_bytes(stream[pos + 1:pos + 4], "little")
-        crc = int.from_bytes(stream[pos + 4:pos + 8], "little")
-        body = stream[pos + 8:pos + 4 + n]
-        pos += 4 + n
-        if kind == 0x00:
-            chunk = s2block.decode(body)
-        elif kind == 0x01:
-            chunk = body
-        else:
-            raise AssertionError(f"S2 stream: chunk type {kind:#x}")
-        if crc32c_masked(chunk) != crc or len(chunk) > (1 << 16):
-            raise AssertionError("S2 stream: a chunk's CRC or size is wrong")
-        out += chunk
-    if pos != len(stream):
-        raise AssertionError("S2 stream: a chunk overruns the stream")
-    return bytes(out)
-
-
 def sharded_world1(data, blocks, acc, plain) -> dict:
     """Phase 27: the block-parallel engine on one rank over NCCL, at the
     sizes of the unsharded phases (``data``/``blocks``: phase 3's corpus;
@@ -2575,6 +2568,7 @@ def sharded_world1(data, blocks, acc, plain) -> dict:
     from compress_tpu_torch.ops import lz2, zdev
     from compress_tpu_torch.parallel import engine as PE
     from compress_tpu_torch.s2 import device_dec as SD
+    from compress_tpu_torch.s2 import stream as S2S
     from compress_tpu_torch.zstd import device as zdevice
     from compress_tpu_torch.zstd import device_dec as DD
 
@@ -2613,12 +2607,13 @@ def sharded_world1(data, blocks, acc, plain) -> dict:
                 lambda: PE.s2_stream_encode_device(sdata, mesh))
             t_stream = (time.perf_counter() - t0) * 1e3
             t0 = time.perf_counter()
-            if _walk_s2_stream(stream) != sdata:
+            if S2S.Reader(io.BytesIO(stream),
+                          max_block_size=lz2.B).read() != sdata:
                 raise AssertionError("s2_stream_encode_device: the stream "
                                      "does not give back its input")
             _say(f"S2 stream: {len(sdata)} bytes -> {len(stream)} (ratio "
                  f"{len(stream) / len(sdata):.6f}), {len(sdata) // lz2.B + 1}"
-                 f" chunks walked and decoded to the input "
+                 f" chunks read back to the input by the S2 Reader "
                  f"({time.perf_counter() - t0:.2f} s)")
             times["s2_stream_encode_device"] = (t_stream, None)
             # -- zstd v1: the sharded job engine against compress_device ---
@@ -2814,6 +2809,213 @@ def two_ranks(acc) -> dict:
                       | {k: x["zstd_stats"][k] for k in (
                           "halo_s", "encode_s", "assemble_s", "gather_s")}
                       for x in res]}
+
+
+def _stream_counters() -> dict:
+    """The launch counters of the kernels under phase 30, by the names the
+    kernels line gives them."""
+    from compress_tpu_torch.ops import (execute, lz2, lzkern, zenc2, zparse,
+                                        zseqenc)
+    from compress_tpu_torch.utils import histogram as H
+
+    return {"find_matches_blocks": lzkern.find_matches_blocks,
+            "parse_blocks": zparse.parse_blocks, "rep_scan": zseqenc.rep_scan,
+            "fse_chain": zseqenc.fse_chain, "litlut": zenc2._litlut,
+            "byte_histograms": H.byte_histograms,
+            "execute_pieces": execute.execute_pieces,
+            "tile_parse": lz2.tile_parse}
+
+
+def _s2_chunks(stream: bytes) -> list:
+    """(type, payload) of each data chunk of an .s2 stream, the CRC cut."""
+    from compress_tpu_torch.s2 import stream as S2S
+
+    pos, out = len(S2S.MAGIC_CHUNK), []
+    while pos < len(stream):
+        kind = stream[pos]
+        n = int.from_bytes(stream[pos + 1:pos + 4], "little")
+        if kind in (S2S.CHUNK_COMPRESSED, S2S.CHUNK_UNCOMPRESSED):
+            out.append((kind, stream[pos + 8:pos + 4 + n]))
+        pos += 4 + n
+    return out
+
+
+def stream_tier_path(data: bytes) -> dict:
+    """Phase 30: the stream tier (``s2/stream.py``, ``index.py``,
+    ``seek.py``, ``zstd/stream.py``, ``zstd/dict.py``,
+    ``zstd/snappy_convert.py``) on the card machine's host around
+    device-made data.  Every mismatch raises.  Returns each call's host
+    seconds and bytes and the launches of the kernels under the phase."""
+    from compress_tpu_torch import corpus, s2
+    from compress_tpu_torch import zstd as Z
+    from compress_tpu_torch.parallel import engine as PE
+    from compress_tpu_torch.s2 import index as S2I
+    from compress_tpu_torch.s2 import seek as S2K
+    from compress_tpu_torch.s2 import stream as S2S
+    from compress_tpu_torch.zstd import device as zdevice
+    from compress_tpu_torch.zstd import dict as ZD
+    from compress_tpu_torch.zstd import snappy_convert
+    from compress_tpu_torch.zstd import stream as ZS
+
+    calls = {}
+
+    def timed(what, fn, n_in):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        n_out = len(out) if isinstance(out, (bytes, bytearray)) else None
+        calls[what] = {"s": s, "in_bytes": n_in, "out_bytes": n_out}
+        _say(f"  {what}: {s:.4f} s, {n_in} bytes in"
+             + (f", {n_out} out" if n_out is not None else ""))
+        return out
+
+    def must(ok, what):
+        if not ok:
+            raise AssertionError(f"phase 30: {what}")
+
+    def read_steps(r, step):
+        out = bytearray()
+        while True:
+            x = r.read(step)
+            if not x:
+                return bytes(out)
+            out += x
+
+    counters = _stream_counters()
+    for f in counters.values():
+        f.launches = 0
+    t_phase = time.perf_counter()
+
+    # -- S2: the device-made stream, read back, indexed, seeked ------------
+    sdata = data + corpus.corpus_blocks(1, 27).tobytes()[:12_345]
+    stream = timed("s2_stream_encode_device",
+                   lambda: PE.s2_stream_encode_device(sdata), len(sdata))
+    back = timed("s2 Reader.read", lambda: S2S.Reader(io.BytesIO(
+        stream)).read(), len(stream))
+    must(back == sdata, "the port's S2 Reader does not give back the "
+         "device-made stream's input")
+    idx = timed("s2 index_stream", lambda: S2I.index_stream(stream),
+                len(stream))
+    must(idx.total_uncompressed == len(sdata)
+         and len(idx.entries) == len(sdata) // (1 << 16) + 1,
+         f"index_stream: {idx.total_uncompressed} bytes, "
+         f"{len(idx.entries)} entries")
+    rs = S2K.ReadSeeker(io.BytesIO(stream), idx)
+    offs = np.random.default_rng([SEED, 30]).integers(0, len(sdata),
+                                                      8).tolist()
+
+    def seeks():
+        for off in offs:
+            rs.seek(off)
+            must(rs.read(4096) == sdata[off:off + 4096],
+                 f"ReadSeeker at {off}")
+        return None
+
+    timed("s2 ReadSeeker 8 x 4 KiB", seeks, 8 * 4096)
+    chunks = read_steps(S2S.Reader(io.BytesIO(stream)), 1 << 16)
+    per_chunk = [chunks[i:i + (1 << 16)]
+                 for i in range(0, len(chunks), 1 << 16)]
+    kinds = _s2_chunks(stream)
+    must(len(kinds) == len(per_chunk), "chunk count")
+    comp = [(i, p) for i, (k, p) in enumerate(kinds)
+            if k == S2S.CHUNK_COMPRESSED]
+    dec = timed("s2.decode_blocks_device of the compressed chunks",
+                lambda: s2.decode_blocks_device([p for _, p in comp]),
+                sum(len(p) for _, p in comp))
+    must(all(d == per_chunk[i] for (i, _), d in zip(comp, dec)),
+         "decode_blocks_device of the stream's chunks differs from the "
+         "Reader's chunks")
+    must(len(dec) == len(comp), "decode_blocks_device: chunk count")
+    s2_writes = {}
+    for level in (1, 2, 3):
+        outs = []
+        for workers in (1, 4):
+            def write(level=level, workers=workers):
+                buf = io.BytesIO()
+                w = S2S.Writer(buf, add_index=True, level=level,
+                               workers=workers)
+                w.write(sdata)
+                w.close()
+                return buf.getvalue()
+
+            outs.append(timed(f"s2 Writer level {level} workers {workers}",
+                              write, len(sdata)))
+        must(outs[0] == outs[1], f"s2 Writer level {level}: workers=4 "
+             "differs from serial")
+        must(S2S.Reader(io.BytesIO(outs[0])).read() == sdata,
+             f"s2 Writer level {level}: read back")
+        must(S2I.Index.load_stream(outs[0]).total_uncompressed == len(sdata),
+             f"s2 Writer level {level}: its index")
+        s2_writes[level] = len(outs[0])
+
+    # -- zstd: device frames and Writer streams, read back ------------------
+    zdata = corpus.replica_jobs(8, 1 << 20, SEED).tobytes()
+    frames = timed("zstd compress_device (v2)",
+                   lambda: zdevice.compress_device(zdata), len(zdata))
+    got = timed("zstd Reader.read(1 MiB) steps of the device frames",
+                lambda: read_steps(ZS.Reader(io.BytesIO(frames)), 1 << 20),
+                len(frames))
+    must(got == zdata, "zstd Reader over compress_device's frames")
+    rng = np.random.default_rng([SEED, 31])
+    samples = [zdata[i:i + 4096]
+               for i in rng.integers(0, len(zdata) - 4096, 32).tolist()]
+    blob = timed("zstd build_dict (32 x 4 KiB samples)",
+                 lambda: ZD.build_dict(samples, b"".join(samples)[:64 << 10],
+                                       dict_id=30), 32 * 4096)
+    zd = ZD.load_dict(blob)
+    streams = {}
+    for level in (1, 2, 3, 4, "dict"):
+        def write(level=level):
+            buf = io.BytesIO()
+            w = ZS.Writer(buf, level=2 if level == "dict" else level,
+                          checksum=True,
+                          dict_=zd if level == "dict" else None)
+            w.write(zdata)
+            w.close()
+            return buf.getvalue()
+
+        f = streams[level] = timed(f"zstd Writer {level}", write, len(zdata))
+        dicts = [zd] if level == "dict" else None
+        must(timed(f"zstd Reader {level}", lambda: read_steps(ZS.Reader(
+            io.BytesIO(f), dicts=dicts), 1 << 20), len(f)) == zdata,
+            f"zstd Reader of the level-{level} stream")
+        must(timed(f"zstd decompress {level}", lambda: Z.decompress(
+            f, dicts=dicts), len(f)) == zdata,
+            f"zstd decompress of the level-{level} stream")
+    plain = b"".join([frames] + [streams[k] for k in (1, 2, 3, 4)])
+    spans = Z.split_frames(plain)
+    must(len(spans) == len(Z.split_frames(frames)) + 4, "split_frames")
+    must(timed("zstd decode_concurrent of the 4 streams and the device "
+               "frames", lambda: Z.decode_concurrent(plain, workers=4),
+               len(plain)) == zdata * 5, "decode_concurrent")
+
+    # -- converters: a snappy-mode S2 stream to one zstd frame -------------
+    def snappy_stream():
+        buf = io.BytesIO()
+        w = S2S.Writer(buf, snappy=True)
+        w.write(zdata[:4 << 20])
+        w.close()
+        return buf.getvalue()
+
+    sn = timed("snappy-mode S2 Writer (4 MiB)", snappy_stream, 4 << 20)
+    conv = timed("snappy_convert.convert", lambda: snappy_convert.convert(sn),
+                 len(sn))
+    must(Z.decompress(conv) == zdata[:4 << 20], "snappy_convert: decode")
+
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    phase_s = time.perf_counter() - t_phase
+    _say(f"phase 30 launches: {launches}; {phase_s:.2f} s in all")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"phase 30: a kernel under the stream tier did "
+                             f"not run: {launches}")
+    return {"launches": launches, "seconds": phase_s, "calls": calls,
+            "s2_writer_bytes": s2_writes,
+            "zstd_stream_bytes": {str(k): len(v)
+                                  for k, v in streams.items()},
+            "device_frames_bytes": len(frames), "s2_stream_bytes":
+                len(stream), "converted_bytes": len(conv)}
 
 
 def main() -> int:
@@ -3077,9 +3279,12 @@ def main() -> int:
         if row["name"] in by_row:
             row["sharded_launches"] = p27["launches"][by_row[row["name"]]]
     kernels += other_routes(dev, blocks_np, route_counts())
+    _say("phase 30: the stream tier")
+    p30 = stream_tier_path(data)
 
     _say(json.dumps({"sharded": {"world1_nccl": p27, "two_gloo_ranks": p28}},
                     default=str))
+    _say(json.dumps({"stream_tier": p30}))
     _say(smi)
     _say(json.dumps({"kernels": kernels}))
     _say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

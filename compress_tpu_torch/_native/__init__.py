@@ -1,7 +1,8 @@
 """The port's host core: C++ for the serial byte work beside the device
 paths (checksums, the S2 block codec and planner, the zstd host codec and
 ladder, the accel sidecar builder, job assembly, the FSE and huff0 host
-codecs).
+codecs) and under the stream tier (the streaming xxHash64, the zstd job
+encoder and the incremental block decoder's state).
 
 ``src/`` holds copies of five sources of the JAX package's native core
 (``compress_tpu/_native/src``: ``checksum.cpp``, ``s2.cpp``,
@@ -51,6 +52,10 @@ _SIGNATURES = {
     # checksum.cpp
     "ct_crc32c": (ctypes.c_uint32, [_P, _U64, ctypes.c_uint32]),
     "ct_xxh64": (_U64, [_P, _U64, _U64]),
+    "ct_xxh64_new": (_P, [_U64]),
+    "ct_xxh64_update": (None, [_P, _P, _U64]),
+    "ct_xxh64_digest": (_U64, [_P]),
+    "ct_xxh64_free": (None, [_P]),
     # s2.cpp
     "ct_s2_encode_block": (ctypes.c_int64, [_P, _P, _U64, _I]),
     "ct_s2_encode_block_level": (ctypes.c_int64, [_P, _P, _U64, _I, _I]),
@@ -62,12 +67,17 @@ _SIGNATURES = {
     "ct_s2_build_plan": (_L, [_P, _L, _L, _I, _I, _P, _L]),
     "ct_zstd_build_sidecar": (_L, [_P, _L, _I, _I, _I, _P, _L]),
     "ct_huf0_decompress_body": (_L, [_P, _L, _I, _P, _L]),
+    "ct_zstd_state_new": (_P, [_L]),
+    "ct_zstd_state_append": (None, [_P, _P, _L]),
+    "ct_zstd_state_free": (None, [_P]),
+    "ct_zstd_decode_block": (_L, [_P, _P, _L, _P, _L]),
     # zstd_enc.cpp
     "ct_zstd_compress_level": (_L, [_P, _L, _P, _L, _I, ctypes.c_ulonglong,
                                     _I]),
     "ct_zstd_compress_frame_bs": (_L, [_P, _L, _P, _L, _I,
                                        ctypes.c_ulonglong, _I, _I, _L]),
     "ct_zstd_force_predef": (None, [_I]),
+    "ct_zstd_compress_blocks_level": (_L, [_P, _L, _L, _P, _L, _I]),
     "ct_zstd_assemble_job": (_L, [_P, _L, _I, _I, *[_P] * 6, _P, _L, _P, _L,
                                   _P, _P, _P, _L, _P, _L, _P, _L, _P]),
     "ct_huf_write_table": (_L, [_P, _I, _P, _L]),

@@ -43,6 +43,7 @@ from compress_tpu_torch._cuda import resolve_device
 from compress_tpu_torch.ops import lz2 as lz
 from compress_tpu_torch.ops import zdev
 from compress_tpu_torch.s2 import block as s2block
+from compress_tpu_torch.s2 import stream as s2stream
 from compress_tpu_torch.utils.crc import crc32c_masked
 from compress_tpu_torch.utils.varint import put_uvarint
 from compress_tpu_torch.utils.xxhash64 import xxh64
@@ -51,8 +52,6 @@ from compress_tpu_torch.zstd import frame as F
 from compress_tpu_torch.zstd import device_dec
 from compress_tpu_torch.zstd.device import (_assemble_job, emit_blocks,
                                             tail_bodies)
-
-MAGIC_CHUNK_S2 = b"\xff\x06\x00\x00S2sTwO"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,7 +238,7 @@ def s2_stream_encode_device(data, mesh: BlockMesh | None = None) -> bytes:
     stream."""
     data = bytes(data)
     mesh = mesh or block_mesh()
-    out = bytearray(MAGIC_CHUNK_S2)
+    out = bytearray(s2stream.MAGIC_CHUNK)
     n = len(data)
     nb = n // lz.B
     bodies = []

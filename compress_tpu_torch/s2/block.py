@@ -1,13 +1,15 @@
 """S2/Snappy block codec on the host.
 
-The JAX package's host codec (``s2/block.py``) for S2 mode at its fast
-tier: ``encode`` and ``decode`` run the host core (``ct_s2_encode_block``,
-``ct_s2_decode_block``), as the reference's do by default.  The reference
-specifies its Python path and its native core to give the same bytes; its
-Python path is copied here as their plain versions (``_encode_block_py``,
-``_decode_block_py``).  The ``better`` and ``best`` tiers and snappy-mode
-encode are not ported.  Format: the reference's s2/s2.go tag spec and its
-repeat-offset extension.
+The JAX package's host codec (``s2/block.py``): ``encode`` and ``decode``
+run the host core (``ct_s2_encode_block``, ``ct_s2_decode_block``), as
+the reference's do by default; the better and best tiers
+(``encode_better``, ``encode_best``) and their snappy-mode twins run
+``ct_s2_encode_block_level``.  The reference specifies its Python path and
+its native core's fast tier to give the same bytes; its Python path is
+copied here as their plain versions (``_encode_block_py`` in S2 and
+snappy mode, ``_decode_block_py``).  The better and best tiers have no
+Python version in the reference either.  Format: the reference's s2/s2.go
+tag spec and its repeat-offset extension.
 """
 
 from __future__ import annotations
@@ -17,12 +19,20 @@ import numpy as np
 from compress_tpu_torch import _native
 from compress_tpu_torch.utils.varint import put_uvarint, read_uvarint
 
+MAX_BLOCK_SIZE = 4 << 20  # framed-stream max uncompressed block
 _MODE_S2 = 0
 _MODE_SNAPPY = 1
 
 
 class CorruptError(ValueError):
     """Input is not a valid S2/snappy block (reference: ErrCorrupt)."""
+
+
+def max_encoded_len(n: int) -> int:
+    """Worst-case block-encoding size for n source bytes (incl. preamble)."""
+    if n < 0 or n > 0xFFFFFFFF:
+        raise ValueError("block too large")
+    return 32 + n + n // 6
 
 
 def _decode_block_py(dst_len: int, src: bytes, mode: int) -> bytes:
@@ -123,8 +133,8 @@ def decode(block, *, allow_repeat: bool = True) -> bytes:
 
 
 # ---------------------------------------------------------------------------
-# Encoder: the fast tier, S2 mode (the host core; the reference's Python
-# path below is its plain version)
+# Encoder: the host core's tiers; the reference's Python path below is the
+# fast tier's plain version
 # ---------------------------------------------------------------------------
 
 _MUL = 0x9E3779B185EBCA87
@@ -180,7 +190,7 @@ def _emit_repeat(out: bytearray, length: int) -> None:
             return
 
 
-def _emit_copy(out: bytearray, offset: int, length: int) -> None:
+def _emit_copy_s2(out: bytearray, offset: int, length: int) -> None:
     if offset >= 65536:
         if length > 64:
             first = 64 if length - 64 >= 4 else 60
@@ -203,6 +213,25 @@ def _emit_copy(out: bytearray, offset: int, length: int) -> None:
         return
     out.append(((length - 1) << 2) | 2)
     out += offset.to_bytes(2, "little")
+
+
+def _emit_copy_snappy(out: bytearray, offset: int, length: int) -> None:
+    tag = 3 if offset >= 65536 else 2
+    ob = 4 if offset >= 65536 else 2
+    while length > 68:
+        out.append((63 << 2) | tag)
+        out += offset.to_bytes(ob, "little")
+        length -= 64
+    if length > 64:
+        out.append((59 << 2) | tag)
+        out += offset.to_bytes(ob, "little")
+        length -= 60
+    if offset < 2048 and 4 <= length <= 11:
+        out.append(((offset >> 8) << 5) | ((length - 4) << 2) | 1)
+        out.append(offset & 0xFF)
+        return
+    out.append(((length - 1) << 2) | tag)
+    out += offset.to_bytes(ob, "little")
 
 
 def _table_bits(n: int) -> int:
@@ -233,10 +262,10 @@ def match_len(buf: bytes, a: int, b: int, maxlen: int) -> int:
     return max(maxlen, 0)
 
 
-def _encode_block_py(src: bytes) -> bytes:
-    """The reference's repeat-aware greedy S2 block encoder (its scan reads
-    Python lists where the reference indexes numpy arrays; the values are
-    the same)."""
+def _encode_block_py(src: bytes, mode: int = _MODE_S2) -> bytes:
+    """The reference's repeat-aware greedy block encoder, S2 or snappy
+    mode (its scan reads Python lists where the reference indexes numpy
+    arrays; the values are the same)."""
     n = len(src)
     out = bytearray()
     if n == 0:
@@ -258,6 +287,7 @@ def _encode_block_py(src: bytes) -> bytes:
     s = 1
     next_emit = 0
     repeat = 0
+    snappy = mode == _MODE_SNAPPY
     mv = memoryview(src)
     while True:
         while True:   # probe
@@ -268,7 +298,7 @@ def _encode_block_py(src: bytes) -> bytes:
             h = hashes[s]
             c = table[h]
             table[h] = s
-            if repeat > 0 and v32[s] == v32[s - repeat]:
+            if not snappy and repeat > 0 and v32[s] == v32[s - repeat]:
                 cand = s - repeat
                 is_rep = True
                 break
@@ -287,8 +317,10 @@ def _encode_block_py(src: bytes) -> bytes:
         length = 4 + match_len(src, cand + 4, s + 4, n - s - 4)
         if is_rep:
             _emit_repeat(out, length)
+        elif snappy:
+            _emit_copy_snappy(out, offset, length)
         else:
-            _emit_copy(out, offset, length)
+            _emit_copy_s2(out, offset, length)
         repeat = offset
         s += length
         next_emit = s
@@ -300,23 +332,109 @@ def _encode_block_py(src: bytes) -> bytes:
             table[hashes[s - d]] = s - d
 
 
-def encode_body(src) -> bytes:
-    """The S2 block body of src, without the length (host core)."""
+def _encode_body(src: bytes, mode: int, level: int = 1) -> bytes:
+    """The block body of src without the length: the host core's fast
+    tier (level 1 and below), better (2) or best (3 and above) search, in
+    S2 or snappy mode."""
     src = bytes(src)
     n = len(src)
-    if n > 0xFFFFFFFF:
-        raise ValueError("block too large")
-    arr, dst = _native.out_buf(32 + n + n // 6)
-    m = _native.library().ct_s2_encode_block(dst, src, n, _MODE_S2)
+    arr, dst = _native.out_buf(max_encoded_len(n))
+    lib = _native.library()
+    if level <= 1:
+        m = lib.ct_s2_encode_block(dst, src, n, mode)
+    else:
+        m = lib.ct_s2_encode_block_level(dst, src, n, mode, level)
     if m < 0:
         raise MemoryError("native s2 encode failed")
     return arr[:m].tobytes()
 
 
+def encode_body(src) -> bytes:
+    """The S2 block body of src, without the length (host core)."""
+    return _encode_body(src, _MODE_S2)
+
+
+def _wrap(src: bytes, mode: int, level: int = 1) -> bytes:
+    out = bytearray()
+    put_uvarint(out, len(src))
+    return bytes(out) + _encode_body(src, mode, level)
+
+
 def encode(src) -> bytes:
     """S2 block encode (repeat offsets allowed): the uvarint length, then
     the body.  Reference: s2.Encode."""
-    src = bytes(src)
+    return _wrap(bytes(src), _MODE_S2)
+
+
+def encode_better(src) -> bytes:
+    """S2 block encode, better tier (two-table greedy search).  Reference:
+    s2.EncodeBetter."""
+    return _wrap(bytes(src), _MODE_S2, 2)
+
+
+def encode_best(src) -> bytes:
+    """S2 block encode, best tier (hash-chain lazy search).  Reference:
+    s2.EncodeBest."""
+    return _wrap(bytes(src), _MODE_S2, 3)
+
+
+def encode_snappy(src) -> bytes:
+    """Snappy-compatible block encode.  Reference: s2.EncodeSnappy."""
+    return _wrap(bytes(src), _MODE_SNAPPY)
+
+
+def encode_snappy_better(src) -> bytes:
+    """Snappy-compatible better-tier encode.  Reference:
+    s2.EncodeSnappyBetter."""
+    return _wrap(bytes(src), _MODE_SNAPPY, 2)
+
+
+def encode_snappy_best(src) -> bytes:
+    """Snappy-compatible best-tier encode.  Reference: s2.EncodeSnappyBest."""
+    return _wrap(bytes(src), _MODE_SNAPPY, 3)
+
+
+def decoded_len(block) -> int:
+    """Uncompressed size of a block.  Reference: s2.DecodedLen."""
+    v, _ = read_uvarint(block)
+    return v
+
+
+def concat_blocks(*blocks) -> bytes:
+    """Concatenate S2 blocks into one valid block (reference:
+    s2.ConcatBlocks): the op streams splice as they are, every copy offset
+    staying within the combined decoded history."""
+    total = 0
+    bodies = []
+    for b in blocks:
+        b = bytes(b)
+        n, pos = read_uvarint(b)
+        total += n
+        bodies.append(b[pos:])
+    if total > MAX_BLOCK_SIZE:
+        raise ValueError("concatenated block too large")
     out = bytearray()
-    put_uvarint(out, len(src))
-    return bytes(out) + encode_body(src)
+    put_uvarint(out, total)
+    for body in bodies:
+        out += body
+    return bytes(out)
+
+
+def estimate_block_size(src) -> int:
+    """An estimate of len(encode(src)) (reference: s2.EstimateBlockSize):
+    the fast encoder on the input, or on a head and a middle sample of
+    32 KiB each for a larger input, scaled."""
+    src = bytes(src)
+    n = len(src)
+    if n == 0:
+        return 1
+    if n > MAX_BLOCK_SIZE:
+        raise ValueError("block too large")
+    sample = 32 << 10
+    if n <= 2 * sample:
+        return len(_encode_body(src, _MODE_S2)) + 8
+    head = len(_encode_body(src[:sample], _MODE_S2))
+    mid_at = (n - sample) // 2
+    mid = len(_encode_body(src[mid_at:mid_at + sample], _MODE_S2))
+    est = int(n * (head + mid) / (2 * sample)) + 32
+    return min(est, max_encoded_len(n))

@@ -1,8 +1,10 @@
-"""Unsigned base-128 varints (Go encoding/binary compatible).
+"""Unsigned and zig-zag signed base-128 varints (Go encoding/binary
+compatible).
 
-The S2 block preamble (uncompressed length) uses them.  A copy of
-``put_uvarint`` and ``read_uvarint`` from the JAX package's
-``utils/varint.py``: the port imports nothing of that package.
+The S2 block preamble (uncompressed length) and the S2 seek index use
+them.  A copy of ``put_uvarint``, ``read_uvarint``, ``put_varint`` and
+``read_varint`` from the JAX package's ``utils/varint.py``: the port
+imports nothing of that package.
 """
 
 from __future__ import annotations
@@ -40,3 +42,18 @@ def read_uvarint(buf, pos: int = 0) -> tuple[int, int]:
         x |= (b & 0x7F) << s
         s += 7
     raise ValueError("uvarint: overflow")
+
+
+def put_varint(out: bytearray, x: int) -> int:
+    """Zig-zag signed varint (Go binary.PutVarint)."""
+    ux = (x << 1) ^ (x >> 63) if x < 0 else (x << 1)
+    return put_uvarint(out, ux & ((1 << 64) - 1))
+
+
+def read_varint(buf, pos: int = 0) -> tuple[int, int]:
+    """Decode a zig-zag signed varint: (value, new_pos)."""
+    ux, pos = read_uvarint(buf, pos)
+    x = ux >> 1
+    if ux & 1:
+        x = ~x
+    return x, pos

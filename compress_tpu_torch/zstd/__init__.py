@@ -7,9 +7,15 @@ encoder and the batched device decoder need beside them.
 the host core (``native_dec.decode_frame_body``) or, where it refuses
 them, through the pure-Python block decoder, which gives the precise
 error.  ``decompress_py`` runs the pure-Python decoder alone: the plain
-version.  ``compress`` is the host encoder (``zstd/encoder.py``).
-Dictionaries are not supported: a frame that names a dictionary raises
-``ZstdError``.
+version.  With ``dicts`` (``zstd.dict.Dict`` objects or their blobs, keyed
+by id) every frame goes through the Python block decoder, its history
+and tables started from the dictionary the frame names, as the
+reference's do; without them a frame that names a dictionary raises
+``ZstdError``.  ``split_frames`` walks the frame boundaries and
+``decode_concurrent`` decodes the frames on a thread pool (the host core
+releases the GIL).  ``compress`` is the host encoder
+(``zstd/encoder.py``); the streaming Writer and Reader are in
+``zstd/stream.py``.
 """
 
 from __future__ import annotations
@@ -23,27 +29,42 @@ from compress_tpu_torch.zstd.frame import (FrameError, Header,
 
 MAX_DECODED_SIZE = 64 << 30
 
-__all__ = ["compress", "decompress", "decompress_py", "predef_seq_tables", "ZstdError",
-           "FrameError", "BlockError", "Header", "History",
-           "parse_frame_header", "MAX_DECODED_SIZE", "compress_accel",
-           "decompress_accel"]
+__all__ = ["compress", "decompress", "decompress_py", "predef_seq_tables",
+           "decode_concurrent", "split_frames", "ZstdError", "FrameError",
+           "BlockError", "Header", "History", "parse_frame_header",
+           "MAX_DECODED_SIZE", "compress_accel", "decompress_accel",
+           "max_encoded_size", "encode_to", "decode_to"]
 
 
 class ZstdError(ValueError):
     pass
 
 
+def _dict_map(dicts) -> dict:
+    from compress_tpu_torch.zstd.dict import Dict, load_dict
+
+    out = {}
+    for d in dicts or ():
+        if not isinstance(d, Dict):
+            d = load_dict(d)
+        out[d.id] = d
+    return out
+
+
 def decompress(data, max_size: int = MAX_DECODED_SIZE,
-               max_window: int = 1 << 31,
+               max_window: int = 1 << 31, dicts=None,
                ignore_checksum: bool = False) -> bytes:
-    """Decode all frames in data (skippable frames are skipped)."""
+    """Decode all frames in data (skippable frames are skipped); dicts as
+    the reference's WithDecoderDicts (the module docstring)."""
+    dict_map = _dict_map(dicts)
     data = bytes(data)
-    if data:
+    if data and not dict_map:
         res = native_dec.decode_all(data, max_size, max_window,
                                     ignore_checksum)
         if res is not None:
             return res
-    return _decode_frames(data, max_size, max_window, ignore_checksum, True)
+    return _decode_frames(data, max_size, max_window, ignore_checksum, True,
+                          dict_map)
 
 
 def decompress_py(data, max_size: int = MAX_DECODED_SIZE,
@@ -55,9 +76,10 @@ def decompress_py(data, max_size: int = MAX_DECODED_SIZE,
 
 
 def _decode_frames(data: bytes, max_size: int, max_window: int,
-                   ignore_checksum: bool, native: bool) -> bytes:
-    """Frame by frame; with ``native``, each frame's blocks on the host
-    core where it takes them."""
+                   ignore_checksum: bool, native: bool,
+                   dict_map=None) -> bytes:
+    """Frame by frame; with ``native`` and no dictionaries, each frame's
+    blocks on the host core where it takes them."""
     pos = 0
     out_all = bytearray()
     # empty input decodes to empty output
@@ -77,10 +99,15 @@ def _decode_frames(data: bytes, max_size: int, max_window: int,
         if (h.frame_content_size is not None
                 and h.frame_content_size > max_size):
             raise ZstdError("decoded size exceeds limit")
+        d = None
         if h.dict_id:
-            raise ZstdError(f"frame needs dictionary id {h.dict_id}")
+            d = (dict_map or {}).get(h.dict_id)
+            if d is None:
+                raise ZstdError(f"frame needs dictionary id {h.dict_id}")
+        elif dict_map and 0 in dict_map:
+            d = dict_map[0]
         res = None
-        if native:
+        if native and not h.dict_id and not dict_map:
             res = native_dec.decode_frame_body(
                 data, pos, max(h.window_size, 1024), max_size - len(out_all),
                 expected=h.frame_content_size)
@@ -88,7 +115,7 @@ def _decode_frames(data: bytes, max_size: int, max_window: int,
             frame_out, pos = res
         else:
             frame_out, pos = _decode_blocks(data, pos, h, max_size
-                                            - len(out_all))
+                                            - len(out_all), d)
         if (h.frame_content_size is not None
                 and len(frame_out) != h.frame_content_size):
             raise ZstdError("frame content size mismatch")
@@ -104,11 +131,19 @@ def _decode_frames(data: bytes, max_size: int, max_window: int,
     return bytes(out_all)
 
 
-def _decode_blocks(data: bytes, pos: int, h: Header, max_size: int):
+def _decode_blocks(data: bytes, pos: int, h: Header, max_size: int,
+                   d=None):
     """(output, position after the last block) of the frame whose first
     block header is at pos, in Python; ``max_size`` is what the output
-    may still hold."""
+    may still hold.  A dictionary ``d`` starts the history: its content
+    and repeat offsets, and, for a frame that names it, its tables."""
     hist = History(window_size=max(h.window_size, 1024))
+    if d is not None:
+        hist.window = bytearray(d.content)
+        hist.rep_offsets = d.reps
+        if h.dict_id:
+            hist.huf_table = d.huf
+            hist.t_ll, hist.t_of, hist.t_ml = d.t_ll, d.t_of, d.t_ml
     frame_out = bytearray()
     while True:
         if pos + 3 > len(data):
@@ -191,8 +226,75 @@ def _frame_extent(data: bytes, pos: int):
     return p, False
 
 
+def split_frames(data) -> list:
+    """Byte spans [(start, end), ...] of the non-skippable frames in data."""
+    data = bytes(data)
+    spans = []
+    pos = 0
+    while pos < len(data):
+        end, skippable = _frame_extent(data, pos)
+        if not skippable:
+            spans.append((pos, end))
+        pos = end
+    return spans
+
+
+def decode_concurrent(data, workers: int = 4,
+                      max_size: int = MAX_DECODED_SIZE,
+                      max_window: int = 1 << 31,
+                      ignore_checksum: bool = False) -> bytes:
+    """Decode a multi-frame stream on a thread pool, a frame a task
+    (reference: Decoder.DecodeAll used concurrently; the host core
+    releases the GIL, so the frames decode in parallel)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    data = bytes(data)
+    spans = split_frames(data)
+    if len(spans) <= 1 or workers <= 1:
+        return decompress(data, max_size=max_size, max_window=max_window,
+                          ignore_checksum=ignore_checksum)
+
+    def one(span):
+        lo, hi = span
+        return decompress(data[lo:hi], max_size=max_size,
+                          max_window=max_window,
+                          ignore_checksum=ignore_checksum)
+
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        parts = list(ex.map(one, spans))
+    if sum(len(p) for p in parts) > max_size:
+        raise ZstdError("decoded size exceeds limit")
+    return b"".join(parts)
+
+
 from compress_tpu_torch.zstd.encoder import (compress,  # noqa: E402
                                              predef_seq_tables)
+
+
+def encode_to(dst, src, level: int = 1) -> bytes:
+    """dst followed by one zstd frame of src (reference: zstd.EncodeTo)."""
+    out = bytearray(dst) if dst is not None else bytearray()
+    out += compress(src, level=level)
+    return bytes(out)
+
+
+def decode_to(dst, src, max_size: int = MAX_DECODED_SIZE) -> bytes:
+    """dst followed by the decoded frames of src (reference:
+    zstd.DecodeTo)."""
+    out = bytearray(dst) if dst is not None else bytearray()
+    out += decompress(src, max_size=max_size)
+    return bytes(out)
+
+
+def max_encoded_size(n: int) -> int:
+    """Worst-case one-frame size for an n-byte input (reference:
+    Encoder.MaxEncodedSize): a frame header of at most 14 bytes, n bytes in
+    raw blocks of 128 KiB with 3-byte headers (at least one), a 4-byte
+    checksum."""
+    if n < 0:
+        raise ValueError("negative size")
+    blocks = max((n + (1 << 17) - 1) >> 17, 1)
+    return n + 14 + 3 * blocks + 4
 
 
 def compress_accel(data, level: int = 1, max_rounds: int = 4,

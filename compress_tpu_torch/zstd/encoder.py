@@ -1,15 +1,20 @@
 """zstd host encoder (RFC 8878), as the JAX package's ``zstd/encoder.py``
-encodes by default.  ``compress`` sends levels 1-4 (an input over 16
-bytes) through the host core's ladder (``ct_zstd_compress_level``:
-greedy, double-fast, lazy and deep-lazy parses, ``zstd_enc.cpp``) and
-everything else through the greedy repeat-aware ``Matcher`` and the block
-assembly copied from the reference's Python branch (``compress_matcher``,
-byte for byte the reference's frames on that branch).  The device encoder
+encodes.  ``compress`` sends levels 1-4 (an input over 16 bytes) through
+the host core's ladder (``ct_zstd_compress_level``: greedy, double-fast,
+lazy and deep-lazy parses, ``zstd_enc.cpp``); with ``window_log`` an
+input larger than the window goes as jobs of in-frame blocks whose
+matches reach back into an overlap prefix (``ct_zstd_compress_blocks_level``,
+``compress_blocks``), and with ``dict_`` the dictionary's content is that
+prefix.  Everything else (and both options together) goes through the
+greedy repeat-aware ``Matcher`` and the block assembly copied from the
+reference's Python branch (``compress_matcher``, byte for byte the
+reference's frames on that branch; a dictionary's content seeds its hash
+table and its repeat offsets start the first block).  The device encoder
 writes its sub-job tail with the ``Matcher`` too (``device.tail_bodies``).
 ``compress_frame_bs`` is the ladder's frame of 64 KiB blocks and a capped
 window that the accel encode's multi-block mode needs
-(``ct_zstd_compress_frame_bs``).  Dictionaries, custom window logs and the
-concurrent job engine are not ported.
+(``ct_zstd_compress_frame_bs``).  The concurrent job engine
+(``compress_concurrent``) is not ported.
 
 ``predef_seq_tables()`` pins every sequence section to the predefined FSE
 tables (mode 0), in the ladder (its ``ct_zstd_force_predef`` flag) and in
@@ -78,11 +83,11 @@ class Matcher:
     """Greedy repeat-aware matcher with its hash table shared across the
     blocks of a frame.  Sequences never span a block end (matches are
     capped at it); candidates may reference any earlier position of the
-    input (the reference's ``window`` is not ported: no port caller caps
-    it).  The scan loop reads Python lists (the reference indexes numpy
-    arrays; the values are the same)."""
+    input, or at most ``window`` bytes back.  The scan loop reads Python
+    lists (the reference indexes numpy arrays; the values are the same)."""
 
-    def __init__(self, src: bytes, level: int = 2):
+    def __init__(self, src: bytes, level: int = 2,
+                 window: int | None = None):
         self.src = src
         self.buf = np.frombuffer(src, dtype=np.uint8)
         p = _LEVEL_PARAMS.get(level, _LEVEL_PARAMS[2])
@@ -92,6 +97,7 @@ class Matcher:
             bits += 1
         self.bits = bits
         self.insert = p["insert"]
+        self.window = window  # None: the window covers the input
         if n >= 4:
             h, v = _hashes(self.buf, bits)
             self.hashes, self.v32 = h.tolist(), v.tolist()
@@ -126,7 +132,8 @@ class Matcher:
                     break
                 # c < s: after backward extension a short match can leave
                 # the scan behind a stale table entry
-                if 0 <= c < s and v32[c] == v32[s]:
+                if 0 <= c < s and v32[c] == v32[s] and (
+                        self.window is None or s - c <= self.window):
                     cand = c
                     break
                 s += 1 + ((s - next_emit) >> 6)
@@ -315,19 +322,25 @@ def encode_sequences_section(lls, mls, ofvals) -> bytes:
     return bytes(out)
 
 
-def _encode_blocks(data: bytes, level: int) -> bytes:
+def _encode_blocks(data: bytes, level: int, window: int | None = None,
+                   prefix: bytes = b"", reps=(1, 4, 8)) -> bytes:
     """The blocks of a frame of data (not empty): ``BLOCK_SIZE`` bytes each
-    but the last, sequences from one ``Matcher`` over the whole input."""
+    but the last, sequences from one ``Matcher`` over ``prefix + data``
+    (the prefix only seeds its hash table), the repeat offsets starting at
+    ``reps``."""
     n = len(data)
+    base = len(prefix)
+    view = bytes(prefix) + data if base else data
+    matcher = Matcher(view, level, window)
+    if base:
+        matcher.next_block(0, base)   # seed the table; sequences dropped
     out = bytearray()
-    matcher = Matcher(data, level)
-    reps = (1, 4, 8)
     pos = 0
     while pos < n:
-        blk_start = pos
-        blk_end = min(pos + BLOCK_SIZE, n)
+        blk_start = base + pos
+        blk_end = base + min(pos + BLOCK_SIZE, n)
         lls, mls, offs, tail = matcher.next_block(blk_start, blk_end)
-        pos = blk_end
+        pos = blk_end - base
         last = pos >= n
         blk_regen = blk_end - blk_start
         body = None
@@ -338,7 +351,7 @@ def _encode_blocks(data: bytes, level: int) -> bytes:
             lit_parts = []
             p = blk_start
             for ll, ml in zip(lls.tolist(), mls.tolist()):
-                lit_parts.append(data[p:p + ll])
+                lit_parts.append(view[p:p + ll])
                 p += ll + ml
             lit_parts.append(tail)
             body = (encode_literals(b"".join(lit_parts))
@@ -347,7 +360,7 @@ def _encode_blocks(data: bytes, level: int) -> bytes:
             # raw blocks leave the repeat offsets as they are
             bh = (1 if last else 0) | (blk_regen << 3)
             out += bh.to_bytes(3, "little")
-            out += data[blk_start:blk_end]
+            out += view[blk_start:blk_end]
         else:
             bh = (1 if last else 0) | (2 << 1) | (len(body) << 3)
             out += bh.to_bytes(3, "little")
@@ -356,39 +369,123 @@ def _encode_blocks(data: bytes, level: int) -> bytes:
     return bytes(out)
 
 
-def compress(data, level: int = 2, checksum: bool = False) -> bytes:
-    """Encode data as one zstd frame: levels up to 4 of an input over 16
-    bytes on the host core's ladder (a level below 1 as level 1), the
-    rest through ``compress_matcher``."""
-    data = bytes(data)
+def _compress_level(data: bytes, checksum: bool, level: int) -> bytes:
+    """One frame on the host core's ladder (levels 1-4)."""
     n = len(data)
-    if level > 4 or n <= 16:
-        return compress_matcher(data, level, checksum)
     cap = n + n // 8 + 256
     arr, dst = _native.out_buf(cap)
     xx = (xxh64(data) & 0xFFFFFFFF) if checksum else 0
     r = _native.library().ct_zstd_compress_level(
-        data, n, dst, cap, 1 if checksum else 0, xx, max(level, 1))
+        data, n, dst, cap, 1 if checksum else 0, xx, level)
     if r < 0:
         raise RuntimeError(f"ct_zstd_compress_level failed on {n} bytes")
     return arr[:r].tobytes()
 
 
-def compress_matcher(data, level: int = 2, checksum: bool = False) -> bytes:
-    """Encode data as one zstd frame with the ``Matcher`` (levels 1-4
-    differ in its hash width and insert depth): the reference's Python
-    branch."""
+def compress_blocks(seg: bytes, start: int, level: int) -> bytes:
+    """``seg[start:]`` as in-frame blocks, none of them marked last, whose
+    matches may reach back into ``seg[:start]`` (the host core's job entry
+    ``ct_zstd_compress_blocks_level``).  No block uses a repeat code, so
+    the bytes are valid whatever repeat offsets the decoder carries in."""
+    seg = bytes(seg)
+    n = len(seg) - start
+    cap = n + n // 8 + 4096
+    arr, dst = _native.out_buf(cap)
+    r = _native.library().ct_zstd_compress_blocks_level(seg, len(seg), start,
+                                                         dst, cap, level)
+    if r < 0:
+        raise RuntimeError(f"ct_zstd_compress_blocks_level failed on {n} "
+                           "bytes")
+    return arr[:r].tobytes()
+
+
+def _compress_dict(data: bytes, checksum: bool, level: int, dict_) -> bytes:
+    """A dictionary frame on the job entry: the dictionary's content is the
+    overlap prefix; the blocks are not last and an empty raw block closes
+    the frame."""
+    content = bytes(dict_.content)
+    n = len(data)
+    out = bytearray(F.write_frame_header(n, max(n + len(content), 1024),
+                                         False, checksum, dict_id=dict_.id))
+    out += compress_blocks(content + data, len(content), level)
+    out += (1).to_bytes(3, "little")  # empty raw last block
+    if checksum:
+        out += (xxh64(data) & 0xFFFFFFFF).to_bytes(4, "little")
+    return bytes(out)
+
+
+def _compress_windowed(data: bytes, checksum: bool, level: int,
+                       window_log: int) -> bytes:
+    """A frame whose match offsets stay within ``2^window_log``: jobs of
+    (window - overlap) bytes, each with the overlap before it as its
+    prefix (reference: WithWindowSize's jobSize and overlap)."""
+    n = len(data)
+    window = 1 << max(int(window_log), 10)
+    overlap = window // 8
+    job = window - overlap
+    out = bytearray(F.write_frame_header(n, min(window, max(n, 1024)),
+                                         False, checksum))
+    pos = 0
+    while pos < n:
+        hi = min(pos + job, n)
+        p = max(0, pos - overlap)
+        out += compress_blocks(data[p:hi], pos - p, level)
+        pos = hi
+    out += (1).to_bytes(3, "little")  # empty raw last block
+    if checksum:
+        out += (xxh64(data) & 0xFFFFFFFF).to_bytes(4, "little")
+    return bytes(out)
+
+
+def compress(data, level: int = 2, checksum: bool = False,
+             window_log: int | None = None, dict_=None) -> bytes:
+    """Encode data as one zstd frame (reference: Encoder.EncodeAll).
+    Levels up to 4 of an input over 16 bytes run on the host core (a
+    level below 1 as level 1): the ladder, the windowed jobs where
+    ``window_log`` is smaller than the input, or the dictionary's prefix
+    job; the rest, and ``window_log`` with ``dict_``, through
+    ``compress_matcher``.  ``dict_``: a ``zstd.dict.Dict``, whose id the
+    frame carries."""
     data = bytes(data)
     n = len(data)
-    single = n <= (1 << 20)
-    window = n if single else min(1 << 23, max(n, 1024))
-    out = bytearray(F.write_frame_header(n, max(window, 1), single, checksum))
+    if level <= 4 and n > 16:
+        lv = max(level, 1)
+        if dict_ is None and (window_log is None
+                              or n <= 1 << max(int(window_log), 10)):
+            return _compress_level(data, checksum, lv)
+        if dict_ is None:
+            return _compress_windowed(data, checksum, lv, window_log)
+        if window_log is None:
+            return _compress_dict(data, checksum, lv, dict_)
+    return compress_matcher(data, level, checksum, window_log, dict_)
+
+
+def compress_matcher(data, level: int = 2, checksum: bool = False,
+                     window_log: int | None = None, dict_=None) -> bytes:
+    """Encode data as one zstd frame with the ``Matcher`` (levels 1-4
+    differ in its hash width and insert depth): the reference's Python
+    branch, with its window and dictionary."""
+    data = bytes(data)
+    n = len(data)
+    single = n <= (1 << 20) and dict_ is None
+    plen = len(dict_.content) if dict_ is not None else 0
+    window = n if single else min(1 << (window_log or 23),
+                                  max(n + plen, 1024))
+    out = bytearray(F.write_frame_header(
+        n, max(window, 1), single, checksum,
+        dict_id=dict_.id if dict_ is not None else 0))
     if n == 0:
         out += (1).to_bytes(3, "little")  # empty raw last block
         if checksum:
             out += (xxh64(b"") & 0xFFFFFFFF).to_bytes(4, "little")
         return bytes(out)
-    out += _encode_blocks(data, level)
+    if dict_ is not None:
+        out += _encode_blocks(data, level,
+                              (1 << window_log) if window_log else None,
+                              bytes(dict_.content), dict_.reps)
+    else:
+        out += _encode_blocks(data, level,
+                              (1 << window_log) if window_log else None)
     if checksum:
         out += (xxh64(data) & 0xFFFFFFFF).to_bytes(4, "little")
     return bytes(out)

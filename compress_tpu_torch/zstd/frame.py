@@ -169,3 +169,27 @@ def parse_frame_header(buf: bytes, pos: int = 0) -> Header:
         h.first_block_type = (bh >> 1) & 3
         h.first_block_size = bh >> 3
     return h
+
+
+def write_skippable_frame(payload: bytes, magic_id: int = 0) -> bytes:
+    if not 0 <= magic_id <= 0xF:
+        raise FrameError("skippable id must be 0..15")
+    out = bytearray((SKIPPABLE_MAGIC_BASE | magic_id).to_bytes(4, "little"))
+    out += len(payload).to_bytes(4, "little")
+    out += payload
+    return bytes(out)
+
+
+def calc_skippable_frame(written: int, pad_to: int) -> int:
+    """Size of the skippable frame that pads ``written`` to a multiple of
+    ``pad_to`` (reference: frameenc.go calcSkippableFrame): 0 where it is
+    aligned already, else at least 8 bytes."""
+    if pad_to <= 0:
+        return 0
+    rem = written % pad_to
+    if rem == 0:
+        return 0
+    pad = pad_to - rem
+    while pad < 8:
+        pad += pad_to
+    return pad

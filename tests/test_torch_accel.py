@@ -51,6 +51,7 @@ from compress_tpu_torch.zstd import device_dec as DD  # noqa: E402
 from compress_tpu_torch.zstd import encoder as E  # noqa: E402
 from compress_tpu_torch.zstd import seqdev  # noqa: E402
 from compress_tpu_torch.zstd.frame import parse_frame_header  # noqa: E402
+from test_torch_jaxref import jax_native_core  # noqa: E402,F401
 
 BS = 1 << 16
 

@@ -62,7 +62,11 @@ CPU; the block-parallel engine
 against the unsharded calls; and the host core (``_native``) built on
 the card's machine, each entry against its plain Python version (the
 checksums also against the checksum kernels' rows, job assembly on a job
-the v2 kernels encoded).
+the v2 kernels encoded); the stream tier around device-made data: the
+port's S2 Reader, index and ReadSeeker on ``s2_stream_encode_device``'s
+stream, its compressed chunks through ``decode_blocks_device`` equal to
+the Reader's chunks, and the zstd stream Reader over ``compress_device``'s
+frames.
 Without a card every test here skips.
 
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -2459,3 +2463,94 @@ def test_host_core_entropy_matches_plain(cuda_device, blocks_np):
         except ValueError:
             continue
         assert fse.decompress(blob) == fse.decompress_py(blob) == data
+
+
+# ---- the stream tier around device-made data -------------------------------
+
+@pytest.fixture(scope="module")
+def device_s2_stream(cuda_device, blocks_np):
+    from compress_tpu_torch.parallel import engine as pe
+
+    data = blocks_np.tobytes() + corpus.corpus_blocks(1, 27).tobytes()[:999]
+    return data, pe.s2_stream_encode_device(data)
+
+
+@pytest.mark.cuda
+def test_stream_tier_reads_and_indexes_the_device_s2_stream(
+        cuda_device, device_s2_stream):
+    """The port's S2 Reader reads the device-made stream back; its index
+    finds every chunk and the ReadSeeker reads at seeded offsets."""
+    import io
+
+    from compress_tpu_torch.s2 import index as s2_index
+    from compress_tpu_torch.s2 import seek as s2_seek
+    from compress_tpu_torch.s2 import stream as s2_stream
+
+    data, stream = device_s2_stream
+    assert s2_stream.Reader(io.BytesIO(stream)).read() == data
+    assert s2_stream.decode_concurrent(stream) == data
+    idx = s2_index.index_stream(stream)
+    assert idx.total_uncompressed == len(data)
+    assert len(idx.entries) == len(data) // (1 << 16) + 1
+    rs = s2_seek.ReadSeeker(io.BytesIO(stream), idx)
+    for off in np.random.default_rng(30).integers(0, len(data), 8).tolist():
+        rs.seek(off)
+        assert rs.read(4096) == data[off:off + 4096]
+
+
+@pytest.mark.cuda
+def test_stream_tier_device_decode_of_the_stream_chunks(cuda_device,
+                                                        device_s2_stream):
+    """The stream's compressed 64 KiB chunks are whole S2 blocks: through
+    ``decode_blocks_device`` (one execute launch) they equal the Reader's
+    chunks."""
+    import io
+
+    from compress_tpu_torch.s2 import stream as s2_stream
+
+    data, stream = device_s2_stream
+    r = s2_stream.Reader(io.BytesIO(stream))
+    chunks = []
+    while True:
+        c = r.read(1 << 16)
+        if not c:
+            break
+        chunks.append(c)
+    pos, comp = len(s2_stream.MAGIC_CHUNK), []
+    k = 0
+    while pos < len(stream):
+        kind = stream[pos]
+        n = int.from_bytes(stream[pos + 1:pos + 4], "little")
+        if kind == s2_stream.CHUNK_COMPRESSED:
+            comp.append((k, stream[pos + 8:pos + 4 + n]))
+        k += kind in (s2_stream.CHUNK_COMPRESSED,
+                      s2_stream.CHUNK_UNCOMPRESSED)
+        pos += 4 + n
+    assert k == len(chunks) and comp
+    before = execute.execute_pieces.launches
+    out = s2_decode_blocks_device([p for _, p in comp])
+    assert execute.execute_pieces.launches > before
+    assert [chunks[i] for i, _ in comp] == out
+
+
+@pytest.mark.cuda
+def test_stream_tier_zstd_reader_over_device_frames(cuda_device):
+    """``zstd.stream.Reader`` reads ``compress_device``'s frames (v2 on the
+    card) in 1 MiB steps, and with a read-ahead thread."""
+    import io
+
+    from compress_tpu_torch.zstd import stream as zstd_stream
+
+    data = corpus.replica_jobs(2, 1 << 20, 4).tobytes()
+    frames = zdevice.compress_device(data, job=1 << 20)
+    r = zstd_stream.Reader(io.BytesIO(frames))
+    out = bytearray()
+    while True:
+        x = r.read(1 << 20)
+        if not x:
+            break
+        out += x
+    r.close()
+    assert bytes(out) == data
+    assert zstd_stream.Reader(io.BytesIO(frames), readahead=2).read() == data
+    assert zstd_host.decode_concurrent(frames) == data

@@ -21,6 +21,8 @@ on the CPU, byte for byte (tolerance 0: bytes, integers and raised-or-not).
   decode, package-merge, the table writer and the stream codec equal JAX
   and the Python versions, on corpus classes and hostile containers."""
 
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -56,6 +58,7 @@ from compress_tpu_torch.zstd import device as D  # noqa: E402
 from compress_tpu_torch.zstd import encoder as E  # noqa: E402
 from compress_tpu_torch.zstd import sidecar  # noqa: E402
 from compress_tpu_torch.zstd.frame import parse_frame_header  # noqa: E402
+from test_torch_jaxref import jax_native_core  # noqa: E402,F401
 
 NAMES = list(corpus.CLASSES)
 
@@ -452,3 +455,104 @@ def test_huff0_equals_jax_and_python(samples):
             for bad in _damaged(blob, i, 6):
                 want = _outcome(lambda: getattr(jax_h, dec)(bad))
                 assert _outcome(lambda: getattr(HB, dec)(bad)) == want, name
+
+
+# -- the stream tier's entries ----------------------------------------------
+
+STREAM_ENTRIES = ("ct_zstd_compress_blocks_level", "ct_zstd_state_new",
+                  "ct_zstd_state_append", "ct_zstd_state_free",
+                  "ct_zstd_decode_block", "ct_xxh64_new", "ct_xxh64_update",
+                  "ct_xxh64_digest", "ct_xxh64_free")
+
+
+def test_stream_entries_in_the_table():
+    lib = _native.library()
+    for name in STREAM_ENTRIES:
+        assert name in _native._SIGNATURES
+        assert getattr(lib, name).argtypes is not None
+
+
+@pytest.mark.parametrize("seed", [0, 7, (1 << 64) - 1])
+def test_streaming_xxh64_equals_jax_and_python(samples, seed):
+    data = samples["text"][:20000] + samples["rand256"][:20000]
+    cuts = [0, 1, 31, 32, 33, 100, 4099, 20000, 39999, 40000]
+    ours, plain, theirs = XX.Xxh64(seed), XX.Xxh64Py(seed), jax_xx.Xxh64(seed)
+    assert theirs._st is not None      # the JAX package's native state
+    for a, b in zip(cuts, cuts[1:]):
+        for h in (ours, plain, theirs):
+            h.update(data[a:b])
+        assert ours.digest() == plain.digest() == theirs.digest() == \
+            XX.xxh64(data[:b], seed)
+
+
+@pytest.mark.parametrize("level", [1, 2, 3, 4])
+def test_job_entry_equals_jax_and_python(samples, level):
+    from compress_tpu import _native as jax_native
+    from compress_tpu.zstd.encoder import bind_job_entry
+    from compress_tpu_torch.zstd import stream as ZS
+
+    seg = b"".join(samples[n][:40000] for n in ("text", "period7", "gate"))
+    jlib = bind_job_entry(jax_native.raw())
+    for start in (0, 1, 50000):
+        ours = E.compress_blocks(seg, start, level)
+        arr, dst = jax_native.out_buf(len(seg) * 2 + 4096)
+        r = jlib.ct_zstd_compress_blocks_level(seg, len(seg), start, dst,
+                                               len(seg) * 2 + 4096, level)
+        assert ours == arr[:r].tobytes()
+        head = E.compress_blocks(seg[:start], 0, level) if start else b""
+        for blocks in (ours, ZS._encode_job_blocks_py(seg, start, level)):
+            frame = (E.F.write_frame_header(None, 1 << 20, False, False)
+                     + head + blocks + (1).to_bytes(3, "little"))
+            assert Z.decompress_py(frame) == seg
+
+
+def test_incremental_block_decode_equals_jax_and_python(samples):
+    """The frame's blocks one at a time through the native state (raw and
+    RLE blocks appended to its window) against the JAX package's state and
+    the Python block decoder with its history."""
+    from compress_tpu.zstd import native_dec as jax_nd
+    from compress_tpu_torch.zstd import block as ZB
+
+    data = (samples["big"] + bytes(5000) + samples["rand256"]
+            + samples["period7"])
+    # jobs of compressed or raw blocks, then an empty raw last block
+    frame = jax_z.compress(data, level=2, checksum=False, window_log=17)
+    h = parse_frame_header(frame)
+    lib, jlib = _native.library(), jax_nd._lib()
+    st, jst = lib.ct_zstd_state_new(h.window_size), jlib.ct_zstd_state_new(
+        h.window_size)
+    hist = ZB.History(window_size=h.window_size)
+    out = np.empty((1 << 17) + 64, np.uint8)
+    jout = ctypes.create_string_buffer((1 << 17) + 64)
+    pos, got, kinds, last = h.header_size, bytearray(), set(), 0
+    try:
+        while not last:
+            bh = int.from_bytes(frame[pos:pos + 3], "little")
+            last = bh & 1
+            btype, bsize = (bh >> 1) & 3, bh >> 3
+            pos += 3
+            kinds.add(btype)
+            if btype == ZB.BLOCK_COMPRESSED:
+                body = frame[pos:pos + bsize] + bytes(16)
+                r = lib.ct_zstd_decode_block(st, body, bsize, _native.ptr(out),
+                                             len(out))
+                jr = jlib.ct_zstd_decode_block(jst, body, bsize, jout,
+                                               len(jout))
+                blk = out[:r].tobytes()
+                assert blk == jout.raw[:jr]
+                assert blk == ZB.decode_block(frame[pos:pos + bsize], hist,
+                                              ZB.MAX_BLOCK_SIZE)
+                pos += bsize
+            else:
+                blk = (frame[pos:pos + bsize] if btype == ZB.BLOCK_RAW
+                       else frame[pos:pos + 1] * bsize)
+                pos += bsize if btype == ZB.BLOCK_RAW else 1
+                lib.ct_zstd_state_append(st, blk, len(blk))
+                jlib.ct_zstd_state_append(jst, blk, len(blk))
+            hist.append(blk)
+            got += blk
+    finally:
+        lib.ct_zstd_state_free(st)
+        jlib.ct_zstd_state_free(jst)
+    assert bytes(got) == data
+    assert {ZB.BLOCK_COMPRESSED, ZB.BLOCK_RAW} <= kinds

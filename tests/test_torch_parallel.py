@@ -12,7 +12,9 @@ equal:
 - ``encode_blocks_sharded`` (levels 1 and 2, tile 256, 4 KiB blocks) and
   ``encode_step_stats``: ``out``, ``lens`` and ``total`` equal JAX's;
 - ``s2_stream_encode_device`` with a mesh remainder block and a tail:
-  equal to JAX's stream, read back by the JAX package's S2 Reader;
+  equal to JAX's stream, read back by the JAX package's S2 Reader and by
+  the port's own Reader, and indexed by the port's ``index_stream``
+  equal to the JAX package's;
 - ``zstd_encode_sharded`` at job 8 KiB / block 4 KiB, levels 1-3, with
   and without the checksum, on a multiple of size x job, on inputs whose
   leftover jobs go to the host matcher (with the window widened to them
@@ -47,6 +49,7 @@ from jax.sharding import Mesh  # noqa: E402
 
 from compress_tpu import zstd as jax_zstd  # noqa: E402
 from compress_tpu.parallel import engine as J  # noqa: E402
+from compress_tpu.s2 import index as jax_index  # noqa: E402
 from compress_tpu.s2.stream import Reader  # noqa: E402
 from compress_tpu.zstd import encoder as jax_enc  # noqa: E402
 from compress_tpu_torch import corpus, s2  # noqa: E402
@@ -54,10 +57,13 @@ from compress_tpu_torch import zstd as Z  # noqa: E402
 from compress_tpu_torch.parallel import dryrun, launch  # noqa: E402
 from compress_tpu_torch.parallel import engine as PE  # noqa: E402
 from compress_tpu_torch.s2 import device_dec as SD  # noqa: E402
+from compress_tpu_torch.s2 import index as S2I  # noqa: E402
+from compress_tpu_torch.s2 import stream as S2S  # noqa: E402
 from compress_tpu_torch.zstd import accel as A  # noqa: E402
 from compress_tpu_torch.zstd import device as ZD  # noqa: E402
 from compress_tpu_torch.zstd import device_dec as DD  # noqa: E402
 from compress_tpu_torch.zstd import encoder as E  # noqa: E402
+from test_torch_jaxref import jax_native_core  # noqa: E402,F401
 
 SIZES = (1, 2, 4)
 RUN_TIMEOUT_S = 300   # one group's run of every case
@@ -202,6 +208,10 @@ def test_s2_stream_matches_jax(inp, ranks):
     got = _one(res["stream"])
     assert got == J.s2_stream_encode_device(inp.s2_data, _jax_mesh(size))
     assert Reader(io.BytesIO(got)).read() == inp.s2_data
+    assert S2S.Reader(io.BytesIO(got)).read() == inp.s2_data
+    idx = S2I.index_stream(got)
+    assert idx.append_to() == jax_index.index_stream(got).append_to()
+    assert idx.total_uncompressed == len(inp.s2_data)
 
 
 # ---- zstd encode -----------------------------------------------------------

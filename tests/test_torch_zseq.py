@@ -38,6 +38,7 @@ from compress_tpu_torch.zstd import encoder as E  # noqa: E402
 from compress_tpu_torch.zstd import seqdev as SD  # noqa: E402
 from compress_tpu_torch.zstd import seqs as S  # noqa: E402
 from compress_tpu_torch.zstd.device_dec import _route  # noqa: E402
+from test_torch_jaxref import jax_native_core  # noqa: E402,F401
 
 
 def _text(n, seed):

@@ -28,6 +28,7 @@ from compress_tpu_torch.huff0 import table as port_huff  # noqa: E402
 from compress_tpu_torch.utils import xxhash64 as port_xxh  # noqa: E402
 from compress_tpu_torch.zstd import device, frame  # noqa: E402
 from compress_tpu_torch.zstd import encoder as E  # noqa: E402
+from test_torch_jaxref import jax_native_core  # noqa: E402,F401
 
 BS = 1 << 16
 JOB = 128 << 10

@@ -25,6 +25,7 @@ from compress_tpu_torch.zstd import encoder as E  # noqa: E402
 from compress_tpu_torch.zstd import seqdev as SD  # noqa: E402
 from compress_tpu_torch.zstd.device_dec import (  # noqa: E402
     _route, decompress_frames_device)
+from test_torch_jaxref import jax_native_core  # noqa: E402,F401
 
 
 def _block(cls, n, seed):

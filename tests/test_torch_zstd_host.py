@@ -31,6 +31,7 @@ from compress_tpu_torch.huff0 import table as HT  # noqa: E402
 from compress_tpu_torch.ops.zseq_kern import _skip_literals  # noqa: E402
 from compress_tpu_torch.zstd import encoder as E  # noqa: E402
 from compress_tpu_torch.zstd.device import compress_device  # noqa: E402
+from test_torch_jaxref import jax_native_core  # noqa: E402,F401
 
 
 def _block(cls, n, seed):
