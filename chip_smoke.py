@@ -280,6 +280,37 @@ code around device-made data), after phase 19:
     kernels, each must launch), and one ``{"stream_tier": ...}`` line
     before the kernels line.  It adds no kernel.
 
+The deflate family and the applications (``flate``, ``gzip``, ``zlib``,
+``zip``, ``gzhttp``, ``cli``, ``dictbuilder``, ``estimate``: host code on
+the host core around device-made data), after phase 30:
+
+31. ``s2c -device -index`` of the phase-3 corpus as a file (the parallel
+    engine on the card: the tile parse), read back by ``s2d`` and by
+    ``s2d -offset`` at 4 seeded offsets; ``s2sx`` of its first 4 MiB,
+    the extractor run in a subprocess; ``zstdio -accel`` of 128 text
+    blocks (8 MiB), its items through ``decompress_frames_device`` (every
+    route ``accel``, no host walk, no host frame: the huff0 chunk and
+    execute kernels), read back by ``zstdio -d``; ``deflate`` of the
+    corpus at levels 1, 6 and 9 read back by the port's ``inflate`` and by
+    stdlib ``zlib``; the gzip and zlib ``Writer`` and ``Reader`` on the
+    corpus and a one-shot ``gzip.decompress`` of 1 MiB (the Python
+    inflater, as in the reference); a zip archive of the device-made
+    ``.s2`` stream as deflate, zstd and stored entries, a zstd entry that
+    ``compress_device`` made (its v2 kernels, the finder among them) and
+    an entry of a method registered for the run whose compressor is the
+    device S2 block encoder (finder and emit) and whose decompressor is
+    ``decode_blocks_device`` (execute), read by the port's ``zip.Reader``
+    and (deflate and stored) by stdlib ``zipfile``; ``gzhttp`` serving a
+    4 MiB body with gzip and with zstd, decoded by ``Transport``;
+    ``estimate`` and ``shannon_entropy_bits`` of each corpus class; raw
+    and zstd dictionaries from 32 seeded 4 KiB text samples, used by a
+    zstd frame.  Prints each call's host seconds and bytes and the
+    launches under the phase (counters set to 0 just before and read just
+    after, under the kernels line's names; the finder, emit, tile parse,
+    execute and huff0 chunk kernels must each launch), and one
+    ``{"deflate_tier": ...}`` line before the kernels line.  It adds no
+    kernel.
+
 The routes no path sends, which take the inputs the reference takes
 (run after every main path):
 
@@ -3018,6 +3049,325 @@ def stream_tier_path(data: bytes) -> dict:
                 len(stream), "converted_bytes": len(conv)}
 
 
+ZIP_S2_BLOCKS = 0xC2   # phase 31: a zip method registered for the run
+
+
+def _zip_s2_blocks_c(data: bytes) -> bytes:
+    """The registered zip method's compressor: the device S2 block encoder
+    (finder and emit) on whole 64 KiB blocks, each body after its length
+    as a uvarint."""
+    from compress_tpu_torch.ops import lz2
+    from compress_tpu_torch.utils.varint import put_uvarint
+
+    out = bytearray()
+    for body in lz2.encode_blocks_np(bytes(data)):
+        put_uvarint(out, len(body))
+        out += body
+    return bytes(out)
+
+
+def _zip_s2_blocks_d(blob: bytes, n: int) -> bytes:
+    """Its decompressor: the bodies through ``decode_blocks_device``."""
+    from compress_tpu_torch import s2
+    from compress_tpu_torch.ops import lz2
+    from compress_tpu_torch.utils.varint import put_uvarint, read_uvarint
+
+    hdr = bytearray()
+    put_uvarint(hdr, lz2.B)
+    blocks, pos = [], 0
+    while pos < len(blob):
+        ln, pos = read_uvarint(blob, pos)
+        blocks.append(bytes(hdr) + blob[pos:pos + ln])
+        pos += ln
+    return b"".join(s2.decode_blocks_device(blocks))
+
+
+def _deflate_counters() -> dict:
+    """The launch counters of the kernels under phase 31, by the names the
+    kernels line gives them."""
+    from compress_tpu_torch.ops import entropy_dec, lzemit2
+
+    return {**_stream_counters(), "emit_blocks": lzemit2.emit_blocks,
+            "huff0_decode_chunks": entropy_dec.huff0_decode_chunks}
+
+
+def deflate_tier_path(data: bytes) -> dict:
+    """Phase 31: the deflate family and the applications (``flate``,
+    ``gzip``, ``zlib``, ``zip``, ``gzhttp``, ``cli``, ``dictbuilder``,
+    ``estimate``) on the card machine's host around device-made data.
+    Every mismatch raises.  Returns each call's host seconds and bytes and
+    the launches of the kernels under the phase."""
+    import importlib
+    import tempfile
+    import zipfile
+    import zlib as stdzlib
+
+    import compress_tpu_torch
+    from compress_tpu_torch import corpus, dictbuilder
+    from compress_tpu_torch import gzhttp, gzip as G, zip as ZP
+    from compress_tpu_torch import zlib as ZL
+    from compress_tpu_torch import zstd as Z
+    from compress_tpu_torch.cli import s2c, s2d, s2sx, zstdio
+    from compress_tpu_torch.zstd import accel as AC
+    from compress_tpu_torch.zstd import device as zdevice
+    from compress_tpu_torch.zstd import device_dec as DD
+    from compress_tpu_torch.zstd.dict import load_dict
+
+    FD = importlib.import_module("compress_tpu_torch.flate.deflate")
+    FI = importlib.import_module("compress_tpu_torch.flate.inflate")
+    calls = {}
+
+    def timed(what, fn, n_in):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        n_out = len(out) if isinstance(out, (bytes, bytearray)) else None
+        calls[what] = {"s": sec, "in_bytes": n_in, "out_bytes": n_out}
+        _say(f"  {what}: {sec:.4f} s, {n_in} bytes in"
+             + (f", {n_out} out" if n_out is not None else ""))
+        return out
+
+    def must(ok, what):
+        if not ok:
+            raise AssertionError(f"phase 31: {what}")
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    counters = _deflate_counters()
+    for f in counters.values():
+        f.launches = 0
+    t_phase = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p31_") as root:
+        root = pathlib.Path(root)
+        src = root / "corpus.bin"
+        src.write_bytes(data)
+        s2p = str(src) + ".s2"
+
+        # -- the CLIs: s2c -device, s2d, s2sx, zstdio -accel ------------------
+        must(timed("s2c -device -index", lambda: s2c.main(
+            ["-device", "-index", "-q", str(src)]), len(data)) == 0, "s2c")
+        stream = read(s2p)
+        res["s2c_device_bytes"] = len(stream)
+        must(timed("s2d", lambda: s2d.main(
+            ["-q", "-o", str(root / "back"), s2p]), len(stream)) == 0
+            and read(root / "back") == data, "s2d read back")
+        offs = np.random.default_rng([SEED, 311]).integers(
+            0, len(data), 4).tolist()
+
+        def seeks():
+            for off in offs:
+                out = root / f"at{off}"
+                must(s2d.main(["-q", "-offset", str(off), "-o", str(out),
+                               s2p]) == 0 and read(out) == data[off:],
+                     f"s2d -offset {off}")
+
+        timed("s2d -offset x 4", seeks, len(stream))
+        head = root / "head.bin"
+        head.write_bytes(data[:4 << 20])
+        sx = timed("s2sx build_sx (4 MiB)", lambda: s2sx.build_sx(
+            str(head)), 4 << 20)
+        head.unlink()
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, sx], cwd=root, check=True,
+                       capture_output=True, timeout=300)
+        calls["s2sx extractor (subprocess)"] = {
+            "s": time.perf_counter() - t0, "in_bytes": os.path.getsize(sx),
+            "out_bytes": 4 << 20}
+        _say(f"  s2sx extractor (subprocess): "
+             f"{calls['s2sx extractor (subprocess)']['s']:.4f} s")
+        must(read(head) == data[:4 << 20], "the s2sx extractor's output")
+
+        rng = np.random.default_rng([SEED, 312])
+        text = b"".join(corpus.make_block("text", rng).tobytes()
+                        for _ in range(TEXT_FRAMES))
+        tp = root / "text.bin"
+        tp.write_bytes(text)
+        must(timed("zstdio -accel (8 MiB)", lambda: zstdio.main(
+            ["-accel", str(tp)]), len(text)) == 0, "zstdio -accel")
+        zst = read(str(tp) + ".zst")
+        items = AC.split_stream_accel(zst)
+        DD.decompress_frames_device.host_frames = 0
+        stats = {}
+        with _Walks() as walks:
+            out = timed("decompress_frames_device of the zstdio items",
+                        lambda: b"".join(DD.decompress_frames_device(
+                            items, stats=stats)), len(zst))
+        must(out == text, "decompress_frames_device of zstdio -accel")
+        must(set(stats["routes"]) == {"accel"} and walks.n == 0
+             and DD.decompress_frames_device.host_frames == 0,
+             f"zstdio -accel items: routes {stats['routes']}, walks "
+             f"{walks.n}, host frames "
+             f"{DD.decompress_frames_device.host_frames}")
+        tp.unlink()
+        must(timed("zstdio -d", lambda: zstdio.main(
+            ["-d", "-o", str(tp), str(tp) + ".zst"]), len(zst)) == 0
+            and read(tp) == text, "zstdio -d")
+        res["zstdio_accel_bytes"] = len(zst)
+
+    # -- flate, gzip, zlib ---------------------------------------------------
+    sizes = {}
+    for level in (1, 6, 9):
+        blob = timed(f"deflate level {level}", lambda: FD.deflate(
+            data, level), len(data))
+        sizes[level] = len(blob)
+        must(timed(f"inflate level {level}", lambda: FI.inflate(blob),
+                   len(blob)) == data, f"inflate of level {level}")
+        must(stdzlib.decompress(blob, wbits=-15) == data,
+             f"stdlib zlib of level {level}")
+    res["deflate_bytes"] = sizes
+
+    def gz_write():
+        buf = io.BytesIO()
+        w = G.Writer(buf, level=6, header=G.Header(name="corpus.bin"))
+        for i in range(0, len(data), 3 << 20):
+            w.write(data[i:i + (3 << 20)])
+        w.close()
+        return buf.getvalue()
+
+    gzb = timed("gzip Writer", gz_write, len(data))
+    must(timed("gzip Reader", lambda: G.Reader(io.BytesIO(gzb)).read(),
+               len(gzb)) == data, "gzip Reader")
+    import gzip as stdgzip
+    must(stdgzip.decompress(gzb) == data, "stdlib gzip")
+    one = G.compress(data[:1 << 20], 6)
+    must(timed("gzip.decompress (1 MiB, Python inflate)",
+               lambda: G.decompress(one)[0], len(one)) == data[:1 << 20],
+         "gzip.decompress")
+
+    def zl_write():
+        buf = io.BytesIO()
+        w = ZL.Writer(buf, level=6)
+        w.write(data)
+        w.close()
+        return buf.getvalue()
+
+    zlb = timed("zlib Writer", zl_write, len(data))
+    must(timed("zlib Reader", lambda: ZL.Reader(io.BytesIO(zlb)).read(),
+               len(zlb)) == data, "zlib Reader")
+    must(stdzlib.decompress(zlb) == data, "stdlib zlib of the zlib stream")
+
+    # -- zip: the device-made stream and device-encoded entries -------------
+    ZP.register_compressor(ZIP_S2_BLOCKS, _zip_s2_blocks_c)
+    ZP.register_decompressor(ZIP_S2_BLOCKS, _zip_s2_blocks_d)
+    zhead = data[:4 << 20]
+    mtime = (2024, 1, 2, 3, 4, 6)
+
+    def zip_write():
+        buf = io.BytesIO()
+        w = ZP.Writer(buf)
+        for name, method in (("corpus.s2", ZP.DEFLATE),
+                             ("corpus.s2.zst", ZP.ZSTD),
+                             ("corpus.s2.raw", ZP.STORE)):
+            w.create(name, stream, method=method, mtime=mtime)
+        frame = zdevice.compress_device(zhead, job=1 << 20)
+        w.create_raw(ZP.FileHeader(
+            "head.zst", method=ZP.ZSTD, mtime=mtime,
+            crc32=stdzlib.crc32(zhead), uncompressed_size=len(zhead)), frame)
+        w.create("head.s2b", zhead, method=ZIP_S2_BLOCKS, mtime=mtime)
+        w.close()
+        return buf.getvalue()
+
+    arch = timed("zip Writer (5 entries)", zip_write,
+                 3 * len(stream) + 2 * len(zhead))
+    r = ZP.Reader(arch)
+    want = {"corpus.s2": stream, "corpus.s2.zst": stream,
+            "corpus.s2.raw": stream, "head.zst": zhead, "head.s2b": zhead}
+    got = timed("zip Reader", lambda: {h.name: r.read(h) for h in r.entries},
+                len(arch))
+    must(got == want, "zip Reader")
+    must([h.method for h in r.entries] == [ZP.DEFLATE, ZP.ZSTD, ZP.STORE,
+                                           ZP.ZSTD, ZIP_S2_BLOCKS],
+         f"zip methods {[h.method for h in r.entries]}")
+    zf = zipfile.ZipFile(io.BytesIO(arch))
+    must(zf.read("corpus.s2") == stream and zf.read("corpus.s2.raw")
+         == stream, "stdlib zipfile")
+    res["zip_bytes"] = len(arch)
+
+    # -- gzhttp: a 4 MiB body with gzip and with zstd ------------------------
+    body = data[:4 << 20]
+
+    def app(environ, start_response):
+        start_response("200 OK", [("Content-Type", "application/octet-stream"),
+                                  ("Content-Length", str(len(body)))])
+        return [body]
+
+    mws = {"gzip": gzhttp.GzipMiddleware(app, enable_zstd=True),
+           "zstd": gzhttp.GzipMiddleware(app, enable_zstd=True,
+                                         prefer_zstd=True)}
+
+    def inner(mw, headers):
+        environ = {"HTTP_ACCEPT_ENCODING": headers["Accept-Encoding"],
+                   "wsgi.input": io.BytesIO(b"")}
+        cap = {}
+
+        def sr(status, hdrs, exc_info=None):
+            cap["status"], cap["headers"] = status, hdrs
+            return lambda b: None
+
+        out = b"".join(mw(environ, sr))
+        return int(cap["status"].split()[0]), cap["headers"], out
+
+    for enc, zstd_on in (("gzip", False), ("zstd", True)):
+        seen = {}
+
+        def spy(method, url, headers, req_body, seen=seen, mw=mws[enc]):
+            st, hd, b = inner(mw, headers)
+            seen["encoding"] = dict(hd).get("Content-Encoding")
+            seen["bytes"] = len(b)
+            return st, hd, b
+
+        t = gzhttp.Transport(spy, enable_zstd=zstd_on)
+        st, hd, got = timed(f"gzhttp {enc} 4 MiB (serve and Transport)",
+                            lambda: t("GET", "/corpus"), len(body))
+        must(st == 200 and got == body and seen["encoding"] == enc,
+             f"gzhttp {enc}: {seen}")
+        res[f"gzhttp_{enc}_bytes"] = seen["bytes"]
+
+    # -- estimate and dictbuilder ---------------------------------------------
+    blocks = np.frombuffer(data, np.uint8).reshape(-1, 1 << 16)
+    est = {}
+    t0 = time.perf_counter()
+    for i, cls in enumerate(corpus.CLASSES):
+        x = blocks[i::len(corpus.CLASSES)].reshape(-1)
+        est[cls] = [compress_tpu_torch.estimate(x),
+                    compress_tpu_torch.shannon_entropy_bits(x) / (8 * x.size)]
+        must(0.0 <= est[cls][0] <= 1.0, f"estimate of {cls}")
+    calls["estimate of each class"] = {"s": time.perf_counter() - t0,
+                                       "in_bytes": len(data),
+                                       "out_bytes": None}
+    _say("  estimate, entropy share of each class: " + ", ".join(
+        f"{k} {v[0]:.4f} {v[1]:.4f}" for k, v in est.items()))
+    res["estimate"] = est
+    samples = [text[i:i + 4096] for i in np.random.default_rng(
+        [SEED, 313]).integers(0, len(text) - 4096, 32).tolist()]
+    raw = timed("dictbuilder raw (32 x 4 KiB)", lambda: (
+        dictbuilder.build_raw_dict(samples, 16 << 10)), 32 * 4096)
+    zd = timed("dictbuilder zstd (32 x 4 KiB)", lambda: (
+        dictbuilder.build_zstd_dict(samples, 16 << 10, dict_id=31)),
+        32 * 4096)
+    d = load_dict(zd)
+    must(d.id == 31 and 16 <= len(raw) <= 16 << 10, "the dictionaries")
+    fr = Z.compress(samples[0], level=2, dict_=d)
+    must(Z.decompress(fr, dicts=[d]) == samples[0], "a dictionary frame")
+    res["dict_bytes"] = {"raw": len(raw), "zstd": len(zd),
+                         "frame_with_dict": len(fr),
+                         "frame_without": len(Z.compress(samples[0],
+                                                         level=2))}
+
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    phase_s = time.perf_counter() - t_phase
+    _say(f"phase 31 launches: {launches}; {phase_s:.2f} s in all")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"phase 31: a kernel under the deflate tier "
+                             f"did not run: {launches}")
+    return {"launches": launches, "seconds": phase_s, "calls": calls, **res}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3281,10 +3631,13 @@ def main() -> int:
     kernels += other_routes(dev, blocks_np, route_counts())
     _say("phase 30: the stream tier")
     p30 = stream_tier_path(data)
+    _say("phase 31: the deflate tier and the CLIs")
+    p31 = deflate_tier_path(data)
 
     _say(json.dumps({"sharded": {"world1_nccl": p27, "two_gloo_ranks": p28}},
                     default=str))
     _say(json.dumps({"stream_tier": p30}))
+    _say(json.dumps({"deflate_tier": p31}))
     _say(smi)
     _say(json.dumps({"kernels": kernels}))
     _say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

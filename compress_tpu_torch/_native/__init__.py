@@ -1,12 +1,15 @@
 """The port's host core: C++ for the serial byte work beside the device
 paths (checksums, the S2 block codec and planner, the zstd host codec and
 ladder, the accel sidecar builder, job assembly, the FSE and huff0 host
-codecs) and under the stream tier (the streaming xxHash64, the zstd job
-encoder and the incremental block decoder's state).
+codecs), under the stream tier (the streaming xxHash64, the zstd job
+encoder and the incremental block decoder's state) and under the deflate
+family (the deflate levels, the streaming deflate continuation and the
+one-shot and streaming inflate).
 
-``src/`` holds copies of five sources of the JAX package's native core
+``src/`` holds copies of the six sources of the JAX package's native core
 (``compress_tpu/_native/src``: ``checksum.cpp``, ``s2.cpp``,
-``zstd_dec.cpp``, ``zstd_enc.cpp``, ``entropy_standalone.cpp``).  At
+``zstd_dec.cpp``, ``zstd_enc.cpp``, ``entropy_standalone.cpp``,
+``flate.cpp``).  At
 first use they are compiled by ``g++`` with the reference's flags (plus
 ``-Bsymbolic``) into one shared library under ``_build/``, named by a
 digest of the sources and the flags; the build writes a temporary file and
@@ -37,7 +40,7 @@ _PKG = pathlib.Path(__file__).resolve().parent
 SRC_DIR = _PKG / "src"
 BUILD_DIR = _PKG.parent / "_build"
 SOURCES = ("checksum.cpp", "s2.cpp", "zstd_dec.cpp", "zstd_enc.cpp",
-           "entropy_standalone.cpp")
+           "entropy_standalone.cpp", "flate.cpp")
 CXX = "g++"   # the compiler; a test points it at a path that does not exist
 BASE_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-msse4.2", "-mavx2",
               "-fno-exceptions", "-Wl,-Bsymbolic")
@@ -89,6 +92,12 @@ _SIGNATURES = {
     "ct_huf0_encode_stream": (_L, [_P, _L, _P, _P, _P, _L]),
     "ct_huf0_decode_stream": (_L, [_P, _L, _P, _P, _I, _P, _L]),
     "ct_huf0_package_merge": (_L, [_P, _I, _P]),
+    # flate.cpp
+    "ct_deflate_level": (_L, [_P, _L, _P, _L, _I]),
+    "ct_deflate_blocks": (_L, [_P, _L, _L, _P, _L, _I, _I]),
+    "ct_deflate": (_L, [_P, _L, _P, _L]),
+    "ct_inflate_stream": (_L, [_P, _L, _P, _P, _L, _L, _P]),
+    "ct_inflate": (_L, [_P, _L, _P, _L]),
 }
 
 _lock = threading.Lock()

@@ -45,6 +45,7 @@ from compress_tpu_torch.ops import zdev
 from compress_tpu_torch.s2 import block as s2block
 from compress_tpu_torch.s2 import stream as s2stream
 from compress_tpu_torch.utils.crc import crc32c_masked
+from compress_tpu_torch.utils.debuglog import dbg
 from compress_tpu_torch.utils.varint import put_uvarint
 from compress_tpu_torch.utils.xxhash64 import xxh64
 from compress_tpu_torch.zstd import encoder as E
@@ -301,6 +302,8 @@ def zstd_encode_sharded(data, mesh: BlockMesh | None = None,
     block = block or zdev.BLOCK
     pre = job // 8
     mesh = mesh or block_mesh()
+    dbg("engine", "zstd_encode_sharded n=%d mesh=%d job=%d block=%d",
+        len(data), mesh.size, job, block)
     n = len(data)
     full = (n // job // mesh.size) * mesh.size
     if full == 0:

@@ -20,6 +20,7 @@ releases the GIL).  ``compress`` is the host encoder
 
 from __future__ import annotations
 
+from compress_tpu_torch.utils.debuglog import dbg
 from compress_tpu_torch.utils.xxhash64 import xxh64
 from compress_tpu_torch.zstd import block as B
 from compress_tpu_torch.zstd import native_dec
@@ -111,6 +112,8 @@ def _decode_frames(data: bytes, max_size: int, max_window: int,
             res = native_dec.decode_frame_body(
                 data, pos, max(h.window_size, 1024), max_size - len(out_all),
                 expected=h.frame_content_size)
+            dbg("zstd", "decompress frame@%d window=%d native=%s",
+                pos, h.window_size, res is not None)
         if res is not None:
             frame_out, pos = res
         else:

@@ -40,6 +40,7 @@ from compress_tpu_torch.fse import core as fse_core
 from compress_tpu_torch.huff0.table import read_table
 from compress_tpu_torch.ops import entropy_dec as ED
 from compress_tpu_torch.ops import execute as X
+from compress_tpu_torch.utils.debuglog import dbg
 from compress_tpu_torch.zstd import accel as AC
 from compress_tpu_torch.zstd import block as B
 from compress_tpu_torch.zstd import seqdev
@@ -521,7 +522,10 @@ def _mb_groups(metas, lit_decoded):
         plans_kb = [p for _i, p in group]
         try:
             pieces, gstart = X.pack_pieces_mb(plans_kb, hb << 16)
-        except ValueError:
+        except ValueError as e:
+            # a packing the execute refuses: this group decodes on the
+            # host; logged, as it usually means a packing regression
+            dbg("device_dec", "multi-block group fell back to host: %s", e)
             host.extend((i, metas[i][1][3]) for i, _p in group)
             continue
         K = gstart.shape[1]

@@ -34,6 +34,7 @@ from compress_tpu_torch.fse import core as fse_core
 from compress_tpu_torch.huff0 import table as HT
 from compress_tpu_torch.huff0.batch import _encode_stream
 from compress_tpu_torch.s2.block import match_len
+from compress_tpu_torch.utils.debuglog import dbg
 from compress_tpu_torch.utils.xxhash64 import xxh64
 from compress_tpu_torch.zstd import frame as F
 from compress_tpu_torch.zstd import seqs as S
@@ -452,7 +453,11 @@ def compress(data, level: int = 2, checksum: bool = False,
         lv = max(level, 1)
         if dict_ is None and (window_log is None
                               or n <= 1 << max(int(window_log), 10)):
-            return _compress_level(data, checksum, lv)
+            out = _compress_level(data, checksum, lv)
+            if window_log is None:
+                dbg("zstd", "compress n=%d level=%d native -> %d bytes",
+                    n, level, len(out))
+            return out
         if dict_ is None:
             return _compress_windowed(data, checksum, lv, window_log)
         if window_log is None:

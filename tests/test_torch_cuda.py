@@ -66,7 +66,11 @@ the v2 kernels encoded); the stream tier around device-made data: the
 port's S2 Reader, index and ReadSeeker on ``s2_stream_encode_device``'s
 stream, its compressed chunks through ``decode_blocks_device`` equal to
 the Reader's chunks, and the zstd stream Reader over ``compress_device``'s
-frames.
+frames; the deflate family and the CLIs around the card: ``s2c -device``
+equal to ``s2_stream_encode_device``'s stream and its index (the tile
+parse launched), ``zstdio -accel`` decoded by ``decompress_frames_device``
+with no host walk and no host frame, and the deflate, inflate, gzip and
+zlib round trips on the host core built on the card's machine.
 Without a card every test here skips.
 
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -2554,3 +2558,106 @@ def test_stream_tier_zstd_reader_over_device_frames(cuda_device):
     assert bytes(out) == data
     assert zstd_stream.Reader(io.BytesIO(frames), readahead=2).read() == data
     assert zstd_host.decode_concurrent(frames) == data
+
+
+# ---- the deflate family and the CLIs around the card ------------------------
+
+@pytest.mark.cuda
+def test_s2c_device_equals_the_parallel_engine(cuda_device, blocks_np,
+                                                tmp_path):
+    """``s2c -device`` on the card writes ``s2_stream_encode_device``'s
+    stream and the index ``index_stream`` builds from it; the parallel
+    engine's XLA route launches the tile parse; ``s2d -offset`` seeks it."""
+    from compress_tpu_torch.cli import s2c, s2d
+    from compress_tpu_torch.ops import lz2
+    from compress_tpu_torch.parallel import engine as pe
+    from compress_tpu_torch.s2.index import index_stream
+
+    data = blocks_np.tobytes() + corpus.corpus_blocks(1, 28).tobytes()[:4321]
+    src = tmp_path / "in.bin"
+    src.write_bytes(data)
+    lz2.tile_parse.launches = 0
+    assert s2c.main(["-device", "-q", str(src)]) == 0
+    assert lz2.tile_parse.launches >= 1
+    stream = pe.s2_stream_encode_device(data)
+    got = (tmp_path / "in.bin.s2").read_bytes()
+    assert got == stream + index_stream(stream).append_to()
+    out = tmp_path / "back"
+    for off in (0, 70_000, len(data) - 5):
+        assert s2d.main(["-q", "-offset", str(off), "-o", str(out),
+                         str(tmp_path / "in.bin.s2")]) == 0
+        assert out.read_bytes() == data[off:]
+
+
+@pytest.mark.cuda
+def test_zstdio_accel_decodes_on_the_card(cuda_device, tmp_path):
+    """``zstdio -accel`` items decode through ``decompress_frames_device``
+    on the accel route: no host walk, no host frame, launches of the
+    huff0 chunk and execute kernels."""
+    from compress_tpu_torch.cli import zstdio
+    from compress_tpu_torch.ops import entropy_dec, execute
+
+    rng = np.random.default_rng(19)
+    data = b"".join(corpus.make_block("text", rng).tobytes()
+                    for _ in range(16))
+    src = tmp_path / "t.bin"
+    src.write_bytes(data)
+    assert zstdio.main(["-accel", str(src)]) == 0
+    blob = (tmp_path / "t.bin.zst").read_bytes()
+    items = zaccel.split_stream_accel(blob)
+    walks = []
+    saved = zdevice_dec._hwalk
+    zdevice_dec._hwalk = lambda *a, **k: walks.append(1) or saved(*a, **k)
+    try:
+        zdevice_dec.decompress_frames_device.host_frames = 0
+        entropy_dec.huff0_decode_chunks.launches = 0
+        execute.execute_pieces.launches = 0
+        stats = {}
+        out = decompress_frames_device(items, stats=stats)
+    finally:
+        zdevice_dec._hwalk = saved
+    assert b"".join(out) == data
+    assert set(stats["routes"]) == {"accel"} and not walks
+    assert zdevice_dec.decompress_frames_device.host_frames == 0
+    assert entropy_dec.huff0_decode_chunks.launches >= 1
+    assert execute.execute_pieces.launches >= 1
+    assert zstdio.main(["-d", "-o", str(tmp_path / "back"),
+                        str(tmp_path / "t.bin.zst")]) == 0
+    assert (tmp_path / "back").read_bytes() == data
+
+
+@pytest.mark.cuda
+def test_deflate_family_round_trips_on_the_host_core(cuda_device,
+                                                     blocks_np):
+    """deflate at every level, inflate, the streaming Writer and Reader,
+    gzip and zlib on the host core built on the card's machine: every
+    stream decodes with stdlib zlib and with the port's plain decoder."""
+    import importlib
+    import io
+    import zlib as stdzlib
+
+    from compress_tpu_torch import gzip as gz
+    from compress_tpu_torch import zlib as zl
+
+    D = importlib.import_module("compress_tpu_torch.flate.deflate")
+    I = importlib.import_module("compress_tpu_torch.flate.inflate")
+    data = blocks_np.tobytes()
+    for level in (-2, 0, 1, 6, 9):
+        blob = D.deflate(data, level)
+        assert stdzlib.decompress(blob, wbits=-15) == data
+        assert I.inflate(blob) == data
+        assert I.inflate_py(blob) == data
+        assert I.Reader(io.BytesIO(blob)).read() == data
+    buf = io.BytesIO()
+    w = D.Writer(buf, level=6)
+    w.write(data[:300_000])
+    w.flush()
+    w.write(data[300_000:])
+    w.close()
+    assert stdzlib.decompress(buf.getvalue(), wbits=-15) == data
+    assert I.ReaderPy(buf.getvalue()).read() == data
+    g = gz.compress(data, 6, header=gz.Header(name="card"))
+    assert gz.Reader(g).read() == data and gz.Reader(g).header.name == "card"
+    z = zl.compress(data, 9)
+    assert stdzlib.decompress(z) == data and zl.Reader(z).read() == data
+
