@@ -165,7 +165,9 @@ Inputs that are not whole jobs, the FSE batch codec and the checksums:
     1024 rows, on 1024 rows each of ``zeros``, ``rand4`` and ``rand256``
     alone, on the 1024 rows under a random and a prefix mask (the masked
     route, held against ``byte_histograms_ref`` too), and on the 16 MiB
-    beside ``torch.bincount``, with the bound;
+    beside ``torch.bincount``, with the bound, and prints the per-row
+    launch's threads, registers and shared bytes a CTA and its CTAs an SM
+    (the occupancy query, ``ct_histogram_info``);
 24. CRC-32C and xxHash64 (``csrc/checksum.cu``) of the phase-3 corpus (256
     rows of 64 KiB): holds ``crc32c_batch`` (whole rows and 65536 - 4097
     bytes) and ``xxh64_batch`` (seeds 0 and 2^64 - 1) against their plain
@@ -1908,6 +1910,11 @@ def fse_path(dev, blocks_np) -> list:
     rows_ms = cuda_ms(lambda: E.byte_histograms(t), 20)
     rows_dev = cuda_ms(lambda: E.byte_histograms(t), 20, True)
     rows_plain = cuda_ms(lambda: E.byte_histograms_ref(t), 3)
+    threads, ctas, regs, regs_m, smem, held = _kernel_info(
+        "ct_histogram_info", N, row, n=6)
+    h_info = {"threads": threads, "ctas_per_sm": ctas, "registers": regs,
+              "registers_masked": regs_m, "smem_bytes": smem,
+              "ctas_at_once": held}
 
     # bounds: kernel 1 reads the rows and tables once and writes the two
     # item arrays; 20 integer operations a symbol pair.  Kernel 2 reads the
@@ -1944,7 +1951,9 @@ def fse_path(dev, blocks_np) -> list:
          + f"; histogram256_torch of {flat.numel()} bytes {h_ms:.4f} "
          f"({h_dev:.4f} device time; plain {h_plain:.4f}), torch.bincount "
          f"{lib_ms:.4f} ({lib_dev:.4f} device time), bound {b_hist[0]:.4f} "
-         f"({b_hist[1]})")
+         f"({b_hist[1]}); the per-row launch: {threads} threads, {regs} "
+         f"registers ({regs_m} masked), {smem} shared bytes a CTA, {ctas} "
+         f"CTAs an SM ({held} at once on the card)")
     _say_trace("FSE encode", lambda: fse.compress_batch(rows))
     _say_trace("FSE decode", lambda: fse.decompress_batch(decode, accel=accel),
                warm=False, tries=3)
@@ -1977,7 +1986,7 @@ def fse_path(dev, blocks_np) -> list:
          "plain_ms": rows_plain, "bound_ms": b_rows[0],
          "bound_by": b_rows[1], "device_ms": rows_dev, "rows": N,
          "row_bytes": row, "class_device_ms": alone,
-         "masked_device_ms": masked},
+         "masked_device_ms": masked, **h_info},
         {"name": "histogram256_torch", **common,
          "source": "compress_tpu_torch/csrc/histogram.cu",
          "replaces": "compress_tpu/utils/histogram.py:22",
@@ -2126,14 +2135,17 @@ def _decode_all(bodies, data: bytes, what: str) -> float:
     return time.perf_counter() - t0
 
 
-def _kernel_info(entry: str, *args) -> list:
+def _kernel_info(entry: str, *args, n: int = 5) -> list:
     """What a kernel's info entry reports of its launch: route, CTAs an
     SM, registers, shared memory and tiles a warp (``ct_tile_parse_info
     (tile)``); CTAs an SM, registers, shared memory, sequences a chunk and
-    blocks a walk CTA (``ct_zdev_fse_info()``)."""
+    blocks a walk CTA (``ct_zdev_fse_info()``); for N rows of L bytes,
+    threads a row, CTAs an SM, registers (unmasked, masked), shared memory
+    a CTA and CTAs on the card at once (``ct_histogram_info(N, L)``,
+    n = 6)."""
     from compress_tpu_torch import _cuda
 
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * n)()
     _cuda.check(getattr(_cuda.library(), entry)(*args, out), entry)
     return list(out)
 

@@ -66,6 +66,7 @@ _SIGNATURES = {
     "ct_zdev_fse_info": [_P],
     "ct_byte_histograms": [_P, _L, _I, _I, _P, _L, _P, _P],
     "ct_histogram256": [_P, _L, _I, _P, _P],
+    "ct_histogram_info": [_I, _I, _P],
 }
 
 _lib = None

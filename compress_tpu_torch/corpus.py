@@ -285,6 +285,28 @@ def history_streams(n: int, size: int = 1 << 20, seed: int = 0) -> list:
     return out
 
 
+def hist_thread_row(n: int, L: int = BS, threads: int = 64,
+                    unroll: int = 4, value: int = 7,
+                    seed: int = 0) -> np.ndarray:
+    """(L,) uint8 for the per-row histogram kernel (``csrc/histogram.cu``,
+    a row at a 16-byte boundary on one CTA): thread 0 of its CTA reads
+    exactly n bytes equal to ``value``, the first n it reads (its words
+    are k threads unroll + 32 u of the row's 16-byte words, u < unroll,
+    for k = 0, 1, ...); every other byte is random but not ``value``."""
+    rng = np.random.default_rng([seed, n])
+    row = rng.integers(0, 255, L, dtype=np.uint8)
+    row[row >= value] += 1
+    words = [k * threads * unroll + 32 * u
+             for k in range(L // (16 * threads * unroll) + 1)
+             for u in range(unroll)]
+    at = np.concatenate([16 * c + np.arange(16) for c in words
+                         if 16 * c + 16 <= L])
+    if n > at.size:
+        raise ValueError(f"thread 0 counts at most {at.size} bytes of {L}")
+    row[at[:n]] = value
+    return row
+
+
 def hist_plans(hb: int) -> list:
     """Per-frame lists of execute plans (``ops/execute`` plan dicts) of
     64 KiB blocks with a history of ``hb`` blocks that stress the history

@@ -22,6 +22,7 @@ sweep of the kernels alone.
 
 from __future__ import annotations
 
+import ctypes
 import pathlib
 import sys
 import time
@@ -545,7 +546,9 @@ def check_fse_scan(dev) -> str:
 def check_histograms(dev) -> str:
     """Row a: the per-row histograms (masks none, all false, all true, a
     prefix, random; a misaligned view) and the whole-input histogram on
-    every dtype it reads."""
+    every dtype it reads; the launch's threads a row, CTAs an SM,
+    registers and shared bytes."""
+    from compress_tpu_torch import _cuda
     from compress_tpu_torch.utils import histogram
 
     rng = np.random.default_rng(19)
@@ -574,7 +577,16 @@ def check_histograms(dev) -> str:
         _same(_launched(histogram.histogram256_torch, x),
               histogram.histogram256_torch_ref(x), f"histogram256 {dtype}")
         n += 1
-    return f"{n + 1} launches"
+    if dev.type != "cuda":
+        return f"{n + 1} launches"
+    out = (ctypes.c_int * 6)()
+    _cuda.check(_cuda.library().ct_histogram_info(1024, 16384, out),
+                "ct_histogram_info")
+    if out[1] < 1:
+        raise Mismatch(f"the histogram kernel cannot be resident: {list(out)}")
+    return (f"{n + 1} launches; for 1024 rows of 16 KiB {out[0]} threads "
+            f"a row, {out[1]} CTAs an SM, {out[2]} / {out[3]} registers "
+            f"(unmasked / masked), {out[4]} shared bytes a CTA")
 
 
 def check_occupancy(dev) -> str:
@@ -614,8 +626,8 @@ KERNELS = [
     ("tile_parse", "17", ("ct_tile_parse", "ct_tile_parse_info"),
      check_tile_parse),
     ("fse_scan", "18", ("ct_zdev_fse", "ct_zdev_fse_info"), check_fse_scan),
-    ("byte_histograms", "a", ("ct_byte_histograms", "ct_histogram256"),
-     check_histograms),
+    ("byte_histograms", "a", ("ct_byte_histograms", "ct_histogram256",
+                              "ct_histogram_info"), check_histograms),
     ("occupancy", "-", ("ct_exec_occupancy", "ct_parse_occupancy",
                         "ct_emit_occupancy", "ct_rep_occupancy",
                         "ct_fse_occupancy", "ct_huff0_occupancy",

@@ -6,8 +6,9 @@ on the host, ``histogram256_torch`` of a whole tensor and
 
 The reference counts on the device with one-hot compares summed per
 segment or per row.  Here a CUDA tensor goes through one launch of the
-histogram kernel (``csrc/histogram.cu``: per-warp counters in shared
-memory, one shared-memory atomic a byte, merged once a CTA), and a CPU
+histogram kernel (``csrc/histogram.cu``: 8-bit counters of each thread's
+own in shared memory, a byte an ordinary load, add and store, merged
+between passes of at most 255 values a thread), and a CPU
 tensor through the plain versions: a scatter-add of ones (or of the mask)
 into one row of 256 bins a row, and, for a whole input, into LANES rows of
 257 bins (position p counts in row p % LANES, so neighbouring values add

@@ -42,7 +42,8 @@ stages in batches of 1, 255, 257 and 1024 rows; the byte histograms
 (``byte_histograms`` at batches of 1, 7, 1024 and 4097 rows of 2, 16383,
 16 KiB and 64 KiB bytes, every corpus class, all-zeros and all-255 rows,
 masks all false, all true, a prefix and random, misaligned and strided
-views, and ``histogram256_torch`` on every dtype it reads, 16 MiB of
+views, rows of 65,536 equal bytes in batches of 1 and 4097, rows whose
+one thread counts 255, 256 and 257 equal bytes, and ``histogram256_torch`` on every dtype it reads, 16 MiB of
 zeros and an empty input, against their plain versions and
 ``torch.bincount``), each with its launch count and twenty repeats; ``compress_device`` on
 inputs that are not whole jobs; and the two XLA-graph encoders: the tile parse on hostile lengths
@@ -1766,6 +1767,59 @@ def test_byte_histograms_kernel_views_and_repeats(cuda_device):
     with pytest.raises(ValueError):
         histogram.byte_histograms(t, torch.ones(3, dtype=torch.bool,
                                                 device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 4097])
+def test_byte_histograms_kernel_equal_byte_rows(cuda_device, N):
+    """Rows of 65,536 equal bytes (row i all i % 256: 65,536 in one bin, a
+    thread's counters merged between passes), unmasked, under an all-true
+    and a prefix mask, read in place and from a view 5 bytes in at a row
+    stride that is not a multiple of 16; two launches give equal
+    outputs."""
+    L = 1 << 16
+    t = (torch.arange(N, device=cuda_device) % 256).to(torch.uint8)[
+        :, None].expand(N, L).contiguous()
+    got = _hist(t)
+    assert (got.max(dim=1).values == L).all()
+    _hist(t, torch.ones_like(t, dtype=torch.bool))
+    cut = torch.from_numpy(np.random.default_rng(N).integers(
+        0, L + 1, (N, 1))).to(cuda_device)
+    prefix = torch.arange(L, device=cuda_device)[None, :] < cut
+    _hist(t, prefix)
+    big = torch.zeros((N, L + 21), dtype=torch.uint8, device=cuda_device)
+    big[:, 5:5 + L] = t
+    view = big[:, 5:5 + L]
+    _same([_hist(view)], [got])
+    bigm = torch.zeros_like(big, dtype=torch.bool)
+    bigm[:, 5:5 + L] = prefix
+    _hist(view, bigm[:, 5:5 + L])
+    _same([histogram.byte_histograms(t)], [histogram.byte_histograms(t)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [255, 256, 257])
+def test_byte_histograms_kernel_one_thread_counts(cuda_device, n):
+    """1024 rows of 64 KiB (the kernel's 64 threads a row) whose thread 0
+    reads exactly n equal bytes first (of 7, 0 and 255 in turn; ``corpus
+    .hist_thread_row``: 256 are its whole first pass, whose first byte
+    goes to the totals), unmasked and under an all-true mask, then the
+    first 3 rows and the first row alone (other layouts) and a view 3
+    bytes in; two launches give equal outputs."""
+    vals = (7, 0, 255)
+    one = {v: corpus.hist_thread_row(n, value=v, seed=v) for v in vals}
+    rows = np.stack([one[vals[i % 3]] for i in range(1024)])
+    t = torch.from_numpy(rows).to(cuda_device)
+    got = _hist(t)
+    assert [int(got[i, v]) for i, v in enumerate(vals)] == [n] * 3
+    _hist(t, torch.ones_like(t, dtype=torch.bool))
+    _same([_hist(t[:3])], [got[:3]])
+    _same([_hist(t[:1])], [got[:1]])
+    big = torch.zeros((3, t.shape[1] + 3), dtype=torch.uint8,
+                      device=cuda_device)
+    big[:, 3:] = t[:3]
+    _same([_hist(big[:, 3:])], [got[:3]])
+    _same([histogram.byte_histograms(t)], [histogram.byte_histograms(t)])
 
 
 @pytest.mark.cuda
