@@ -47,7 +47,9 @@ them that starts an odd number of bytes in (``corpus.replica_jobs``):
     stage's literals and ``is_lit``: bit-identical;
 10. runs ``zstd.device.compress_device`` with the launch counters set to 0
     just before and read just after (the histogram kernel's too: the
-    literal stage's per-block counts), prints the frame size and ratio,
+    literal stage's per-block counts; and the two table builds', whose
+    inputs it keeps for phase 32: the Huffman build once, the count
+    normalisation once for each of the three code kinds), prints the frame size and ratio,
     walks the frame (magic, header, every block header, the last-block
     bit, regenerated sizes summing to the input) and decodes it with the
     port's host zstd decoder (``zstd.decompress``, timed), which must
@@ -59,7 +61,10 @@ them that starts an odd number of bytes in (``corpus.replica_jobs``):
     parse, the literal lookup, ``torch.gather``, a fill of the lookup's
     two outputs alone (the card's write rate on them) and the masked
     histograms of the literals by device time too, and the repeat scan and the FSE chain by device time beside the
-    longest chain.
+    longest chain; and prints the literal stage's split
+    (``tools/tablebuild_ab.literal_split``: the masked histograms, the
+    Huffman build, the canonical codes, ``_litlut``, ``_bitpack_rows``,
+    and the split and bit-pack) by CUDA events.
 
 Device batch decode of what the port encodes:
 
@@ -80,7 +85,8 @@ Device batch decode of what the port encodes:
     chunk kernel against its plain version on the prepared windows, runs
     ``decompress_4x_batch`` with the launch counter (one launch, every row
     equal to its input; the encode's one launch of the histogram kernel
-    counted too) and times encode, prep, kernel (also by device time, and
+    counted too, and the Huffman build's: one launch, its counts kept for
+    phase 32) and times encode, prep, kernel (also by device time, and
     with no symbols to decode) and call;
 15. huff0 4X, table engine (one table per container): the phase-3 corpus
     as 1024 rows of 16 KiB at ``max_log=11``, the same checks and times.
@@ -147,7 +153,8 @@ Inputs that are not whole jobs, the FSE batch codec and the checksums:
 23. the FSE batch codec on the phase-3 corpus as 1024 rows of 16 KiB:
     holds the encode chain (``csrc/fseenc.cu``) against its plain version
     on the path's own tables; runs ``fse.compress_batch`` with the launch
-    counter (one launch; prints the None rows and the ratio); adds 4 host
+    counter (one launch, and one of the count normalisation, whose counts
+    phase 32 keeps; prints the None rows and the ratio); adds 4 host
     ``fse.compress(table_log=11)`` containers; times ``make_accel`` (the
     first 256 rows only if the whole walk would take over 90 s); holds the
     chunk decode (``csrc/fsedec.cu``) against its plain version on the
@@ -202,7 +209,9 @@ also runs on the card):
     (one launch of 8 jobs, 512 blocks of 16 KiB) at levels 1, 2 and 3,
     with the launch counters set to 0 just before each call and read just
     after (one launch each of the tile parse, the repeat scan, the FSE
-    scan, ``csrc/zdevfse.cu``, and the histogram kernel on the literals);
+    scan, ``csrc/zdevfse.cu``, and the histogram kernel on the literals;
+    one of the Huffman build and three of the count normalisation, whose
+    counts phase 32 keeps);
     every frame decodes with the port's host
     decoder to its input and the sizes are monotone (level 3 <= 2 <= 1);
     holds the three kernels and the histogram kernel's masked route against
@@ -212,6 +221,19 @@ also runs on the card):
     the parse and the FSE scan; times the three (also by device time),
     their plain versions and the whole call (host clock, median of 2) with
     their bounds and the longest chain, and traces one call.
+
+The per-row table builds (``csrc/tablebuild.cu``), after phase 26:
+
+32. holds the Huffman code-length build (``ops/zdev._huff_build``, row
+    b) and the FSE count normalisation (``_normalize_count``, row c)
+    against their plain versions on every input their paths called them
+    with (phases 10, 14-15, 23 and 26, captured on the way), bit for bit;
+    times each path's largest input by CUDA events and device time beside
+    the plain version, with the bound and the serial walk (each row's
+    walk steps and SM cycles from the kernels' ``stats``: the longest
+    walk, the cycles a step and their product at the SM's largest clock);
+    prints the launches on each path and the registers and CTAs an SM of
+    both kernels.
 
 The block-parallel engine (``compress_tpu_torch/parallel``), after the
 paths above:
@@ -229,8 +251,8 @@ paths above:
     share); ``zstd_decode_sharded`` of phase 20's and 21's items and of
     16 of phase 16's plain frames, and ``decode_blocks_device`` of 32 of
     phase 6's bodies with the mesh, each equal to the unsharded call's
-    output.  Each call runs with the launch counters of rows 6, 9-12, 17
-    and 18 set to 0 just before and read just after; each of those
+    output.  Each call runs with the launch counters of rows 6, 9-12, 17,
+    18, b and c set to 0 just before and read just after; each of those
     kernels must launch.  Prints each sharded call's host-clock time
     beside the unsharded call's;
 28. two gloo ranks (spawned processes, ``parallel.launch.run_ranks``)
@@ -240,7 +262,8 @@ paths above:
     received the last 128 KiB of job 1), ``encode_step_stats`` of 64
     blocks, ``zstd_decode_sharded`` of 33 of phase 20's items (the
     padding path) and ``parallel.dryrun.dryrun_multichip``; prints each
-    rank's times and launches.  Both phases' numbers are printed as one
+    rank's times and launches (each rank's zstd call must launch the tile
+    parse, the repeat scan, the FSE scan and the two table builds).  Both phases' numbers are printed as one
     ``{"sharded": ...}`` line before the kernels line.
 
 The host core (``compress_tpu_torch/_native``), after phase 26:
@@ -610,6 +633,7 @@ def zstd_path(dev) -> list:
     from compress_tpu_torch import corpus
     from compress_tpu_torch import zstd as Z
     from compress_tpu_torch.ops import lzkern, zenc2, zparse, zseqenc
+    from compress_tpu_torch.tools import tablebuild_ab as TB
     from compress_tpu_torch.utils import histogram as H
     from compress_tpu_torch.zstd import device as zdevice
 
@@ -672,10 +696,12 @@ def zstd_path(dev) -> list:
     for f in counted.values():
         f.launches = 0
     t0 = time.perf_counter()
-    frame = zdevice.compress_device(data, job=job)
-    torch.cuda.synchronize()
+    with _TableCapture("zstd_v2") as tables:
+        frame = zdevice.compress_device(data, job=job)
+        torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = {k: f.launches for k, f in counted.items()}
+    launches.update(tables.run["launches"])
     _say(f"zstd main path launches: {launches} (first call {first_s:.2f} s)")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the zstd path did not run: "
@@ -740,12 +766,17 @@ def zstd_path(dev) -> list:
     }
     hist_plain = cuda_ms(lambda: H.byte_histograms_ref(lits, is_lit), 3)
     del fill
+    split = TB.literal_split(lits, lit_cnt, blk)
+    TABLE_RUNS["zstd_v2"]["literal_split"] = split
     t_call = host_ms(lambda: zdevice.compress_device(data, job=job), 3)
     _say(f"zstd kernel times (ms, {R} blocks): " + ", ".join(
         f"{k} {v:.4f} (plain {plain[k]:.4f})" for k, v in t.items())
         + f"; torch.gather for litlut {lib_litlut:.4f}")
     _say("zstd stage times (ms, CUDA events): " + ", ".join(
         f"{k} {v:.4f}" for k, v in stages.items()))
+    _say(f"zstd literal stage split ({R} blocks; ms, CUDA events, "
+         f"tools/tablebuild_ab.literal_split): " + ", ".join(
+             f"{k} {v:.4f}" for k, v in split.items()))
     _say(f"zstd whole call (host clock, ms): {t_call:.4f} "
          f"({n / (t_call * 1e-3) / 1e9:.4f} GB/s)")
     _say_trace("zstd", lambda: zdevice.compress_device(data, job=job))
@@ -938,20 +969,25 @@ def huff0_path(dev, blocks_np) -> list:
         n_in = rows.size
         H.byte_histograms.launches = 0
         t0 = time.perf_counter()
-        conts, accel = huff0.compress_4x_batch(
-            rows, return_accel=True, shared_table=shared, max_log=max_log)
-        torch.cuda.synchronize()
+        with _TableCapture(f"huff0_{engine}") as tables:
+            conts, accel = huff0.compress_4x_batch(
+                rows, return_accel=True, shared_table=shared,
+                max_log=max_log)
+            torch.cuda.synchronize()
         t_enc = (time.perf_counter() - t0) * 1e3
         hist_launches = H.byte_histograms.launches
-        if hist_launches != 1:
+        huff_launches = tables.run["launches"]["huff"]
+        if hist_launches != 1 or huff_launches != 1:
             raise AssertionError(f"huff0 {engine} encode: {hist_launches} "
-                                 "launches of the histogram kernel")
+                                 "launches of the histogram kernel, "
+                                 f"{huff_launches} of the Huffman build")
         kept = [i for i, c in enumerate(conts) if c is not None]
         ratio = sum(len(conts[i]) for i in kept) / (len(kept) * row)
         _say(f"huff0 {engine}: {len(rows)} rows of {row} bytes ({n_in} "
              f"bytes, max_log {max_log}); {len(rows) - len(kept)} rows None; "
              f"ratio of the others {ratio:.6f}; encode {t_enc:.1f} ms "
-             f"(host clock, first call), histogram launches {hist_launches}")
+             f"(host clock, first call), histogram launches {hist_launches}"
+             f", Huffman build launches {huff_launches}")
         t0 = time.perf_counter()
         cpu_args, metas, _ = hb._prep_decode_batch(conts, accel)
         t_prep = (time.perf_counter() - t0) * 1e3
@@ -1695,14 +1731,15 @@ def tail_path(zstd_launches: dict) -> None:
     call's launch counts must equal phase 10's, the second's must be 0."""
     from compress_tpu_torch import corpus
     from compress_tpu_torch import zstd as Z
-    from compress_tpu_torch.ops import lzkern, zenc2, zparse, zseqenc
+    from compress_tpu_torch.ops import lzkern, zdev, zenc2, zparse, zseqenc
     from compress_tpu_torch.utils import histogram as H
     from compress_tpu_torch.zstd import device as zdevice
 
     counted = {"find": lzkern.find_matches_blocks,
                "parse": zparse.parse_blocks, "rep": zseqenc.rep_scan,
                "fse": zseqenc.fse_chain, "litlut": zenc2._litlut,
-               "hist": H.byte_histograms}
+               "hist": H.byte_histograms, "huff": zdev._huff_build,
+               "norm": zdev._normalize_count}
     extra = corpus.corpus_blocks(8, SEED + 22).tobytes()
     data = (corpus.replica_jobs(ZSTD_JOBS, ZSTD_JOB, SEED).tobytes()
             + extra[:TAIL_BYTES])
@@ -1759,14 +1796,17 @@ def fse_path(dev, blocks_np) -> list:
          f"{routes[1]} on the exact step")
     E.fse_encode_chain.launches = H.byte_histograms.launches = 0
     t0 = time.perf_counter()
-    conts = fse.compress_batch(rows)
-    torch.cuda.synchronize()
+    with _TableCapture("fse_batch") as tables:
+        conts = fse.compress_batch(rows)
+        torch.cuda.synchronize()
     enc_first = (time.perf_counter() - t0) * 1e3
     enc_launches = E.fse_encode_chain.launches
     hist_launches = H.byte_histograms.launches
-    if enc_launches != 1 or hist_launches != 1:
+    norm_launches = tables.run["launches"]["norm"]
+    if enc_launches != 1 or hist_launches != 1 or norm_launches != 1:
         raise AssertionError(f"compress_batch: {enc_launches} launches of "
-                             f"the chain, {hist_launches} of the histogram")
+                             f"the chain, {hist_launches} of the histogram, "
+                             f"{norm_launches} of the normalisation")
     kept = [i for i, c in enumerate(conts) if c is not None]
     ratio = sum(len(conts[i]) for i in kept) / (len(kept) * row)
     t0 = time.perf_counter()
@@ -1774,7 +1814,8 @@ def fse_path(dev, blocks_np) -> list:
               for i in range(FSE_HOST_LOG11)]
     host_s = time.perf_counter() - t0
     _say(f"FSE compress_batch: {N} rows of {row} bytes, launches "
-         f"{enc_launches} (histogram {hist_launches}); {N - len(kept)} rows "
+         f"{enc_launches} (histogram {hist_launches}, normalisation "
+         f"{norm_launches}); {N - len(kept)} rows "
          f"None; ratio of the others "
          f"{ratio:.6f}; first call {enc_first:.1f} ms; {FSE_HOST_LOG11} host "
          f"fse.compress(table_log=11) containers {host_s:.2f} s")
@@ -2150,6 +2191,55 @@ def _kernel_info(entry: str, *args, n: int = 5) -> list:
     return list(out)
 
 
+# the table builds' inputs and launches on each path (phases 10, 14-15, 23
+# and 26), kept for phase 32
+TABLE_RUNS = {}
+
+
+class _TableCapture:
+    """The calls of the two table builds (``ops/zdev._huff_build`` and
+    ``_normalize_count``) while the block runs, wherever the encoders call
+    them from (``zdev``, ``zenc2``, ``entropy``): their inputs, (counts,
+    maxlog or log) pairs, and their launches in the block, kept under
+    ``TABLE_RUNS[path]``.  The wrappers still run; they count on their
+    module's names, where the spies stand, and the counts go back to them
+    on exit."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def __enter__(self):
+        from compress_tpu_torch.ops import entropy, zdev, zenc2
+
+        self.run = TABLE_RUNS.setdefault(self.path, {
+            "launches": {"huff": 0, "norm": 0}, "huff": [], "norm": []})
+        self.saved, self.spies = [], {}
+        for key, name, mods in (("huff", "_huff_build", (zdev, zenc2,
+                                                         entropy)),
+                                ("norm", "_normalize_count", (zdev,
+                                                              entropy))):
+            orig, calls = getattr(zdev, name), self.run[key]
+
+            def spy(hist, *args, _orig=orig, _calls=calls, **kw):
+                _calls.append((hist, args[0] if args
+                               else kw.get("maxlog", 11)))
+                return _orig(hist, *args, **kw)
+
+            spy.launches = 0
+            self.spies[key] = (orig, spy)
+            for m in mods:
+                self.saved.append((m, name, getattr(m, name)))
+                setattr(m, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, f in self.saved:
+            setattr(m, name, f)
+        for key, (orig, spy) in self.spies.items():
+            self.run["launches"][key] += spy.launches
+            orig.launches += spy.launches
+
+
 def tile_parse_numbers(L_t, tile: int, plain_reps: int = 2) -> dict:
     """The tile parse on L_t at ``tile``: the tiles on each route (a
     launch of its own), the launch's CTAs an SM and registers, and its
@@ -2295,14 +2385,17 @@ def zstd_v1_path(dev) -> tuple:
         with _Capture(lz2, "tile_parse") as c_p, \
                 _Capture(zseqenc, "rep_scan") as c_r, \
                 _Capture(zdev, "fse_scan") as c_f, \
-                _Capture(zdev, "byte_histograms") as c_h:
+                _Capture(zdev, "byte_histograms") as c_h, \
+                _TableCapture(f"zstd_v1_level{level}") as tables:
             t0 = time.perf_counter()
             frame = zdevice.compress_device(data, engine="v1", level=level)
             torch.cuda.synchronize()
             call_s = time.perf_counter() - t0
         launches[level] = {k: getattr(mod, name).launches
                            for k, (mod, name) in counted.items()}
-        if launches[level] != {"parse": 1, "rep": 1, "fse": 1, "hist": 1}:
+        launches[level].update(tables.run["launches"])
+        if launches[level] != {"parse": 1, "rep": 1, "fse": 1, "hist": 1,
+                               "huff": 1, "norm": 3}:
             raise AssertionError(f"zstd v1 (level {level}): launches "
                                  f"{launches[level]}")
         caps[level] = (c_p.calls[0], c_r.calls[0], c_f.calls[0],
@@ -2408,6 +2501,108 @@ def zstd_v1_path(dev) -> tuple:
                       "v1_masked_plain_ms": hist_plain,
                       "v1_masked_rows": hist_in[0].shape[0]}}
     return row, extra
+
+
+# rows b and c: the paths whose counts phase 32 holds the kernels on, and
+# the main one (phase 10's v2 call), whose inputs give the row's times
+TABLE_PATHS = {"huff": ("zstd_v2", "zstd_v1_level2", "huff0_shared",
+                        "huff0_table"),
+               "norm": ("zstd_v2", "zstd_v1_level2", "fse_batch")}
+
+
+def _table_numbers(fn, ref, hist, arg, mhz: float, out_b: int) -> dict:
+    """One table build's numbers on one input: CUDA events, device time,
+    the plain version's time, the bound, and the serial walk (each row's
+    steps and SM cycles from ``stats``: the longest walk, the cycles a
+    step over all rows' walks, and their product at the SM's largest
+    clock, the walk's floor)."""
+    J, nsym = hist.shape
+    stats = torch.zeros((J, 2), dtype=torch.int64, device=hist.device)
+    fn(hist, arg, stats=stats)
+    steps, cycles = (int(x) for x in stats.sum(dim=0).tolist())
+    longest = int(stats[:, 0].max()) if J else 0
+    a_step = cycles / steps if steps else 0.0
+    # each count read once, each output (out_b bytes) written once;
+    # operations: a sort of the row's symbols (n log2 n compares) and the
+    # walk steps
+    bnd = bound(hist.numel() * hist.element_size() + out_b,
+                J * nsym * max(nsym.bit_length() - 1, 1) + steps)
+    return {"rows": J, "symbols": nsym, "arg": arg,
+            "ms": cuda_ms(lambda: fn(hist, arg), 20),
+            "device_ms": cuda_ms(lambda: fn(hist, arg), 20, True),
+            "plain_ms": cuda_ms(lambda: ref(hist, arg), 2),
+            "bound_ms": bnd[0], "bound_by": bnd[1],
+            "walk_steps": steps, "longest_walk": longest,
+            "cycles_a_step": a_step,
+            "walk_floor_ms": longest * a_step / (mhz * 1e3)}
+
+
+def table_build_path(dev) -> list:
+    """Phase 32: rows b and c, the per-row table builds
+    (``csrc/tablebuild.cu``), on the counts their paths called them with
+    (phases 10, 14-15, 23 and 26, captured on the way): each call held
+    against its plain version, each path's first largest input timed
+    (CUDA events, device time, the plain version) with its bound and its
+    serial walk.  Returns the two kernels' JSON entries."""
+    from compress_tpu_torch import _cuda
+    from compress_tpu_torch.ops import zdev
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.split()[0])
+    info = (ctypes.c_int * 6)()
+    _cuda.check(_cuda.library().ct_tablebuild_info(info),
+                "ct_tablebuild_info")
+    kernels = {"huff": ("huff_build", zdev._huff_build, zdev._huff_build_ref,
+                        "compress_tpu/ops/zdev.py:139", info[0], info[2]),
+               "norm": ("normalize_count", zdev._normalize_count,
+                        zdev._normalize_count_ref,
+                        "compress_tpu/ops/zdev.py:357", info[3], info[5])}
+    rows = []
+    for key, (name, fn, ref, replaces, regs, ctas) in kernels.items():
+        err, held, by_path = 0, 0, {}
+        for path in TABLE_PATHS[key]:
+            calls = TABLE_RUNS[path][key]
+            for hist, arg in calls:
+                got, want = fn(hist, arg), ref(hist, arg)
+                if key == "norm":
+                    got, want = [got], [want]
+                err = max(err, _hold(f"{name} ({path}, {tuple(hist.shape)}, "
+                                     f"{arg})", got, want))
+                held += 1
+            hist, arg = max(calls, key=lambda c: c[0].shape[0])
+            J, nsym = hist.shape
+            # the lengths, max_bits and ok; the normalised counts
+            out_b = J * nsym * 4 + (5 * J if key == "huff" else 0)
+            by_path[path] = _table_numbers(fn, ref, hist, arg, mhz, out_b)
+        launches = {path: run["launches"][key]
+                    for path, run in TABLE_RUNS.items()}
+        _say(f"{name}: {held} calls held bit for bit; launches by path "
+             f"{launches}; {regs} registers, {ctas} CTAs an SM (NSYM 256); "
+             f"by path (ms, CUDA events / device time / plain / bound; walk: "
+             f"steps, longest, cycles a step, floor at {mhz:.0f} MHz): "
+             + "; ".join(
+                 f"{p} ({k['rows']} x {k['symbols']}, {k['arg']}) "
+                 f"{k['ms']:.4f} / {k['device_ms']:.4f} / {k['plain_ms']:.4f}"
+                 f" / {k['bound_ms']:.6f} ({k['bound_by']}); "
+                 f"{k['walk_steps']}, {k['longest_walk']}, "
+                 f"{k['cycles_a_step']:.2f}, {k['walk_floor_ms']:.6f}"
+                 for p, k in by_path.items()))
+        main = by_path["zstd_v2"]
+        row = {"name": name, "route": "cuda",
+               "source": "compress_tpu_torch/csrc/tablebuild.cu",
+               "replaces": replaces, "launches": launches["zstd_v2"],
+               "launches_by_path": launches, "max_abs_err": err,
+               "equal_to_plain": True, "ms": main["ms"],
+               "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+               "bound_by": main["bound_by"], "library_ms": None,
+               "device_ms": main["device_ms"],
+               "walk_floor_ms": main["walk_floor_ms"], "by_path": by_path,
+               "registers": regs, "ctas_per_sm": ctas, "mhz": mhz}
+        if key == "huff":
+            row["literal_split_ms"] = TABLE_RUNS["zstd_v2"]["literal_split"]
+        rows.append(row)
+    return rows
 
 
 def host_core_build() -> dict:
@@ -2569,7 +2764,7 @@ def host_core_path(dev, core: dict, data: bytes, blocks, bodies, zframe,
 
 def _sharded_counters():
     """The launch counters of the kernels on the sharded paths: rows 6,
-    9-12, 17 and 18 of PERF.md's table."""
+    9-12, 17, 18, b and c of PERF.md's table."""
     from compress_tpu_torch.ops import entropy_dec as ED
     from compress_tpu_torch.ops import execute as X
     from compress_tpu_torch.ops import lz2, zdev, zseq_kern, zseqenc
@@ -2580,7 +2775,9 @@ def _sharded_counters():
                             zseq_kern.zseq_decode_chunks_shared],
             "execute_pieces": [X.execute_pieces],
             "execute_blocks_hist": [X.execute_blocks_hist],
-            "tile_parse": [lz2.tile_parse], "fse_scan": [zdev.fse_scan]}
+            "tile_parse": [lz2.tile_parse], "fse_scan": [zdev.fse_scan],
+            "huff_build": [zdev._huff_build],
+            "normalize_count": [zdev._normalize_count]}
 
 
 def _count_launches(fn):
@@ -2824,7 +3021,8 @@ def two_ranks(acc) -> dict:
         raise AssertionError("phase 28: the halo bytes are not job 1's tail")
     launches = {k: [x[f"{k}_launches"] for x in res]
                 for k in ("zstd", "ess", "dec")}
-    need = {"zstd": ("tile_parse", "rep_scan", "fse_scan"),
+    need = {"zstd": ("tile_parse", "rep_scan", "fse_scan", "huff_build",
+                     "normalize_count"),
             "ess": ("tile_parse",), "dec": ("huff0_decode", "execute_pieces")}
     _say(f"phase 28: 2 gloo ranks on {res[0]['device']} / {res[1]['device']}"
          f" ({wall:.2f} s from the start of the ranks to their end); both "
@@ -2857,14 +3055,16 @@ def two_ranks(acc) -> dict:
 def _stream_counters() -> dict:
     """The launch counters of the kernels under phase 30, by the names the
     kernels line gives them."""
-    from compress_tpu_torch.ops import (execute, lz2, lzkern, zenc2, zparse,
-                                        zseqenc)
+    from compress_tpu_torch.ops import (execute, lz2, lzkern, zdev, zenc2,
+                                        zparse, zseqenc)
     from compress_tpu_torch.utils import histogram as H
 
     return {"find_matches_blocks": lzkern.find_matches_blocks,
             "parse_blocks": zparse.parse_blocks, "rep_scan": zseqenc.rep_scan,
             "fse_chain": zseqenc.fse_chain, "litlut": zenc2._litlut,
             "byte_histograms": H.byte_histograms,
+            "huff_build": zdev._huff_build,
+            "normalize_count": zdev._normalize_count,
             "execute_pieces": execute.execute_pieces,
             "tile_parse": lz2.tile_parse}
 
@@ -3620,6 +3820,7 @@ def main() -> int:
         if row["name"] == "rep_scan":
             row.update(v1["rep"])
     kernels.append(fse_scan_row)
+    kernels += table_build_path(dev)
     for row in kernels:
         if row["name"] == "byte_histograms":
             row.update(v1["hist"])
@@ -3636,7 +3837,9 @@ def main() -> int:
               "zseq_decode_chunks_rep": "zseq_decode",
               "execute_pieces": "execute_pieces",
               "execute_blocks_hist": "execute_blocks_hist",
-              "tile_parse": "tile_parse", "fse_scan": "fse_scan"}
+              "tile_parse": "tile_parse", "fse_scan": "fse_scan",
+              "huff_build": "huff_build",
+              "normalize_count": "normalize_count"}
     for row in kernels:
         if row["name"] in by_row:
             row["sharded_launches"] = p27["launches"][by_row[row["name"]]]

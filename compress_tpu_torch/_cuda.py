@@ -25,7 +25,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("lzkern.cu", "lzemit.cu", "zparse.cu", "zseqenc.cu", "litlut.cu",
            "exec.cu", "huff0dec.cu", "zseqdec.cu", "fseenc.cu", "fsedec.cu",
-           "checksum.cu", "tileparse.cu", "zdevfse.cu", "histogram.cu")
+           "checksum.cu", "tileparse.cu", "zdevfse.cu", "histogram.cu",
+           "tablebuild.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -67,6 +68,9 @@ _SIGNATURES = {
     "ct_byte_histograms": [_P, _L, _I, _I, _P, _L, _P, _P],
     "ct_histogram256": [_P, _L, _I, _P, _P],
     "ct_histogram_info": [_I, _I, _P],
+    "ct_huff_build": [_P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "ct_normalize_count": [_P, _I, _I, _I, _I, _P, _P, _P],
+    "ct_tablebuild_info": [_P],
 }
 
 _lib = None

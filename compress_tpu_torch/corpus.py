@@ -886,3 +886,157 @@ def fse_dec_inputs(kind: str) -> dict:
     return dict(windows=windows, lbit=as32[0], st1=as32[1], st2=as32[2],
                 npair=as32[3], nore1=as32[4], nore2=as32[5], dtables=dts,
                 tables=tables)
+
+
+HUFF_BUILD_CLASSES = ("empty", "one_symbol", "two_symbols", "all_equal",
+                      "dominant", "fibonacci", "total_16mib", "corpus",
+                      "random")
+
+
+def _counts(block: np.ndarray) -> np.ndarray:
+    return np.bincount(block.reshape(-1), minlength=256).astype(np.int64)
+
+
+def huff_build_hists(kind: str) -> np.ndarray:
+    """(J, 256) int32 byte counts for the Huffman code-length build
+    (``ops/zdev._huff_build``), each class hostile to one part of it:
+
+    - ``empty``: no symbol (no code, ``ok`` false);
+    - ``one_symbol``: one symbol at the alphabet's ends and middle, with
+      counts 1 to 2^20 (``ok`` false: a Huffman table needs two);
+    - ``two_symbols``: equal and very unequal pairs;
+    - ``all_equal``: every symbol, all with one count (ties everywhere);
+    - ``dominant``: one symbol of a 16 KiB or 64 KiB row and 255
+      singletons, whose lengths start past ``maxlog``, so the Kraft sum
+      overflows and many passes run;
+    - ``fibonacci``: Fibonacci counts on 20 to 40 symbols, the classic
+      worst case of length limiting, in symbol order and shuffled;
+    - ``total_16mib``: rows that sum to 16 MiB (the huff0 shared table's
+      batch-wide counts), from text and from the corpus classes;
+    - ``corpus``: the counts of a 16 KiB row and a 64 KiB block of each
+      ``CLASSES`` class;
+    - ``random``: random counts on random supports of 2 to 256 symbols,
+      with many equal counts."""
+    rng = np.random.default_rng(HUFF_BUILD_CLASSES.index(kind) + 401)
+    rows = []
+    if kind == "empty":
+        rows = [np.zeros(256, np.int64)] * 2
+    elif kind == "one_symbol":
+        for sym, n in ((0, 1), (77, 5), (255, 16384), (128, 1 << 20)):
+            r = np.zeros(256, np.int64)
+            r[sym] = n
+            rows.append(r)
+    elif kind == "two_symbols":
+        for (a, b), (na, nb) in (((0, 1), (1, 1)), ((3, 200), (1, 1000000)),
+                                 ((254, 255), (16383, 1)), ((9, 99), (7, 7))):
+            r = np.zeros(256, np.int64)
+            r[a], r[b] = na, nb
+            rows.append(r)
+    elif kind == "all_equal":
+        rows = [np.full(256, n, np.int64) for n in (1, 64, 65536)]
+    elif kind == "dominant":
+        for big, sym in ((16384 - 255, 0), (65536 - 255, 200),
+                         (1 << 20, 31)):
+            r = np.ones(256, np.int64)
+            r[sym] = big
+            rows.append(r)
+        r = np.ones(256, np.int64)     # two dominant symbols
+        r[[5, 6]] = 30000
+        rows.append(r)
+    elif kind == "fibonacci":
+        for k in (20, 30, 40):
+            fib = [1, 1]
+            while len(fib) < k:
+                fib.append(fib[-1] + fib[-2])
+            r = np.zeros(256, np.int64)
+            r[:k] = fib
+            rows.append(r)
+            rows.append(rng.permutation(r))
+    elif kind == "total_16mib":
+        text = _counts(np.concatenate(
+            [make_block("text", np.random.default_rng([7, i]))
+             for i in range(4)]))
+        rows.append(text * 64)                           # 256 KiB x 64
+        rows.append(_counts(corpus_blocks(8, 5)) * 32)   # 512 KiB x 32
+    elif kind == "corpus":
+        for i, cls in enumerate(CLASSES):
+            blk = make_block(cls, np.random.default_rng([11, i]))
+            rows.append(_counts(blk[:1 << 14]))
+            rows.append(_counts(blk))
+    elif kind == "random":
+        for k in (2, 3, 17, 100, 255, 256):
+            r = np.zeros(256, np.int64)
+            sup = rng.choice(256, k, replace=False)
+            r[sup] = rng.choice([1, 1, 2, 3, 5, 40, 1000], k)
+            rows.append(r)
+    else:
+        raise ValueError(f"unknown Huffman-build class {kind!r}")
+    out = np.stack(rows)
+    if out.sum(axis=1).max() >= 1 << 31:
+        raise AssertionError("a Huffman-build row passes int32")
+    return out.astype(np.int32)
+
+
+NORMALIZE_CLASSES = ("surplus", "deficit", "one_symbol", "ties", "empty",
+                     "corpus")
+
+
+def normalize_hists(kind: str, nsym: int, log: int) -> np.ndarray:
+    """(N, nsym) int32 counts for the FSE count normalisation
+    (``ops/zdev._normalize_count``) at table log ``log``:
+
+    - ``surplus``: random counts whose floor shares sum below 2^log (the
+      surplus to the largest remainders), remainders tied in some rows;
+    - ``deficit``: one or two large counts and many singletons, each
+      raised to 1, so the floor shares sum past 2^log and the steal walk
+      runs, with as many singletons as the table holds and more (a
+      deficit that cannot be paid); every count times 2^log stays below
+      2^31, where the JAX package's int32 arithmetic is exact;
+    - ``one_symbol``: one present symbol at each end and the middle;
+    - ``ties``: equal counts on 3 to nsym symbols (equal remainders, equal
+      counts in the steal order);
+    - ``empty``: no symbol;
+    - ``corpus``: byte counts of a 16 KiB row of each ``CLASSES`` class,
+      folded to ``nsym`` symbols (value % nsym)."""
+    rng = np.random.default_rng([NORMALIZE_CLASSES.index(kind), nsym, log])
+    size = 1 << log
+    rows = []
+    if kind == "surplus":
+        for _ in range(6):
+            k = int(rng.integers(2, nsym + 1))
+            r = np.zeros(nsym, np.int64)
+            r[rng.choice(nsym, k, replace=False)] = rng.integers(1, 5000, k)
+            rows.append(r)
+        r = np.zeros(nsym, np.int64)
+        r[:7] = 3                    # 21 counts: remainders all equal
+        rows.append(r)
+    elif kind == "deficit":
+        for m in sorted({1, size // 4, size - 2, size + 5, nsym - 1}):
+            m = min(max(m, 1), nsym - 1)
+            r = np.zeros(nsym, np.int64)
+            r[rng.choice(np.arange(1, nsym), m, replace=False)] = 1
+            r[0] = 100 * size
+            rows.append(r)
+        r = np.ones(nsym, np.int64)
+        r[[2, nsym - 1]] = 50 * size
+        rows.append(r)
+    elif kind == "one_symbol":
+        for sym in (0, nsym // 2, nsym - 1):
+            r = np.zeros(nsym, np.int64)
+            r[sym] = 1 + sym
+            rows.append(r)
+    elif kind == "ties":
+        for k in (3, nsym // 3, nsym):
+            r = np.zeros(nsym, np.int64)
+            r[rng.choice(nsym, k, replace=False)] = 9
+            rows.append(r)
+    elif kind == "empty":
+        rows = [np.zeros(nsym, np.int64)] * 2
+    elif kind == "corpus":
+        for i, cls in enumerate(CLASSES):
+            blk = make_block(cls, np.random.default_rng([13, i]))[:1 << 14]
+            rows.append(np.bincount(blk.astype(np.int64) % nsym,
+                                    minlength=nsym))
+    else:
+        raise ValueError(f"unknown normalisation class {kind!r}")
+    return np.stack(rows).astype(np.int32)

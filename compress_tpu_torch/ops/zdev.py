@@ -12,12 +12,15 @@ with a Huffman table per block, and FSE sequence-stream halves over FSE
 tables of logs 9/8/9 per job (``fse_scan``, the 3-stream state chain).
 
 Plain PyTorch on whatever device the tensors are on, but for the serial
-scans: ``lz2.tile_parse``, ``zseqenc.rep_scan`` and ``fse_scan`` launch
-their CUDA kernels on CUDA tensors and run their plain versions on CPU
-tensors.  The reference runs table lookups, routing and compaction as
-one-hot matmuls and its scans as ``lax.scan``; here they are gathers,
-integer scatters, prefix sums and short Python loops, with the same
-integer results.  Every sort that the reference's outputs depend on for
+scans: ``lz2.tile_parse``, ``zseqenc.rep_scan``, ``fse_scan`` and the two
+per-row table builds, ``_huff_build`` (the Huffman code lengths, also of
+the v2 literal stage and the huff0 encoder) and ``_normalize_count`` (the
+FSE normalised counts, also of the v2 codes stage and the FSE batch
+encoder), launch their CUDA kernels on CUDA tensors and run their plain
+versions on CPU tensors.  The reference runs table lookups, routing and
+compaction as one-hot matmuls and its scans as ``lax.scan``; here they
+are gathers, integer scatters, prefix sums and short Python loops, with
+the same integer results.  Every sort that the reference's outputs depend on for
 tie order is a stable ``torch.sort``.
 """
 
@@ -108,8 +111,9 @@ def _shl(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return torch.bitwise_left_shift(x, torch.clamp(s, min=0))
 
 
-def _huff_build(hist: torch.Tensor, maxlog: int = 11):
-    """hist (J, 256) -> (nbits (J, 256) int32, max_bits (J,), ok (J,)).
+def _huff_build_ref(hist: torch.Tensor, maxlog: int = 11):
+    """Plain version of ``_huff_build``: hist (J, 256) -> (nbits (J, 256)
+    int32, max_bits (J,), ok (J,)).
 
     Code lengths l0 = ceil(log2(total / h)) clipped to [1, maxlog]; the
     Kraft deficit is spent, 12 times, by a greedy pass over the symbols
@@ -152,6 +156,71 @@ def _huff_build(hist: torch.Tensor, maxlog: int = 11):
     max_bits = ls.amax(dim=1) if ls.shape[1] else torch.zeros(
         ls.shape[0], dtype=_I64, device=dev)
     return ls.to(_I32), max_bits.to(_I32), ok
+
+
+# the count dtypes the table-build kernels read, and their codes in the C
+# entries
+_COUNT_KINDS = {torch.int32: 3, torch.int64: 4}
+
+
+def _table_input(hist: torch.Tensor, stats, what: str):
+    """Check a table build's CUDA input; return its kind code."""
+    if hist.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {hist.device}")
+    kind = _COUNT_KINDS.get(hist.dtype)
+    if hist.dim() != 2 or kind is None:
+        raise ValueError(f"{what}: expected (rows, symbols) int32 or int64 "
+                         f"counts, got {tuple(hist.shape)} {hist.dtype}")
+    if stats is not None:
+        _cuda.require_cuda_input(stats, f"{what}: stats", _I64,
+                                 (hist.shape[0], 2))
+        if stats.device != hist.device:
+            raise ValueError(f"{what}: stats on another device")
+    return kind
+
+
+def _huff_build(hist: torch.Tensor, maxlog: int = 11, *, stats=None):
+    """hist (J, 256) counts -> (nbits (J, 256) int32, max_bits (J,) int32,
+    ok (J,) bool): Huffman code lengths limited to ``maxlog`` bits.
+
+    Code lengths l0 = ceil(log2(total / h)) clipped to [1, maxlog]; the
+    Kraft deficit is spent, 12 times, by a greedy pass over the symbols
+    in descending hist << l order that shortens a code by one level where
+    its cost 2^(maxlog - l) still fits; ok where the deficit is spent
+    and at least two symbols are present.  A CUDA tensor (int32 or int64
+    counts, maxlog 1..15) goes through the kernel (``csrc/tablebuild.cu``:
+    one launch, no host sync; a CTA a row ranks the symbols by comparison
+    counts and one thread walks them, stopping where the deficit is 0), a
+    CPU tensor through ``_huff_build_ref``.  ``stats``, a (J, 2) int64
+    CUDA tensor, gets each row's walk steps and the SM cycles its walks
+    took."""
+    if hist.device.type == "cpu":
+        return _huff_build_ref(hist, maxlog)
+    kind = _table_input(hist, stats, "_huff_build")
+    if hist.shape[1] != 256:
+        raise ValueError(f"_huff_build: expected 256 symbols a row, got "
+                         f"{hist.shape[1]}")
+    if not 1 <= maxlog <= 15:
+        raise ValueError(f"_huff_build: maxlog {maxlog} outside 1..15")
+    dev = hist.device
+    J = hist.shape[0]
+    h = hist.contiguous()
+    nbits = torch.empty((J, 256), dtype=_I32, device=dev)
+    max_bits = torch.empty(J, dtype=_I32, device=dev)
+    ok = torch.empty(J, dtype=torch.bool, device=dev)
+    if J == 0:
+        return nbits, max_bits, ok
+    with torch.cuda.device(dev):
+        rc = _cuda.library().ct_huff_build(
+            h.data_ptr(), kind, J, maxlog, nbits.data_ptr(),
+            max_bits.data_ptr(), ok.data_ptr(),
+            None if stats is None else stats.data_ptr(), _cuda.stream(dev))
+    _cuda.check(rc, "_huff_build")
+    _huff_build.launches += 1
+    return nbits, max_bits, ok
+
+
+_huff_build.launches = 0
 
 
 def _canonical_codes_dev(nbits: torch.Tensor, max_bits: torch.Tensor):
@@ -229,10 +298,11 @@ def _bitpack_rows(values, nbits, dest_bit, to: int, region_end, T: int,
     return torch.where(alive, halves, 0).to(_I32), n_halves.to(_I32)
 
 
-def _normalize_count(hist: torch.Tensor, log: int) -> torch.Tensor:
-    """(N, NSYM) counts -> normalized counts summing to exactly 2^log, every
-    present symbol >= 1: floor shares, the surplus to the largest
-    remainders, a deficit stolen from the largest counts in turn."""
+def _normalize_count_ref(hist: torch.Tensor, log: int) -> torch.Tensor:
+    """Plain version of ``_normalize_count``: (N, NSYM) counts ->
+    normalized counts summing to exactly 2^log, every present symbol >= 1:
+    floor shares, the surplus to the largest remainders, a deficit stolen
+    from the largest counts in turn."""
     size = 1 << log
     h = hist.to(_I64)
     total = torch.clamp(h.sum(dim=1, keepdim=True), min=1)
@@ -263,6 +333,44 @@ def _normalize_count(hist: torch.Tensor, log: int) -> torch.Tensor:
         norm2 = _unsort(order, torch.stack(cols, dim=1))
         norm = torch.where(deficit[:, None] > 0, norm2, norm)
     return norm.to(_I32)
+
+
+def _normalize_count(hist: torch.Tensor, log: int, *,
+                     stats=None) -> torch.Tensor:
+    """(N, NSYM) counts -> (N, NSYM) int32 normalized counts summing to
+    exactly 2^log, every present symbol >= 1: floor shares, the surplus to
+    the largest remainders, a deficit stolen from the largest counts in
+    turn (the lower symbol first on ties, as a stable sort gives).
+
+    A CUDA tensor (int32 or int64 counts, NSYM 1..1024, log 1..30) goes
+    through the kernel (``csrc/tablebuild.cu``: one launch, no host sync;
+    a CTA a row, the surplus by comparison-count ranks, the deficit by
+    one thread's walk over the counts in descending order, stopping where
+    it is paid), a CPU tensor through ``_normalize_count_ref``.
+    ``stats``, an (N, 2) int64 CUDA tensor, gets each row's deficit-walk
+    steps and SM cycles (0 where a row has no deficit)."""
+    if hist.device.type == "cpu":
+        return _normalize_count_ref(hist, log)
+    kind = _table_input(hist, stats, "_normalize_count")
+    N, nsym = hist.shape
+    if not 1 <= nsym <= 1024 or not 1 <= log <= 30:
+        raise ValueError(f"_normalize_count: NSYM {nsym} outside 1..1024 or "
+                         f"log {log} outside 1..30")
+    dev = hist.device
+    h = hist.contiguous()
+    norm = torch.empty((N, nsym), dtype=_I32, device=dev)
+    if N == 0:
+        return norm
+    with torch.cuda.device(dev):
+        rc = _cuda.library().ct_normalize_count(
+            h.data_ptr(), kind, N, nsym, log, norm.data_ptr(),
+            None if stats is None else stats.data_ptr(), _cuda.stream(dev))
+    _cuda.check(rc, "_normalize_count")
+    _normalize_count.launches += 1
+    return norm
+
+
+_normalize_count.launches = 0
 
 
 def _first_argmax(x: torch.Tensor) -> torch.Tensor:

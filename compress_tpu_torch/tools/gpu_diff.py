@@ -1,5 +1,5 @@
 """On-card differential sweep: every hand-written CUDA kernel of the port
-(rows 1-18 and a of PERF.md's kernel table) against its plain PyTorch
+(rows 1-18 and a-c of PERF.md's kernel table) against its plain PyTorch
 version on hostile inputs, in one command, bit for bit (tolerance 0: the
 outputs are integers and bytes).
 
@@ -9,9 +9,10 @@ The inputs are made here from seeds: ``corpus.py``'s block classes and its
 hostile classes (the finder's blocks, the parse and execute plans, the
 repeat and FSE chains, the huff0, sequence and FSE chunk classes with
 ``FSE_DEC_WILD``'s tables of any int32 entry), tile-parse lengths at the
-tile's edges and near INT32_MAX, and FSE scan tables broken so that they
-take the exact step.  Each check also requires its wrapper's launch count
-to rise, so the kernel ran and not the plain version.  The entries that
+tile's edges and near INT32_MAX, FSE scan tables broken so that they
+take the exact step, and the table builds' hostile counts.  Each check
+also requires its wrapper's launch count to rise, so the kernel ran and
+not the plain version.  The entries that
 take ``routes=`` (rows 13, 14, 17 and 18) print the work on each route.
 
 It exits 1 on any mismatch or error and 2 when no CUDA card is present:
@@ -589,6 +590,62 @@ def check_histograms(dev) -> str:
             f"(unmasked / masked), {out[4]} shared bytes a CTA")
 
 
+def check_huff_build(dev) -> str:
+    """Row b: the Huffman code-length build on every
+    ``corpus.huff_build_hists`` class at maxlog 8 and 11 (and 1 and 15
+    on all of them), int32 and int64 counts; each row's walk steps."""
+    from compress_tpu_torch import corpus
+    from compress_tpu_torch.ops import zdev
+
+    rows = np.concatenate([corpus.huff_build_hists(k)
+                           for k in corpus.HUFF_BUILD_CLASSES])
+    h = torch.from_numpy(rows)
+    n = 0
+    for maxlog in (1, 8, 11, 15):
+        for t in (h, h.to(torch.int64)):
+            _same(_launched(zdev._huff_build, t.to(dev), maxlog),
+                  zdev._huff_build_ref(t, maxlog),
+                  f"huff_build maxlog {maxlog} {t.dtype}")
+            n += 1
+    if dev.type != "cuda":
+        return f"{n} launches of {len(rows)} rows"
+    from compress_tpu_torch import _cuda
+
+    stats = torch.zeros((len(rows), 2), dtype=torch.int64, device=dev)
+    zdev._huff_build(h.to(dev), 11, stats=stats)
+    steps = stats[:, 0].cpu()
+    info = (ctypes.c_int * 6)()
+    _cuda.check(_cuda.library().ct_tablebuild_info(info),
+                "ct_tablebuild_info")
+    if info[2] < 1 or info[5] < 1:
+        raise Mismatch(f"a table build cannot be resident: {list(info)}")
+    return (f"{n} launches of {len(rows)} rows; at maxlog 11 walks of "
+            f"{int(steps.sum())} steps, the longest {int(steps.max())}; "
+            f"registers / CTAs an SM: Huffman {info[0]} / {info[2]}, "
+            f"normalisation (NSYM 256) {info[3]} / {info[5]}")
+
+
+def check_normalize_count(dev) -> str:
+    """Row c: the FSE count normalisation on every
+    ``corpus.normalize_hists`` class at NSYM 64 and 256 and logs 5-12,
+    int32 and int64 counts."""
+    from compress_tpu_torch import corpus
+    from compress_tpu_torch.ops import zdev
+
+    n = 0
+    for nsym in (64, 256):
+        for log in range(5, 13):
+            h = torch.from_numpy(np.concatenate(
+                [corpus.normalize_hists(k, nsym, log)
+                 for k in corpus.NORMALIZE_CLASSES]))
+            for t in (h, h.to(torch.int64)):
+                _same(_launched(zdev._normalize_count, t.to(dev), log),
+                      zdev._normalize_count_ref(t, log),
+                      f"normalize_count NSYM {nsym} log {log} {t.dtype}")
+                n += 1
+    return f"{n} launches"
+
+
 def check_occupancy(dev) -> str:
     """The occupancy queries: every kernel can be resident."""
     from compress_tpu_torch import _cuda
@@ -628,6 +685,9 @@ KERNELS = [
     ("fse_scan", "18", ("ct_zdev_fse", "ct_zdev_fse_info"), check_fse_scan),
     ("byte_histograms", "a", ("ct_byte_histograms", "ct_histogram256",
                               "ct_histogram_info"), check_histograms),
+    ("huff_build", "b", ("ct_huff_build", "ct_tablebuild_info"),
+     check_huff_build),
+    ("normalize_count", "c", ("ct_normalize_count",), check_normalize_count),
     ("occupancy", "-", ("ct_exec_occupancy", "ct_parse_occupancy",
                         "ct_emit_occupancy", "ct_rep_occupancy",
                         "ct_fse_occupancy", "ct_huff0_occupancy",

@@ -71,7 +71,14 @@ frames; the deflate family and the CLIs around the card: ``s2c -device``
 equal to ``s2_stream_encode_device``'s stream and its index (the tile
 parse launched), ``zstdio -accel`` decoded by ``decompress_frames_device``
 with no host walk and no host frame, and the deflate, inflate, gzip and
-zlib round trips on the host core built on the card's machine.
+zlib round trips on the host core built on the card's machine; and the
+two per-row table builds (``zdev._huff_build``, ``_normalize_count``)
+on every class of ``corpus.huff_build_hists`` / ``normalize_hists`` at
+maxlog 1-15, NSYM 1-1000 and logs 1-20 in int32 and int64, on the
+counts the v2, v1, huff0 and FSE batch paths build tables of, with each
+row's walk steps equal to the CPU models'
+(``tests/test_torch_tablebuild_model.py``), one launch a call with no
+host sync, and twenty repeats.
 Without a card every test here skips.
 
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -88,7 +95,7 @@ from compress_tpu_torch.fse import core as fse_core
 from compress_tpu_torch.ops import (checksum, entropy, entropy_dec,
                                     entropy_kern, exec_kern, execute, lz2,
                                     lzemit2,
-                                    lzkern, zenc2, zparse, zseq_kern,
+                                    lzkern, zdev, zenc2, zparse, zseq_kern,
                                     zseqenc)
 from compress_tpu_torch.s2 import block as s2_block
 from compress_tpu_torch.utils import histogram
@@ -2715,3 +2722,200 @@ def test_deflate_family_round_trips_on_the_host_core(cuda_device,
     z = zl.compress(data, 9)
     assert stdzlib.decompress(z) == data and zl.Reader(z).read() == data
 
+
+
+# ---- rows b and c: the per-row table builds (csrc/tablebuild.cu) ----------
+
+
+def _hold_huff(dev, hist, maxlog):
+    before = zdev._huff_build.launches
+    got = zdev._huff_build(hist.to(dev), maxlog)
+    assert zdev._huff_build.launches == before + 1
+    _same([g.cpu() for g in got], zdev._huff_build_ref(hist.cpu(), maxlog))
+
+
+def _hold_norm(dev, hist, log):
+    before = zdev._normalize_count.launches
+    got = zdev._normalize_count(hist.to(dev), log)
+    assert zdev._normalize_count.launches == before + 1
+    _same([got.cpu()], [zdev._normalize_count_ref(hist.cpu(), log)])
+
+
+def _huff_rows():
+    return np.concatenate([corpus.huff_build_hists(k)
+                           for k in corpus.HUFF_BUILD_CLASSES])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("maxlog", [8, 11])
+@pytest.mark.parametrize("kind", corpus.HUFF_BUILD_CLASSES)
+def test_huff_build_kernel_matches_plain(cuda_device, kind, maxlog):
+    h = torch.from_numpy(corpus.huff_build_hists(kind))
+    for t in (h, h.to(torch.int64)):
+        _hold_huff(cuda_device, t, maxlog)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("maxlog", [1, 2, 5, 12, 15])
+def test_huff_build_kernel_other_maxlogs(cuda_device, maxlog):
+    _hold_huff(cuda_device, torch.from_numpy(_huff_rows()), maxlog)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log", [5, 6, 7, 8, 9, 10, 11, 12])
+@pytest.mark.parametrize("nsym", [64, 256])
+def test_normalize_count_kernel_matches_plain(cuda_device, nsym, log):
+    for kind in corpus.NORMALIZE_CLASSES:
+        h = torch.from_numpy(corpus.normalize_hists(kind, nsym, log))
+        for t in (h, h.to(torch.int64)):
+            _hold_norm(cuda_device, t, log)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nsym", [1, 31, 33, 1000])
+def test_normalize_count_kernel_other_widths(cuda_device, nsym):
+    rng = np.random.default_rng(nsym)
+    h = rng.choice([0, 0, 1, 1, 2, 7, 300], (9, nsym)).astype(np.int32)
+    h[0] = 0
+    for log in (1, 4, 9, 20):
+        _hold_norm(cuda_device, torch.from_numpy(h), log)
+
+
+@pytest.mark.cuda
+def test_table_build_kernels_on_the_paths_counts(cuda_device, monkeypatch):
+    """The counts that the four paths build tables of, captured on their
+    way to the kernels: the v2 literal stage's and codes stage's (one
+    4 MiB job), the v1 engine's per-block literals and per-job codes
+    (level 2), the huff0 encoder's per-row and batch-wide counts and the
+    FSE batch encoder's per-row counts; each kernel equals its plain
+    version on every one."""
+    calls = {"huff": [], "norm": []}
+
+    def spy(key, orig):
+        def f(*args, **kw):
+            calls[key].append((args, kw))
+            return orig(*args, **kw)
+        f.launches = orig.launches
+        return f
+
+    huff_build, normalize_count = zdev._huff_build, zdev._normalize_count
+    for mod in (zdev, zenc2, entropy):
+        monkeypatch.setattr(mod, "_huff_build", spy("huff", huff_build))
+    for mod in (zdev, entropy):
+        monkeypatch.setattr(mod, "_normalize_count",
+                            spy("norm", normalize_count))
+    data = corpus.replica_jobs(1, 4 << 20, 6).tobytes()
+    zdevice.compress_device(data)
+    zdevice.compress_device(data[:2 << 20], engine="v1", level=2)
+    rows = corpus.corpus_blocks(4, 2).reshape(-1, 1 << 14)
+    huff0.compress_4x_batch(rows, shared_table=True, max_log=8)
+    huff0.compress_4x_batch(rows, max_log=11)
+    fse.compress_batch(rows)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert len(calls["huff"]) == 4 and len(calls["norm"]) == 3 + 3 + 1
+    for args, kw in calls["huff"]:
+        assert args[0].is_cuda
+        _hold_huff(cuda_device, args[0], kw.get("maxlog", 11))
+    for (hist, log), _ in calls["norm"]:
+        assert hist.is_cuda
+        _hold_norm(cuda_device, hist, log)
+
+
+@pytest.mark.cuda
+def test_table_build_walks_equal_the_models(cuda_device):
+    """Each row's walk steps (``stats``) equal the numpy models' count
+    (``tests/test_torch_tablebuild_model.py``): the kernels stop their
+    walks and passes where the models do."""
+    import test_torch_tablebuild_model as tb_model
+
+    h = _huff_rows()
+    for maxlog in (8, 11):
+        stats = torch.zeros((len(h), 2), dtype=torch.int64,
+                            device=cuda_device)
+        zdev._huff_build(torch.from_numpy(h).to(cuda_device), maxlog,
+                         stats=stats)
+        st = stats.cpu().numpy()
+        assert np.array_equal(st[:, 0],
+                              tb_model.model_huff_build(h, maxlog)[3])
+        assert (st[:, 1][st[:, 0] > 0] > 0).all()
+    for nsym in (64, 256):
+        n = np.concatenate([corpus.normalize_hists(k, nsym, 9)
+                            for k in corpus.NORMALIZE_CLASSES])
+        stats = torch.zeros((len(n), 2), dtype=torch.int64,
+                            device=cuda_device)
+        zdev._normalize_count(torch.from_numpy(n).to(cuda_device), 9,
+                              stats=stats)
+        st = stats.cpu().numpy()
+        assert np.array_equal(st[:, 0],
+                              tb_model.model_normalize_count(n, 9)[1])
+        assert (st[:, 1][st[:, 0] > 0] > 0).all()
+
+
+@pytest.mark.cuda
+def test_table_build_kernels_one_launch_no_sync(cuda_device):
+    """A call is one launch of its kernel (its launch counter) and no other
+    device work (the ATen operations it dispatches are its output
+    allocations alone), with no host sync (PyTorch's sync debug mode
+    raises on one), and twenty calls give the same outputs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class _Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    h = torch.from_numpy(np.concatenate([_huff_rows()] * 64)).to(
+        cuda_device, torch.int64)
+    n = torch.from_numpy(corpus.normalize_hists("deficit", 256, 9)).to(
+        cuda_device)
+    calls = [(zdev._huff_build, lambda: zdev._huff_build(h, 11)),
+             (zdev._normalize_count, lambda: [zdev._normalize_count(n, 9)])]
+    for fn, call in calls:
+        first = call()
+        torch.cuda.synchronize()
+        before = fn.launches
+        ops = _Ops()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with ops:
+                call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert fn.launches == before + 1
+        assert ops.seen and set(ops.seen) == {"aten.empty.memory_format"}
+        for _ in range(20):
+            _same(call(), first)
+
+
+@pytest.mark.cuda
+def test_table_build_kernels_reject_bad_inputs(cuda_device):
+    h = torch.zeros((3, 256), dtype=torch.int64, device=cuda_device)
+    for bad in (h.to(torch.int16), h[:, :255], h[0]):
+        with pytest.raises(ValueError):
+            zdev._huff_build(bad)
+    for maxlog in (0, 16):
+        with pytest.raises(ValueError):
+            zdev._huff_build(h, maxlog)
+    for stats in (torch.zeros((3, 2), dtype=torch.int64),
+                  torch.zeros((3, 1), dtype=torch.int64, device=cuda_device),
+                  torch.zeros((3, 2), dtype=torch.int32, device=cuda_device)):
+        with pytest.raises(ValueError):
+            zdev._huff_build(h, 11, stats=stats)
+        with pytest.raises(ValueError):
+            zdev._normalize_count(h, 9, stats=stats)
+    for bad, log in ((h.to(torch.uint8), 9), (h, 0), (h, 31),
+                     (torch.zeros((2, 1025), dtype=torch.int64,
+                                  device=cuda_device), 9)):
+        with pytest.raises(ValueError):
+            zdev._normalize_count(bad, log)
+    before = (zdev._huff_build.launches, zdev._normalize_count.launches)
+    out = zdev._huff_build(h[:0])
+    assert [tuple(t.shape) for t in out] == [(0, 256), (0,), (0,)]
+    assert zdev._normalize_count(h[:0], 9).shape == (0, 256)
+    assert (zdev._huff_build.launches,
+            zdev._normalize_count.launches) == before

@@ -1,6 +1,6 @@
 """``compress_tpu_torch/tools/gpu_diff.py``, the on-card sweep of every
 kernel against its plain version, checked on the CPU: its list covers
-every C entry of ``_cuda.py``'s table (rows 1-18 and a, and the
+every C entry of ``_cuda.py``'s table (rows 1-18 and a-c, and the
 occupancy queries), its ``main()`` and the script exit non-zero where
 there is no CUDA card, and the checks whose wrappers take CPU tensors
 build their hostile inputs and run them through the plain versions (the
@@ -18,7 +18,7 @@ from compress_tpu_torch.tools import gpu_diff
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 ROWS = {"1-2", "3-4", "5", "6", "7", "8", "9", "10", "11", "12", "13", "14",
-        "15-16", "17", "18", "a"}
+        "15-16", "17", "18", "a", "b", "c"}
 
 
 def test_kernel_list_covers_every_entry():
@@ -43,7 +43,8 @@ def test_main_exits_non_zero_without_a_card(capsys):
 @pytest.mark.parametrize("name", ["litlut", "execute", "checksums",
                                   "fse_encode_chain", "fse_decode_chunks",
                                   "tile_parse", "fse_scan",
-                                  "byte_histograms"])
+                                  "byte_histograms", "huff_build",
+                                  "normalize_count"])
 def test_checks_build_their_inputs(name):
     fn = next(f for n, _, _, f in gpu_diff.KERNELS if n == name)
     assert fn(torch.device("cpu"))
