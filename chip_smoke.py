@@ -231,7 +231,8 @@ The per-row table builds (``csrc/tablebuild.cu``), after phase 26:
     times each path's largest input by CUDA events and device time beside
     the plain version, with the bound and the serial walk (each row's
     walk steps and SM cycles from the kernels' ``stats``: the longest
-    walk, the cycles a step and their product at the SM's largest clock);
+    walk, the cycles a step and their product at the SM's largest clock)
+    and beside a launch's floor (the device time of a one-element fill);
     prints the launches on each path and the registers and CTAs an SM of
     both kernels.
 
@@ -2543,7 +2544,8 @@ def table_build_path(dev) -> list:
     (phases 10, 14-15, 23 and 26, captured on the way): each call held
     against its plain version, each path's first largest input timed
     (CUDA events, device time, the plain version) with its bound and its
-    serial walk.  Returns the two kernels' JSON entries."""
+    serial walk, beside a launch's floor (the device time of a
+    one-element fill).  Returns the two kernels' JSON entries."""
     from compress_tpu_torch import _cuda
     from compress_tpu_torch.ops import zdev
 
@@ -2553,6 +2555,8 @@ def table_build_path(dev) -> list:
     info = (ctypes.c_int * 6)()
     _cuda.check(_cuda.library().ct_tablebuild_info(info),
                 "ct_tablebuild_info")
+    tiny = torch.zeros(1, device=dev)
+    floor = cuda_ms(lambda: tiny.fill_(1), 20, True)
     kernels = {"huff": ("huff_build", zdev._huff_build, zdev._huff_build_ref,
                         "compress_tpu/ops/zdev.py:139", info[0], info[2]),
                "norm": ("normalize_count", zdev._normalize_count,
@@ -2579,6 +2583,7 @@ def table_build_path(dev) -> list:
                     for path, run in TABLE_RUNS.items()}
         _say(f"{name}: {held} calls held bit for bit; launches by path "
              f"{launches}; {regs} registers, {ctas} CTAs an SM (NSYM 256); "
+             f"a launch's floor {floor:.4f} ms (device time); "
              f"by path (ms, CUDA events / device time / plain / bound; walk: "
              f"steps, longest, cycles a step, floor at {mhz:.0f} MHz): "
              + "; ".join(
@@ -2597,7 +2602,8 @@ def table_build_path(dev) -> list:
                "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                "bound_by": main["bound_by"], "library_ms": None,
                "device_ms": main["device_ms"],
-               "walk_floor_ms": main["walk_floor_ms"], "by_path": by_path,
+               "walk_floor_ms": main["walk_floor_ms"],
+               "launch_floor_ms": floor, "by_path": by_path,
                "registers": regs, "ctas_per_sm": ctas, "mhz": mhz}
         if key == "huff":
             row["literal_split_ms"] = TABLE_RUNS["zstd_v2"]["literal_split"]

@@ -1040,3 +1040,95 @@ def normalize_hists(kind: str, nsym: int, log: int) -> np.ndarray:
     else:
         raise ValueError(f"unknown normalisation class {kind!r}")
     return np.stack(rows).astype(np.int32)
+
+
+def huff_build_wide_hists() -> np.ndarray:
+    """(J, 256) int64 counts for the Huffman code-length build whose sort
+    keys h << l pass 2^54 (up to about 2^62), more bits than a word could
+    give a key beside its symbol; every total stays below 2^62, so no key
+    wraps:
+
+    - random counts of 2^48 to 2^53 on 2 to 256 symbols, some equal;
+    - counts of 2^50 plus small steps, whose keys differ only in their low
+      bits, equal in pairs;
+    - every symbol at 2^53 (ties everywhere, keys of 2^61);
+    - Fibonacci counts on 30 symbols times 2^36, in order and shuffled;
+    - one count of 2^60 and 255 singletons (lengths past maxlog: many
+      passes);
+    - no symbol that can step: one symbol of 2^61 (a deficit with nothing
+      to spend it on), two of 2^60;
+    - counts that are no histogram: 2^40 beside -(2^40 - 100) and small
+      counts (a total of a few hundred; the large count gets length 1)."""
+    rng = np.random.default_rng(409)
+    rows = []
+    for k in (2, 3, 40, 200, 256):
+        r = np.zeros(256, np.int64)
+        sup = rng.choice(256, k, replace=False)
+        r[sup] = rng.integers(1 << 48, 1 << 53, k)
+        r[sup[k // 2:]] = r[sup[0]]
+        rows.append(r)
+    r = (1 << 50) + np.arange(256, dtype=np.int64) // 2 * 3
+    rows.append(rng.permutation(r))
+    rows.append(np.full(256, 1 << 53, np.int64))
+    fib = [1, 1]
+    while len(fib) < 30:
+        fib.append(fib[-1] + fib[-2])
+    r = np.zeros(256, np.int64)
+    r[:30] = np.array(fib, np.int64) << 36
+    rows += [r, rng.permutation(r)]
+    r = np.ones(256, np.int64)
+    r[17] = 1 << 60
+    rows.append(r)
+    for sup in ((5,), (0, 255)):
+        r = np.zeros(256, np.int64)
+        r[list(sup)] = (1 << 61) >> (len(sup) - 1)
+        rows.append(r)
+    r = np.zeros(256, np.int64)
+    r[:40] = rng.integers(1, 9, 40)
+    r[100], r[101] = 1 << 40, 100 - (1 << 40)
+    rows.append(r)
+    out = np.stack(rows)
+    if out.sum(axis=1).max() >= 1 << 62:
+        raise AssertionError("a wide Huffman-build row reaches 2^62")
+    return out
+
+
+def normalize_wide_hists(nsym: int, log: int) -> np.ndarray:
+    """(N, nsym) int64 counts for the FSE count normalisation at table log
+    ``log`` whose totals reach 2^(62 - log) (past 2^54 below log 8, and so
+    do the remainders h 2^log mod total), with every h 2^log below 2^63,
+    where the plain version's int64 product is exact:
+
+    - random counts on random supports (a surplus), remainders tied in
+      one row;
+    - one large count and singletons, each raised to 1 (a deficit, which
+      cannot be paid where the singletons outnumber the table), and two
+      large counts with singletons;
+    - equal large counts on every symbol;
+    - counts that are no histogram: 2^(61 - log) beside -(2^(61 - log) -
+      10), a total of 10 under floor shares near 2^58 (a count's width
+      cannot be told from the total)."""
+    rng = np.random.default_rng([77, nsym, log])
+    cap = (1 << (62 - log)) // nsym
+    rows = []
+    for _ in range(3):
+        k = int(rng.integers(1, nsym + 1))
+        r = np.zeros(nsym, np.int64)
+        r[rng.choice(nsym, k, replace=False)] = rng.integers(cap // 2, cap,
+                                                             k)
+        rows.append(r)
+    r = np.zeros(nsym, np.int64)
+    r[:min(nsym, 7)] = cap                 # remainders all equal
+    rows.append(r)
+    r = np.ones(nsym, np.int64)
+    r[0] = (1 << (62 - log)) - nsym
+    rows.append(r)
+    r = np.ones(nsym, np.int64)
+    r[[0, nsym - 1]] = (1 << (61 - log)) - nsym
+    rows.append(r)
+    rows.append(np.full(nsym, cap, np.int64))
+    if nsym >= 2:
+        r = np.zeros(nsym, np.int64)
+        r[0], r[1] = 1 << (61 - log), 10 - (1 << (61 - log))
+        rows.append(r)
+    return np.stack(rows)

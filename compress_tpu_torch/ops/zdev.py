@@ -189,11 +189,12 @@ def _huff_build(hist: torch.Tensor, maxlog: int = 11, *, stats=None):
     its cost 2^(maxlog - l) still fits; ok where the deficit is spent
     and at least two symbols are present.  A CUDA tensor (int32 or int64
     counts, maxlog 1..15) goes through the kernel (``csrc/tablebuild.cu``:
-    one launch, no host sync; a CTA a row ranks the symbols by comparison
-    counts and one thread walks them, stopping where the deficit is 0), a
-    CPU tensor through ``_huff_build_ref``.  ``stats``, a (J, 2) int64
-    CUDA tensor, gets each row's walk steps and the SM cycles its walks
-    took."""
+    one launch, no host sync; a CTA a row ranks the symbols by warp-sorted
+    runs and binary searches, and one thread walks their cost exponents
+    32 at a time from registers, stopping at the end of the chunk where
+    the deficit is 0), a CPU tensor through ``_huff_build_ref``.
+    ``stats``, a (J, 2) int64 CUDA tensor, gets each row's walk steps and
+    the SM cycles its walks took."""
     if hist.device.type == "cpu":
         return _huff_build_ref(hist, maxlog)
     kind = _table_input(hist, stats, "_huff_build")
@@ -344,11 +345,13 @@ def _normalize_count(hist: torch.Tensor, log: int, *,
 
     A CUDA tensor (int32 or int64 counts, NSYM 1..1024, log 1..30) goes
     through the kernel (``csrc/tablebuild.cu``: one launch, no host sync;
-    a CTA a row, the surplus by comparison-count ranks, the deficit by
-    one thread's walk over the counts in descending order, stopping where
-    it is paid), a CPU tensor through ``_normalize_count_ref``.
-    ``stats``, an (N, 2) int64 CUDA tensor, gets each row's deficit-walk
-    steps and SM cycles (0 where a row has no deficit)."""
+    a CTA a row, the surplus by the ranks of warp-sorted runs, the deficit
+    by an exclusive scan of what each count has above 1 in rank order,
+    which gives every take of the serial walk at once), a CPU tensor
+    through ``_normalize_count_ref``.  ``stats``, an (N, 2) int64 CUDA
+    tensor, gets each row's deficit-walk steps (those the serial walk
+    would take) and the SM cycles of its scan (0 where a row has no
+    deficit)."""
     if hist.device.type == "cpu":
         return _normalize_count_ref(hist, log)
     kind = _table_input(hist, stats, "_normalize_count")

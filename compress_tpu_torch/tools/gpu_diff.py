@@ -593,19 +593,23 @@ def check_histograms(dev) -> str:
 def check_huff_build(dev) -> str:
     """Row b: the Huffman code-length build on every
     ``corpus.huff_build_hists`` class at maxlog 8 and 11 (and 1 and 15
-    on all of them), int32 and int64 counts; each row's walk steps."""
+    on all of them), int32 and int64 counts, and on the int64 rows whose
+    keys pass 2^54 (``corpus.huff_build_wide_hists``); each row's walk
+    steps."""
     from compress_tpu_torch import corpus
     from compress_tpu_torch.ops import zdev
 
     rows = np.concatenate([corpus.huff_build_hists(k)
                            for k in corpus.HUFF_BUILD_CLASSES])
     h = torch.from_numpy(rows)
+    wide = torch.from_numpy(corpus.huff_build_wide_hists())
     n = 0
     for maxlog in (1, 8, 11, 15):
-        for t in (h, h.to(torch.int64)):
+        for t in (h, h.to(torch.int64), wide):
             _same(_launched(zdev._huff_build, t.to(dev), maxlog),
                   zdev._huff_build_ref(t, maxlog),
-                  f"huff_build maxlog {maxlog} {t.dtype}")
+                  f"huff_build maxlog {maxlog} {t.dtype} "
+                  f"{'wide' if t is wide else ''}")
             n += 1
     if dev.type != "cuda":
         return f"{n} launches of {len(rows)} rows"
@@ -628,7 +632,9 @@ def check_huff_build(dev) -> str:
 def check_normalize_count(dev) -> str:
     """Row c: the FSE count normalisation on every
     ``corpus.normalize_hists`` class at NSYM 64 and 256 and logs 5-12,
-    int32 and int64 counts."""
+    int32 and int64 counts, and on the int64 rows whose totals and
+    remainders pass 2^54 (``corpus.normalize_wide_hists``) at NSYM 1,
+    63, 255, 1000 and 1024 and logs 5 and 20."""
     from compress_tpu_torch import corpus
     from compress_tpu_torch.ops import zdev
 
@@ -643,6 +649,13 @@ def check_normalize_count(dev) -> str:
                       zdev._normalize_count_ref(t, log),
                       f"normalize_count NSYM {nsym} log {log} {t.dtype}")
                 n += 1
+    for nsym in (1, 63, 255, 1000, 1024):
+        for log in (5, 20):
+            t = torch.from_numpy(corpus.normalize_wide_hists(nsym, log))
+            _same(_launched(zdev._normalize_count, t.to(dev), log),
+                  zdev._normalize_count_ref(t, log),
+                  f"normalize_count wide NSYM {nsym} log {log}")
+            n += 1
     return f"{n} launches"
 
 

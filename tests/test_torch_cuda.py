@@ -74,7 +74,9 @@ with no host walk and no host frame, and the deflate, inflate, gzip and
 zlib round trips on the host core built on the card's machine; and the
 two per-row table builds (``zdev._huff_build``, ``_normalize_count``)
 on every class of ``corpus.huff_build_hists`` / ``normalize_hists`` at
-maxlog 1-15, NSYM 1-1000 and logs 1-20 in int32 and int64, on the
+maxlog 1-15, NSYM 1-1024 and logs 1-30 in int32 and int64, on keys and
+remainders past 2^54 (``corpus.huff_build_wide_hists`` /
+``normalize_wide_hists``), on the
 counts the v2, v1, huff0 and FSE batch paths build tables of, with each
 row's walk steps equal to the CPU models'
 (``tests/test_torch_tablebuild_model.py``), one launch a call with no
@@ -2779,6 +2781,64 @@ def test_normalize_count_kernel_other_widths(cuda_device, nsym):
     h[0] = 0
     for log in (1, 4, 9, 20):
         _hold_norm(cuda_device, torch.from_numpy(h), log)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("maxlog", list(range(1, 16)))
+def test_huff_build_kernel_wide_keys(cuda_device, maxlog):
+    """Keys h << l of 2^54 and more in int64 rows
+    (``corpus.huff_build_wide_hists``), which the sorted ranks compare
+    exactly, and every hostile class in int32 and int64, at every maxlog;
+    each row's walk steps equal to the CPU model's."""
+    import test_torch_tablebuild_model as tb_model
+
+    wide = corpus.huff_build_wide_hists()
+    _hold_huff(cuda_device, torch.from_numpy(wide), maxlog)
+    rows = torch.from_numpy(_huff_rows())
+    for t in (rows, rows.to(torch.int64)):
+        _hold_huff(cuda_device, t, maxlog)
+    stats = torch.zeros((len(wide), 2), dtype=torch.int64,
+                        device=cuda_device)
+    zdev._huff_build(torch.from_numpy(wide).to(cuda_device), maxlog,
+                     stats=stats)
+    assert np.array_equal(stats[:, 0].cpu().numpy(),
+                          tb_model.model_huff_build(wide, maxlog)[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nsym", [1, 63, 64, 255, 256, 1000, 1024])
+def test_normalize_count_kernel_widths(cuda_device, nsym):
+    """NSYM 1 to 1024 (both CTA sizes, part-full runs): counts whose totals
+    and remainders pass 2^54 (``corpus.normalize_wide_hists``, int64) at
+    logs 1-30, and the deficit, ties and surplus classes in int32 and
+    int64; each row's deficit steps equal to the CPU model's."""
+    import test_torch_tablebuild_model as tb_model
+
+    for log in (1, 5, 7, 9, 20, 30):
+        wide = corpus.normalize_wide_hists(nsym, log)
+        _hold_norm(cuda_device, torch.from_numpy(wide), log)
+        stats = torch.zeros((len(wide), 2), dtype=torch.int64,
+                            device=cuda_device)
+        zdev._normalize_count(torch.from_numpy(wide).to(cuda_device), log,
+                              stats=stats)
+        assert np.array_equal(stats[:, 0].cpu().numpy(),
+                              tb_model.model_normalize_count(wide, log)[1])
+    # totals just below 2^21 at log 20: the last rows of the 32-bit packed
+    # route
+    rng = np.random.default_rng(nsym)
+    top = rng.integers(0, (1 << 21) // nsym, (6, nsym)).astype(np.int64)
+    top[:, 0] += (1 << 21) - 1 - top.sum(axis=1)
+    top[1] = 0
+    top[1, -1] = (1 << 21) - 1
+    _hold_norm(cuda_device, torch.from_numpy(top), 20)
+    if nsym < 2:
+        return
+    for log in (5, 9, 12):
+        h = torch.from_numpy(np.concatenate(
+            [corpus.normalize_hists(k, nsym, log)
+             for k in ("deficit", "ties", "surplus")]))
+        for t in (h, h.to(torch.int64)):
+            _hold_norm(cuda_device, t, log)
 
 
 @pytest.mark.cuda
